@@ -1,0 +1,396 @@
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written panel kernels from ``cuda_recommender_tpu_torch/
+csrc``, checks each against its plain PyTorch version on the card, drives
+the port's main path (CCD++ on the panel-hybrid backend at Netflix-100M
+dims, k=40, bf16 NaN-sentinel panels) through ``train()`` -- three outer
+iterations at one inner iteration as bench.py runs it, then one at two
+inner iterations, which also launches the read-only v-sweep --, checks each
+kernel again at every panel shape that run gave it, times each kernel
+against its plain version, and runs the CLI with the golden check. Any
+failure raises and exits non-zero; nothing falls back to the CPU.
+
+The last two lines of standard output are one JSON object of per-kernel
+results (``{"kernels": [...]}``) and one of the device
+(``{"ok": true, "device": {...}}``). Without a CUDA device the script exits
+non-zero before printing either.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = "cuda_recommender_tpu_torch/csrc/panel_kernels.cu"
+PALLAS = "cuda_recommender_tpu/ops/panel_pallas.py"
+#: kernel -> (TPU kernel it replaces, the Pallas call's file:line)
+KERNELS = {"panel_update_vsweep": f"{PALLAS}:240",
+           "panel_usweep": f"{PALLAS}:321",
+           "panel_vsweep": f"{PALLAS}:283"}
+
+#: bench.py's headline configuration (Netflix-100M dims)
+HEADLINE = dict(m=480_189, n=17_770, nnz=100_000_000, k=40, lam=0.05,
+                iters=3, budget=6_500_000_000, widths=(4096, 2048))
+CHECK_SHAPES = ((50, 70), (65_536, 17_770))
+RTOL = 1e-5            # g/h vs the plain version, scaled by sum(|terms|)
+
+
+def phase(name: str) -> None:
+    print(f"\n=== {name} ===", flush=True)
+
+
+def random_panel(M, W, dtype, device, seed, scale=1.0):
+    """NaN-sentinel panel (30% observed) and its four factor vectors."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    R = torch.randn((M, W), generator=gen, device=device, dtype=dtype)
+    keep = torch.rand((M, W), generator=gen, device=device, dtype=dtype) < 0.3
+    R.masked_fill_(~keep, float("nan"))
+    del keep
+    vecs = [scale * torch.randn(n, generator=gen, device=device)
+            for n in (M, M, W, W)]
+    return R, vecs
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _close(name, got, want, scale, ratios) -> float:
+    """max |got - want|; raises if any entry exceeds RTOL * scale. Appends
+    the largest |got - want| / scale to ``ratios``."""
+    err = (got - want).abs()
+    bad = err > RTOL * scale + 1e-30
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        i = int(torch.argmax((err - RTOL * scale).nan_to_num(float("inf"))))
+        raise AssertionError(f"{name}: entry {i} got {float(got[i])} want "
+                             f"{float(want[i])} (|sum terms| "
+                             f"{float(scale[i])})")
+    ratios.append(float((err / scale.clamp_min(1e-30)).max()))
+    return float(err.max())
+
+
+def check_kernels(device, shapes, dtypes=(torch.float32, torch.bfloat16),
+                  worst=None) -> dict:
+    """Each kernel vs its plain version on the same inputs: stored residual
+    bit-equal, g/h within RTOL of sum(|terms|), repeat runs bit-identical.
+    Returns ``worst`` updated to the max abs error of g/h per kernel."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    worst = dict(worst or {name: 0.0 for name in KERNELS})
+    for dtype in dtypes:
+        for M, W in shapes:
+            t0 = time.perf_counter()
+            ratios = []
+            Rd, (uo, up, vo, vp) = random_panel(M, W, dtype, device, seed=M)
+            Rk, Rp = Rd.clone(), Rd.clone()
+            gk, hk = pk.panel_update_vsweep(Rk, uo, up, vo, vp)
+            _sync(device)
+            gp, hp = pk.panel_update_vsweep_plain(Rp, uo, up, vo, vp)
+            _sync(device)
+            if not torch.equal(_bits(Rk), _bits(Rp)):
+                n_bad = int((_bits(Rk) != _bits(Rp)).sum())
+                raise AssertionError(f"K1 {dtype} {M}x{W}: stored residual "
+                                     f"differs in {n_bad} cells")
+            Rk2 = Rd.clone()
+            del Rd
+            gk2, hk2 = pk.panel_update_vsweep(Rk2, uo, up, vo, vp)
+            _sync(device)
+            if not (torch.equal(gk, gk2) and torch.equal(hk, hk2)
+                    and torch.equal(_bits(Rk), _bits(Rk2))):
+                raise AssertionError(f"K1 {dtype} {M}x{W}: not repeatable")
+            del Rk2
+            # sum(|terms|): the plain sweeps over |R| and |u|, |v|
+            Ra = Rp.abs()
+            sg, _ = pk.panel_vsweep_plain(Ra, uo.abs())
+            su, _ = pk.panel_usweep_plain(Ra, vo.abs())
+            del Ra
+            err = max(_close("K1 g", gk, gp, sg, ratios),
+                      _close("K1 h", hk, hp, hp, ratios))
+            worst["panel_update_vsweep"] = max(worst["panel_update_vsweep"],
+                                               err)
+
+            g3, h3 = pk.panel_vsweep(Rk, up)
+            _sync(device)
+            g3p, h3p = pk.panel_vsweep_plain(Rp, up)
+            s3, _ = pk.panel_vsweep_plain(Rp.abs(), up.abs())
+            err3 = max(_close("K3 g", g3, g3p, s3, ratios),
+                       _close("K3 h", h3, h3p, h3p, ratios))
+            g3b, h3b = pk.panel_vsweep(Rk, up)
+            if not (torch.equal(g3, g3b) and torch.equal(h3, h3b)):
+                raise AssertionError(f"K3 {dtype} {M}x{W}: not repeatable")
+            worst["panel_vsweep"] = max(worst["panel_vsweep"], err3)
+
+            g2, h2 = pk.panel_usweep(Rk, vo)
+            _sync(device)
+            g2p, h2p = pk.panel_usweep_plain(Rp, vo)
+            err2 = max(_close("K2 g", g2, g2p, su, ratios),
+                       _close("K2 h", h2, h2p, h2p, ratios))
+            g2b, h2b = pk.panel_usweep(Rk, vo)
+            if not (torch.equal(g2, g2b) and torch.equal(h2, h2b)):
+                raise AssertionError(f"K2 {dtype} {M}x{W}: not repeatable")
+            worst["panel_usweep"] = max(worst["panel_usweep"], err2)
+            _sync(device)
+            print(f"[check] {str(dtype):15s} {M:6d}x{W:<6d} residual "
+                  f"bit-equal, repeatable; max|dg|,|dh| K1 {err:.3e} "
+                  f"K3 {err3:.3e} K2 {err2:.3e}; largest error / sum|terms| "
+                  f"{max(ratios):.2e} (bar {RTOL})"
+                  f" [{time.perf_counter() - t0:.1f} s]", flush=True)
+            del Rk, Rp
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    return worst
+
+
+def want_launches(k, iters, inner, panels) -> dict:
+    """Launches of one train() run: per rank and panel, K1 on the first
+    inner iteration, K3 on each further one, K2 on every one."""
+    per = k * iters * panels
+    return {"panel_update_vsweep": per, "panel_vsweep": per * (inner - 1),
+            "panel_usweep": per * inner}
+
+
+def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
+                 metrics_file) -> dict:
+    """train() at bench.py's headline configuration (-T 1, ``iters`` outer
+    iterations), then one outer iteration at -T 2 on the same data. The
+    launch counts are set to 0 once, just before the first run, and read
+    after each run; returns the numbers of both."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    t0 = time.perf_counter()
+    R, T = synthetic_cached(m, n, nnz, seed=1, test_fraction=0.02)
+    data_s = time.perf_counter() - t0
+    print(f"[headline] data {R.rows} x {R.cols}, train nnz {R.nnz}, test "
+          f"nnz {T.nnz}: {data_s:.1f} s (host)", flush=True)
+
+    def config(maxiter, inner):
+        return Config(k=k, lambda_=lam, maxiter=maxiter, maxinneriter=inner,
+                      backend="hybrid", residual_dtype="bfloat16",
+                      mask_dtype="nan", hybrid_panel_kernel=True,
+                      hybrid_dense_cells=budget, hybrid_panel_widths=widths,
+                      metrics_file=metrics_file)
+
+    log = MetricsLog(metrics_file)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    try:
+        res = train(config(iters, 1), R, T, device=device, log=log)
+        launches = pk.launch_counts()
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.device(device).type == "cuda" else 0)
+        print("[headline] -T 2, one outer iteration:", flush=True)
+        res2 = train(config(1, 2), R, T, device=device, log=log)
+    finally:
+        log.close()
+    total = pk.launch_counts()
+    launches2 = {name: total[name] - launches[name] for name in total}
+    with open(metrics_file) as f:
+        events = [json.loads(line) for line in f]
+    plan_ev = [e for e in events if e["kind"] == "hybrid_plan"][0]
+    P = len(plan_ev["panels"])
+    rmse = [st.rmse for st in res.stats]
+    it_s = [st.rank_time for st in res.stats]
+    steady = it_s[1:] if len(it_s) > 1 else it_s
+    s_iter = sum(steady) / len(steady)
+    rate = R.nnz * k / s_iter
+    print(f"[headline] plan: {P} panels {plan_ev['panels']}, "
+          f"{plan_ev['panel_cells']} cells, tail nnz {plan_ev['nnz_light']} "
+          f"({100.0 * plan_ev['nnz_light'] / R.nnz:.2f}% of nnz); plan "
+          f"{plan_ev['plan_s']:.1f} s (host), device set-up "
+          f"{plan_ev['setup_s']:.1f} s", flush=True)
+    print(f"[headline] RMSE per iteration {rmse}; s/iter {it_s}", flush=True)
+    print(f"[headline] s/iter (iterations 2-{len(it_s)}): {s_iter:.4f}; "
+          f"rating-updates/s: {rate:.4e} ({rate / 1e6:.1f} M); peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    rmse2 = [st.rmse for st in res2.stats]
+    print(f"[headline] -T 2: RMSE {rmse2}, s/iter "
+          f"{[st.rank_time for st in res2.stats]}; launches {launches2}",
+          flush=True)
+    if not all(math.isfinite(r) for r in rmse + rmse2):
+        raise AssertionError(f"non-finite RMSE {rmse}, -T 2 {rmse2}")
+    if len(rmse) != iters or not all(r < rmse[0] for r in rmse[1:]):
+        raise AssertionError(f"RMSE does not fall after iteration 1: {rmse}")
+    for got, inner, n_it in ((launches, 1, iters), (launches2, 2, 1)):
+        want = want_launches(k, n_it, inner, P)
+        if got != want:
+            raise AssertionError(f"-T {inner}: launches {got}, want {want} "
+                                 f"(k={k}, {n_it} iterations, {P} panels)")
+    print(f"[headline] launches in all {total}", flush=True)
+    return dict(panels=plan_ev["panels"], s_iter=s_iter, rate=rate,
+                peak=peak, launches=total, rmse=rmse)
+
+
+def _time(fn, reps) -> float:
+    """Mean ms per call over ``reps`` calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_kernels(M, W, reps=5) -> dict:
+    """Each kernel against its plain version at one bf16 panel shape, warm,
+    in turns plain, kernel, kernel, plain. Returns name -> (ms, plain_ms)."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    Rd, (uo, up, vo, vp) = random_panel(M, W, torch.bfloat16, "cuda", seed=7,
+                                        scale=1e-3)
+    calls = {
+        "panel_update_vsweep": (
+            lambda: pk.panel_update_vsweep(Rd, uo, up, vo, vp),
+            lambda: pk.panel_update_vsweep_plain(Rd, uo, up, vo, vp)),
+        "panel_usweep": (lambda: pk.panel_usweep(Rd, vo),
+                         lambda: pk.panel_usweep_plain(Rd, vo)),
+        "panel_vsweep": (lambda: pk.panel_vsweep(Rd, uo),
+                         lambda: pk.panel_vsweep_plain(Rd, uo)),
+    }
+    out = {}
+    for name, (kern, plain) in calls.items():
+        kern(), plain()                                   # warm-up
+        torch.cuda.synchronize()
+        p1 = _time(plain, reps)
+        k1 = _time(kern, reps)
+        k2 = _time(kern, reps)
+        p2 = _time(plain, reps)
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        gb = M * W * 2 * (2 if name == "panel_update_vsweep" else 1) / 1e9
+        print(f"[timing] {name:20s} {M}x{W} bf16: kernel {k1:.3f} / {k2:.3f} "
+              f"ms, plain {p1:.3f} / {p2:.3f} ms; kernel "
+              f"{gb / (out[name][0] / 1e3):.0f} GB/s of panel traffic",
+              flush=True)
+    return out
+
+
+#: the CLI run's RMSE must also match the reference's at every iteration
+RMSE_TOL = 1e-4
+
+
+def run_cli() -> None:
+    """The CLI at -T 2 with the golden check (W and H must both PASS the
+    reference's per-entry 10% bar, src/extras.cpp:218-238) and K3 launched
+    at least once."""
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.cli.train",
+           "--dataset", "synthetic:m=6040,n=3706,nnz=900000", "-k", "10",
+           "-t", "3", "-T", "2", "--backend", "hybrid", "--mask-dtype", "nan",
+           "--panel-kernel", "--residual-dtype", "float32", "--golden",
+           "--device", "cuda"]
+    print("[cli] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    print(res.stdout + res.stderr, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"CLI exited {res.returncode}")
+    checks = re.findall(r"^Check\.\.\. (.*)$", res.stdout, re.M)
+    if checks != ["PASS!", "PASS!"]:
+        raise AssertionError(f"golden check of W and H: {checks}")
+    rmse = [float(x) for x in re.findall(r"RMSE=([0-9.]+)", res.stdout)]
+    ours, ref = rmse[:3], rmse[3:6]
+    if len(rmse) != 6 or max(abs(a - b) for a, b in zip(ours, ref)) > RMSE_TOL:
+        raise AssertionError(f"RMSE hybrid {ours} vs reference {ref}")
+    m = re.search(r"^\[info\] kernel launches: (\{.*\})$", res.stdout, re.M)
+    launches = json.loads(m.group(1))
+    print(f"[cli] panel_vsweep launched {launches['panel_vsweep']} times at "
+          f"-T 2", flush=True)
+    if launches["panel_vsweep"] <= 0:
+        raise AssertionError("panel_vsweep never launched at -T 2")
+    print(f"[cli] golden W PASS!, H PASS!; RMSE hybrid {ours} = reference "
+          f"{ref} within {RMSE_TOL}; launches {launches} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from cuda_recommender_tpu_torch.core.device import resolve_device
+    from cuda_recommender_tpu_torch.ops import build
+
+    t_all = time.perf_counter()
+    phase("1 environment")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    nvcc = subprocess.run([build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True).stdout
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, devices {torch.cuda.device_count()}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    print(nvcc.strip().splitlines()[-1], flush=True)
+    dev = resolve_device("cuda")
+
+    phase("2 build")
+    t0 = time.perf_counter()
+    so, log = build.build()
+    build.load()
+    print(f"[build] {os.path.relpath(so, HERE)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for line in log.splitlines():
+        if re.search(r"Compiling entry|registers|spill", line):
+            print("[ptxas] " + line.strip(), flush=True)
+
+    phase("3 kernel checks")
+    worst = check_kernels(dev, CHECK_SHAPES)
+
+    phase("4 headline run (train(), Netflix-100M dims, k=40, bf16, NaN "
+          "sentinel, hand stair (4096, 2048), 6.5e9 cells)")
+    with tempfile.TemporaryDirectory() as tmp:
+        head = run_headline(dev, metrics_file=os.path.join(
+            tmp, "headline.jsonl"), **HEADLINE)
+
+    phase("5 kernel checks at the headline's panel shapes")
+    torch.cuda.empty_cache()
+    shapes = [(r1 - r0, w) for r0, r1, w in head["panels"]]
+    worst = check_kernels(dev, shapes, (torch.bfloat16,), worst)
+
+    phase("6 kernel timing at the headline's panel-0 shape")
+    times = time_kernels(*shapes[0])
+    print(f"[timing] card: {smi}", flush=True)
+
+    phase("7 CLI with golden check (-T 2)")
+    run_cli()
+
+    print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
+          flush=True)
+    print(smi, flush=True)
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": replaces, "launches": head["launches"][name],
+                "max_abs_err": worst[name], "ms": times[name][0],
+                "plain_ms": times[name][1]}
+               for name, replaces in KERNELS.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,167 @@
+"""Training driver: backend selection, dual-run golden validation, telemetry.
+
+The port of ``cuda_recommender_tpu/core/trainer.py``, the orchestration
+counterpart of the reference's main() (reference src/main.cpp:38-173):
+initialize identically-seeded factor copies, run the compiled backend (the
+reference's CUDA role) on ``device`` and optionally the NumPy golden backend
+(the OMP role), compute an independent final RMSE per backend
+(calculate_rmse_directly, src/extras.cpp:182-216), then cross-validate with
+golden_compare (src/main.cpp:133-144).
+
+The port runs CCD++ on the ``hybrid`` backend and the ``ref`` backend;
+everything else raises ``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+
+from ..data.sparse import RatingMatrix, TestCOO
+from ..eval.metrics import GoldenResult, calrmse_np, golden_compare
+from .config import Backend, Config, Solver
+from .device import resolve_device
+from .init import init_factors_np
+from .metrics_log import MetricsLog
+
+#: ROADMAP.md queue-1 items that port the backends outside the slice
+_BACKEND_ITEMS = {
+    Backend.DENSE: "item 10: dense/pallas",
+    Backend.PALLAS: "item 10: dense/pallas",
+    Backend.ELL: "item 12: pure ELL",
+}
+
+
+@dataclasses.dataclass
+class TrainResult:
+    W: np.ndarray
+    H: np.ndarray
+    stats: list
+    entity_major: bool
+    backend: str
+    final_rmse: float
+    train_time: float
+    ref_stats: Optional[list] = None
+    ref_final_rmse: Optional[float] = None
+    golden_W: Optional[GoldenResult] = None
+    golden_H: Optional[GoldenResult] = None
+    validate_time: float = 0.0
+
+
+def _check_supported(cfg: Config, backend: Backend, mesh,
+                     resume_from_checkpoint: bool) -> None:
+    if cfg.solver == Solver.ALS:
+        raise NotImplementedError("ALS is not in the port yet (ROADMAP.md "
+                                  "queue 1 item 11: ALS)")
+    if backend not in (Backend.HYBRID, Backend.REF):
+        raise NotImplementedError(
+            f"backend {backend.value!r} is not in the port yet (ROADMAP.md "
+            f"queue 1 {_BACKEND_ITEMS[backend]}); use 'hybrid' or 'ref'")
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not in the port yet "
+                                  "(ROADMAP.md queue 1 item 15: "
+                                  "multi-device)")
+    if cfg.checkpoint_dir or resume_from_checkpoint:
+        raise NotImplementedError("checkpoints are not in the port yet "
+                                  "(ROADMAP.md queue 1 item 7: "
+                                  "checkpoint/resume)")
+    if backend == Backend.HYBRID:
+        from ..solvers.ccd_hybrid import check_supported
+        check_supported(cfg)
+
+
+def _run_reference(cfg: Config, R, W0, H0, T, log):
+    from ..solvers.reference import ccd_reference
+
+    acc = {"rank": 0.0, "upd": 0.0}
+
+    def cb(st):
+        acc["rank"] += st.rank_time
+        acc["upd"] += st.update_time
+        log.iteration(cfg.solver.value, "ref", st.oiter, st.rmse,
+                      st.rank_time, acc["rank"], st.update_time, acc["upd"],
+                      rmse_time=getattr(st, "rmse_time", None))
+
+    W, H = W0.copy(), H0.copy()
+    stats = ccd_reference(R, W, H, T, lambda_=cfg.lambda_,
+                          maxiter=cfg.maxiter, nmf=cfg.do_nmf,
+                          maxinneriter=cfg.maxinneriter, callback=cb,
+                          early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
+    return W, H, stats
+
+
+def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device):
+    if backend == Backend.REF:
+        return _run_reference(cfg, R, W0, H0, T, log)
+    from ..solvers.ccd_hybrid import ccd_hybrid_train
+
+    acc = {"rank": 0.0, "upd": 0.0}
+
+    def cb(st):
+        acc["rank"] += st.rank_time
+        acc["upd"] += st.update_time
+        log.iteration(cfg.solver.value, backend.value, st.oiter, st.rmse,
+                      st.rank_time, acc["rank"], st.update_time, acc["upd"],
+                      rmse_time=getattr(st, "rmse_time", None))
+
+    return ccd_hybrid_train(R, W0, H0, T, cfg, device=device, callback=cb,
+                            log=log)
+
+
+def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
+          mesh=None, log: Optional[MetricsLog] = None,
+          resume_from_checkpoint: bool = False) -> TrainResult:
+    """Full training run on ``device`` ("cuda" or "cpu"; "cuda" without a
+    GPU raises) with optional golden validation (cfg.golden)."""
+    backend = cfg.resolve_backend(R.rows, R.cols)
+    _check_supported(cfg, backend, mesh, resume_from_checkpoint)
+    device = resolve_device(device)
+    log = log or MetricsLog(cfg.metrics_file)
+    log.info(f"[info] Picked Version: {cfg.solver.value.upper()}!")
+    log.info("[info] Backend = %s | K = %d | InnerIter = %d | OuterIter = %d "
+             "| L = %.3f" % (backend.value, cfg.k, cfg.maxinneriter,
+                             cfg.maxiter, cfg.lambda_))
+
+    # identical init for every backend copy — the reference's srand(0)
+    # discipline that makes golden_compare meaningful (src/main.cpp:86-98)
+    W0, H0 = init_factors_np(cfg.k, R.rows, R.cols, seed=cfg.seed)
+
+    log.info(f"[INFO] Computing with {backend.value} backend...")
+    t0 = time.perf_counter()
+    W, H, stats = _run_compiled(cfg, backend, R, W0.copy(), H0.copy(), T, log,
+                                device)
+    train_time = time.perf_counter() - t0
+    log.info("[info] %s Training time: %f s." % (backend.value, train_time))
+    t0 = time.perf_counter()
+    final_rmse = calrmse_np(T, W, H, entity_major=False)
+    log.info("Test RMSE = %f. Calculated in %fs"
+             % (final_rmse, time.perf_counter() - t0))
+
+    result = TrainResult(W=W, H=H, stats=stats, entity_major=False,
+                         backend=backend.value, final_rmse=final_rmse,
+                         train_time=train_time)
+
+    if cfg.golden:
+        log.info("[INFO] Computing with reference (golden) backend...")
+        t0 = time.perf_counter()
+        W_ref, H_ref, ref_stats = _run_reference(cfg, R, W0, H0, T, log)
+        log.info("[info] ref Training time: %f s." % (time.perf_counter() - t0))
+        result.ref_stats = ref_stats
+        result.ref_final_rmse = calrmse_np(T, W_ref, H_ref, entity_major=False)
+        log.info("Test RMSE = %f." % result.ref_final_rmse)
+        log.info("[info] validate the results.")
+        t0 = time.perf_counter()
+        result.golden_W = golden_compare(W, W_ref)
+        result.golden_H = golden_compare(H, H_ref)
+        result.validate_time = time.perf_counter() - t0
+        log.info(result.golden_W.message())
+        log.info(result.golden_H.message())
+        log.info("[info] Validate Time: %f s." % result.validate_time)
+        log.event("golden", W_pass=result.golden_W.passed,
+                  H_pass=result.golden_H.passed,
+                  W_err_pct=result.golden_W.error_percentage,
+                  H_err_pct=result.golden_H.error_percentage)
+    return result

@@ -1,0 +1,322 @@
+// Fused CCD++ panel passes over NaN-sentinel residual panels, for Hopper
+// (sm_90a), with a plain C interface loaded through ctypes
+// (ops/build.py, ops/panel_kernels.py).
+//
+// Replaces the Pallas TPU kernels of cuda_recommender_tpu/ops/panel_pallas.py:
+//   crtpu_panel_update_vsweep  <- panel_update_vsweep (_uv_kernel)
+//   crtpu_panel_vsweep         <- panel_vsweep        (_vsweep_kernel)
+//   crtpu_panel_usweep         <- panel_usweep        (_usweep_kernel)
+//
+// A panel is an (M, W) row-major residual block, float32 or bfloat16, whose
+// unobserved cells hold NaN. Per rank:
+//   K1 update+v-sweep: R' = round(R + (uo*vo - up*vp)) written in place, then
+//      g[j] = sum_i uo[i]*R'[i,j]*m, h[j] = sum_i uo[i]^2*m, m = !isnan(R').
+//   K3 v-sweep: the same sums over R without the update (read only).
+//   K2 u-sweep: g[i] = sum_j R[i,j]*v[j]*m, h[i] = sum_j v[j]^2*m (read only).
+//
+// What bounds them on an H100: memory. Each cell costs a handful of flops
+// and 2 bytes read (+2 written in K1) at bf16, 4 (+4) at f32; a 6.5e9-cell
+// bf16 stair is 13 GB per pass. The design streams every cell once,
+// coalesced (a warp reads 32 consecutive cells of one row), keeps the factor
+// vectors in registers or the read-only cache, and takes the mask from the
+// NaN sentinel in-register, so no mask array exists.
+//
+// The Pallas kernels accumulate g/h across a sequential grid; GPU blocks run
+// in parallel, so the column sums (K1, K3) are reduced deterministically in
+// two passes: each block owns a strip of rows x 128 columns and writes its
+// per-column partials (fixed order inside the block), then one thread per
+// column adds the strips' partials in strip order. No float atomics: runs
+// repeat bit for bit. K2 gives each row to one warp, which walks the whole
+// row and reduces with a fixed butterfly, so it needs no second pass.
+//
+// Rounding: the delta is formed as fl(fl(uo*vo) - fl(up*vp)) and added with
+// explicit _rn intrinsics, so nvcc's FMA contraction cannot change the
+// stored bits; the sum is rounded once to the storage type
+// (round-to-nearest-even) and the sweep reads exactly that stored value. NaN
+// passes through the add. The stored residual is therefore bit-equal to the
+// plain PyTorch version (ops/panel_kernels.py) on the same card.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kColThreadsX = 32;  // threads across a strip's columns
+constexpr int kColThreadsY = 8;   // threads down a strip's rows
+constexpr int kColsPerThread = 4;
+constexpr int kRowBatch = 4;      // rows loaded per thread before any store
+constexpr int kStripCols = kColThreadsX * kColsPerThread;  // 128
+constexpr int kRowWarps = 8;      // rows (one warp each) per u-sweep block
+constexpr int kRowLoads = 8;      // loads in flight per lane in the u-sweep
+constexpr int kReduceThreads = 256;
+
+__device__ __forceinline__ float load_cell(const float* p) { return *p; }
+
+__device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// Round once to the storage type, store, and return exactly what was stored.
+__device__ __forceinline__ float store_cell(float* p, float x) {
+  *p = x;
+  return x;
+}
+
+__device__ __forceinline__ float store_cell(__nv_bfloat16* p, float x) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(x);
+  *p = b;
+  return __bfloat162float(b);
+}
+
+// Column sweep over one strip: rows [blockIdx.y*rows_per_part, +rows_per_part)
+// x columns [blockIdx.x*128, +128). With kUpdate the rank-1 delta is applied
+// and stored first. Writes the strip's per-column partials of g and h.
+template <typename T, bool kUpdate>
+__global__ void __launch_bounds__(kColThreadsX* kColThreadsY)
+    col_sweep_kernel(T* R, const float* __restrict__ uo,
+                     const float* __restrict__ up,
+                     const float* __restrict__ vo,
+                     const float* __restrict__ vp, float* __restrict__ gpart,
+                     float* __restrict__ hpart, int M, int W,
+                     int rows_per_part) {
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int c_base = blockIdx.x * kStripCols + tx;
+  const int r0 = blockIdx.y * rows_per_part;
+  const int r1 = min(M, r0 + rows_per_part);
+
+  float vo_c[kColsPerThread], vp_c[kColsPerThread];
+  float g[kColsPerThread], h[kColsPerThread];
+#pragma unroll
+  for (int q = 0; q < kColsPerThread; ++q) {
+    const int c = c_base + q * kColThreadsX;
+    vo_c[q] = (kUpdate && c < W) ? vo[c] : 0.f;
+    vp_c[q] = (kUpdate && c < W) ? vp[c] : 0.f;
+    g[q] = 0.f;
+    h[q] = 0.f;
+  }
+
+  // Rows go in batches of kRowBatch per thread and all of a batch's loads
+  // are issued before its stores: the compiler cannot prove that a store to
+  // one row misses the next row's cells, so row-at-a-time code would wait
+  // out each load's latency behind the previous row's stores. Here
+  // kRowBatch * kColsPerThread loads are in flight per thread.
+  for (int rb = r0 + ty; rb < r1; rb += kColThreadsY * kRowBatch) {
+    float x[kRowBatch][kColsPerThread];
+    float a[kRowBatch], ap[kRowBatch];
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) {
+      const int r = rb + b * kColThreadsY;
+      const bool row_ok = r < r1;
+      a[b] = row_ok ? uo[r] : 0.f;
+      ap[b] = (kUpdate && row_ok) ? up[r] : 0.f;
+      const T* row = R + static_cast<size_t>(row_ok ? r : r0) * W;
+#pragma unroll
+      for (int q = 0; q < kColsPerThread; ++q) {
+        const int c = c_base + q * kColThreadsX;
+        x[b][q] = (row_ok && c < W) ? load_cell(row + c) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) {
+      const int r = rb + b * kColThreadsY;
+      if (r >= r1) break;
+      T* row = R + static_cast<size_t>(r) * static_cast<size_t>(W);
+#pragma unroll
+      for (int q = 0; q < kColsPerThread; ++q) {
+        const int c = c_base + q * kColThreadsX;
+        if (c >= W) continue;
+        float xv = x[b][q];
+        if (kUpdate) {
+          const float d =
+              __fsub_rn(__fmul_rn(a[b], vo_c[q]), __fmul_rn(ap[b], vp_c[q]));
+          xv = store_cell(row + c, __fadd_rn(xv, d));
+        }
+        if (!isnan(xv)) {
+          g[q] += a[b] * xv;
+          h[q] += a[b] * a[b];
+        }
+      }
+    }
+  }
+
+  __shared__ float sg[kColThreadsY][kStripCols];
+  __shared__ float sh[kColThreadsY][kStripCols];
+#pragma unroll
+  for (int q = 0; q < kColsPerThread; ++q) {
+    sg[ty][tx + q * kColThreadsX] = g[q];
+    sh[ty][tx + q * kColThreadsX] = h[q];
+  }
+  __syncthreads();
+  if (ty == 0) {
+#pragma unroll
+    for (int q = 0; q < kColsPerThread; ++q) {
+      const int c = c_base + q * kColThreadsX;
+      if (c < W) {
+        float gs = 0.f, hs = 0.f;
+#pragma unroll
+        for (int y = 0; y < kColThreadsY; ++y) {
+          gs += sg[y][tx + q * kColThreadsX];
+          hs += sh[y][tx + q * kColThreadsX];
+        }
+        const size_t o = static_cast<size_t>(blockIdx.y) * W + c;
+        gpart[o] = gs;
+        hpart[o] = hs;
+      }
+    }
+  }
+}
+
+// Second pass of the column sums: strip partials added in strip order.
+__global__ void __launch_bounds__(kReduceThreads)
+    col_reduce_kernel(const float* __restrict__ gpart,
+                      const float* __restrict__ hpart, float* __restrict__ g,
+                      float* __restrict__ h, int nparts, int W) {
+  const int c = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (c >= W) return;
+  float gs = 0.f, hs = 0.f;
+  for (int p = 0; p < nparts; ++p) {
+    const size_t o = static_cast<size_t>(p) * W + c;
+    gs += gpart[o];
+    hs += hpart[o];
+  }
+  g[c] = gs;
+  h[c] = hs;
+}
+
+// Row sweep: one warp per row walks all W columns (kRowLoads loads in
+// flight per lane, 4 accumulators), then a fixed butterfly reduces the warp.
+template <typename T>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    row_sweep_kernel(const T* __restrict__ R, const float* __restrict__ v,
+                     float* __restrict__ g, float* __restrict__ h, int M,
+                     int W) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= M) return;  // whole warp leaves together
+  const T* row = R + static_cast<size_t>(r) * static_cast<size_t>(W);
+  float gs[4] = {0.f, 0.f, 0.f, 0.f};
+  float hs[4] = {0.f, 0.f, 0.f, 0.f};
+  int c = lane;
+  for (; c + 32 * (kRowLoads - 1) < W; c += 32 * kRowLoads) {
+    float x[kRowLoads];  // all loads first: kRowLoads in flight per lane
+#pragma unroll
+    for (int q = 0; q < kRowLoads; ++q) x[q] = load_cell(row + c + 32 * q);
+#pragma unroll
+    for (int q = 0; q < kRowLoads; ++q) {
+      if (!isnan(x[q])) {
+        const float vc = v[c + 32 * q];
+        gs[q & 3] += x[q] * vc;
+        hs[q & 3] += vc * vc;
+      }
+    }
+  }
+  for (; c < W; c += 32) {
+    const float x = load_cell(row + c);
+    if (!isnan(x)) {
+      const float vc = v[c];
+      gs[0] += x * vc;
+      hs[0] += vc * vc;
+    }
+  }
+  float gt = (gs[0] + gs[1]) + (gs[2] + gs[3]);
+  float ht = (hs[0] + hs[1]) + (hs[2] + hs[3]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    gt += __shfl_xor_sync(0xffffffffu, gt, off);
+    ht += __shfl_xor_sync(0xffffffffu, ht, off);
+  }
+  if (lane == 0) {
+    g[r] = gt;
+    h[r] = ht;
+  }
+}
+
+template <typename T, bool kUpdate>
+void launch_col_sweep(void* R, const void* uo, const void* up, const void* vo,
+                      const void* vp, void* gpart, void* hpart, void* g,
+                      void* h, int M, int W, int rows_per_part,
+                      cudaStream_t stream) {
+  const int nparts = (M + rows_per_part - 1) / rows_per_part;
+  const dim3 grid((W + kStripCols - 1) / kStripCols, nparts);
+  const dim3 block(kColThreadsX, kColThreadsY);
+  col_sweep_kernel<T, kUpdate><<<grid, block, 0, stream>>>(
+      static_cast<T*>(R), static_cast<const float*>(uo),
+      static_cast<const float*>(up), static_cast<const float*>(vo),
+      static_cast<const float*>(vp), static_cast<float*>(gpart),
+      static_cast<float*>(hpart), M, W, rows_per_part);
+  col_reduce_kernel<<<(W + kReduceThreads - 1) / kReduceThreads,
+                      kReduceThreads, 0, stream>>>(
+      static_cast<const float*>(gpart), static_cast<const float*>(hpart),
+      static_cast<float*>(g), static_cast<float*>(h), nparts, W);
+}
+
+template <typename T>
+void launch_row_sweep(const void* R, const void* v, void* g, void* h, int M,
+                      int W, cudaStream_t stream) {
+  row_sweep_kernel<T><<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
+                        stream>>>(static_cast<const T*>(R),
+                                  static_cast<const float*>(v),
+                                  static_cast<float*>(g),
+                                  static_cast<float*>(h), M, W);
+}
+
+// dtype codes shared with ops/panel_kernels.py
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+bool bad_args(int dtype, int M, int W) {
+  return (dtype != kFloat32 && dtype != kBFloat16) || M <= 0 || W <= 0;
+}
+
+}  // namespace
+
+// Each entry point launches on ``stream`` and returns cudaGetLastError():
+// a refused launch (bad configuration) never runs and is reported only here.
+extern "C" {
+
+int crtpu_panel_update_vsweep(void* R, int dtype, const void* uo,
+                              const void* up, const void* vo, const void* vp,
+                              void* gpart, void* hpart, void* g, void* h,
+                              int M, int W, int rows_per_part, void* stream) {
+  if (bad_args(dtype, M, W) || rows_per_part <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    launch_col_sweep<float, true>(R, uo, up, vo, vp, gpart, hpart, g, h, M, W,
+                                  rows_per_part, s);
+  else
+    launch_col_sweep<__nv_bfloat16, true>(R, uo, up, vo, vp, gpart, hpart, g,
+                                          h, M, W, rows_per_part, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int crtpu_panel_vsweep(const void* R, int dtype, const void* u, void* gpart,
+                       void* hpart, void* g, void* h, int M, int W,
+                       int rows_per_part, void* stream) {
+  if (bad_args(dtype, M, W) || rows_per_part <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* Rw = const_cast<void*>(R);  // the read-only instantiation never stores
+  if (dtype == kFloat32)
+    launch_col_sweep<float, false>(Rw, u, nullptr, nullptr, nullptr, gpart,
+                                   hpart, g, h, M, W, rows_per_part, s);
+  else
+    launch_col_sweep<__nv_bfloat16, false>(Rw, u, nullptr, nullptr, nullptr,
+                                           gpart, hpart, g, h, M, W,
+                                           rows_per_part, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int crtpu_panel_usweep(const void* R, int dtype, const void* v, void* g,
+                       void* h, int M, int W, void* stream) {
+  if (bad_args(dtype, M, W)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    launch_row_sweep<float>(R, v, g, h, M, W, s);
+  else
+    launch_row_sweep<__nv_bfloat16>(R, v, g, h, M, W, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

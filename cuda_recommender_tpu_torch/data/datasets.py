@@ -1,0 +1,135 @@
+"""Synthetic dataset generation (NumPy).
+
+The port's copy of the synthetic generators of
+``cuda_recommender_tpu/data/datasets.py``: the same ``default_rng(seed)``
+draws in the same order, so both packages see identical ratings. The
+reference ships no data, only binary loaders for pre-converted MovieLens /
+Netflix / Yahoo dumps (reference src/tools.cpp:3-85); the text and binary
+loaders are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+
+from .sparse import RatingMatrix, TestCOO, from_coo, make_test
+
+
+def _unique_sorted(x: np.ndarray) -> np.ndarray:
+    """``np.unique(x)`` (sorted distinct values) by one sort. NumPy >= 2.3
+    finds unique int64 values with a hash table, whose random accesses
+    measured 28 s for 23M keys on the GPU machine's host CPU; a sort gives
+    the same array."""
+    x = np.sort(x)
+    return x[np.concatenate([[True], x[1:] != x[:-1]])] if x.size else x
+
+
+def synthetic(m: int, n: int, nnz: int, *, k_true: int = 8, noise: float = 0.1,
+              test_fraction: float = 0.1, seed: int = 0,
+              power_law: bool = True) -> tuple[RatingMatrix, TestCOO]:
+    """Low-rank-plus-noise rating matrix with optional power-law degrees.
+
+    Ratings come from a rank-``k_true`` ground truth so RMSE convergence curves
+    are meaningful (they should drop well below the rating std).
+    """
+    rng = np.random.default_rng(seed)
+    target = int(nnz / (1.0 - test_fraction)) if test_fraction > 0 else nnz
+    target = min(target, m * n)
+
+    if power_law:
+        # Zipf-ish marginals over users and items, like MovieLens/Netflix;
+        # inverse-CDF sampling (cumsum + searchsorted) scales to 100M+ draws.
+        cu = np.cumsum(1.0 / np.arange(1, m + 1) ** 0.8)
+        ci = np.cumsum(1.0 / np.arange(1, n + 1) ** 0.9)
+        cu /= cu[-1]
+        ci /= ci[-1]
+
+        def draw(size):
+            return (np.searchsorted(cu, rng.random(size)).astype(np.int64),
+                    np.searchsorted(ci, rng.random(size)).astype(np.int64))
+    else:
+        def draw(size):
+            return (rng.integers(0, m, size=size).astype(np.int64),
+                    rng.integers(0, n, size=size).astype(np.int64))
+
+    # dedupe on packed keys; overdraw once, top up if collisions ran heavy
+    keys = np.empty(0, np.int64)
+    for _ in range(6):
+        need = target - keys.shape[0]
+        if need <= 0:
+            break
+        du, di = draw(int(need * 1.7) + 16)
+        keys = _unique_sorted(np.concatenate([keys, du * n + di]))
+    # unique() sorts — shuffle so truncation doesn't bias toward low ids
+    keys = keys[rng.permutation(keys.shape[0])][:target]
+    ui, ii = keys // n, keys % n
+    total = ui.shape[0]
+
+    W = rng.normal(0, 1.0 / np.sqrt(k_true), size=(m, k_true)).astype(np.float32)
+    H = rng.normal(0, 1.0 / np.sqrt(k_true), size=(n, k_true)).astype(np.float32)
+    vals = np.einsum("ek,ek->e", W[ui], H[ii]) + 3.5
+    vals += rng.normal(0, noise, size=total)
+    vals = vals.astype(np.float32)
+
+    perm = rng.permutation(total)
+    n_test = int(total * test_fraction)
+    te, tr = perm[:n_test], perm[n_test:]
+
+    R = from_coo(m, n, ui[tr], ii[tr], vals[tr])
+    T = make_test(m, n, ui[te], ii[te], vals[te])
+    return R, T
+
+
+def synthetic_cached(m: int, n: int, nnz: int, *, seed: int = 0,
+                     test_fraction: float = 0.1,
+                     cache_dir: str | None = None
+                     ) -> tuple[RatingMatrix, TestCOO]:
+    """Disk-cached ``synthetic()``: the inverse-CDF generation of a
+    50-100M-draw Zipf matrix takes minutes, so repeated runs share one
+    deterministic on-disk instance keyed by (m, n, nnz, seed), under
+    ``cache_dir`` (default: the temp directory, ``tempfile.gettempdir()``)."""
+    cache_dir = cache_dir or tempfile.gettempdir()
+    path = os.path.join(cache_dir, f"crtpu_synth_{m}_{n}_{nnz}_s{seed}.npz")
+    if os.path.exists(path):
+        z = np.load(path)
+        return (from_coo(m, n, z["ri"], z["ci"], z["vv"]),
+                make_test(m, n, z["ti"], z["tj"], z["tv"]))
+    R, T = synthetic(m=m, n=n, nnz=nnz, seed=seed,
+                     test_fraction=test_fraction)
+    ri, ci, vv = R.to_coo()
+    tmp = f"{path}.tmp.{os.getpid()}"      # concurrent writers never mix
+    with open(tmp, "wb") as f:
+        np.savez(f, ri=ri, ci=ci, vv=vv, ti=T.row_idx, tj=T.col_idx,
+                 tv=T.val)
+    os.replace(tmp, path)                  # atomic publish
+    return R, T
+
+
+def parse_synthetic_spec(spec: str) -> dict:
+    """Parse 'synthetic:m=1000,n=200,nnz=20000,seed=0' CLI dataset specs."""
+    out: dict = {}
+    body = spec.split(":", 1)[1] if ":" in spec else ""
+    for part in filter(None, body.split(",")):
+        key, val = part.split("=")
+        out[key] = float(val) if "." in val else int(val)
+    return out
+
+
+def synthetic_from_spec(spec: str) -> tuple[RatingMatrix, TestCOO]:
+    """One-call CLI helper: spec string -> dataset, with float-valued knobs
+    (noise, test_fraction) kept as floats and counts as ints."""
+    kw = parse_synthetic_spec(spec)
+    float_keys = {"noise", "test_fraction"}
+    kw = {k: (float(v) if k in float_keys else int(v)) for k, v in kw.items()}
+    if kw.pop("cache", 0):
+        # ``cache=1`` routes through the disk cache (synthetic_cached) so
+        # repeated sweep invocations at 100M+ nnz don't regenerate for
+        # minutes each; only the cached signature's knobs are allowed.
+        extra = set(kw) - {"m", "n", "nnz", "seed", "test_fraction"}
+        if extra:
+            raise ValueError(f"cache=1 spec does not support {sorted(extra)}")
+        return synthetic_cached(**kw)
+    return synthetic(**kw)

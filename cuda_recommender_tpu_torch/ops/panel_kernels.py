@@ -1,0 +1,216 @@
+"""Fused CCD++ panel passes over NaN-sentinel residual panels.
+
+Three kernels, each beside its plain PyTorch version:
+
+  * ``panel_update_vsweep`` (K1) — ONE read-modify-write pass: applies the
+    deferred-subtract + add-back delta ``outer(u_old, v_old) −
+    outer(u_pend, v_pend)`` to the panel IN PLACE (the JAX package donates
+    the buffer; the port writes it), rounds once to the storage dtype, and
+    returns the v-sweep partials of the stored values:
+    g[j] = Σ_i u_old[i]·R'[i,j]·m, h[j] = Σ_i u_old[i]²·m, m = ¬isnan(R').
+  * ``panel_vsweep`` (K3) — the v-sweep partials alone (inner iterations
+    i > 0), one read pass.
+  * ``panel_usweep`` (K2) — the u-sweep partials, one read pass:
+    g[i] = Σ_j R[i,j]·v[j]·m, h[i] = Σ_j m·v[j]².
+
+They replace the Pallas kernels of ``cuda_recommender_tpu/ops/
+panel_pallas.py`` (panel_update_vsweep, panel_vsweep, panel_usweep). The
+CUDA C++ source is ``csrc/panel_kernels.cu``; it says what bounds the
+kernels on an H100 and how they are laid out. Panels have their true
+(rows, width) shape: the kernels mask the ragged edge themselves, so the
+TPU's block padding is gone.
+
+Each wrapper takes the plain version ONLY for a tensor on the CPU; for a
+CUDA tensor it launches the kernel (on the current stream) or raises. It
+checks device, dtype, shape and contiguity, allocates its outputs with
+``torch.empty``, and adds one to ``LAUNCHES[name]`` where it launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: kernel launches per wrapper since the last ``reset_launch_counts()``
+LAUNCHES = {"panel_update_vsweep": 0, "panel_vsweep": 0, "panel_usweep": 0}
+
+#: storage dtype codes of csrc/panel_kernels.cu
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: rows per column-sum strip (the first pass of K1/K3's deterministic
+#: two-pass reduce); a function of the shape alone, so runs repeat exactly
+_ROWS_PER_PART = 512
+_MAX_PARTS = 65535                   # CUDA grid.y limit
+
+#: cells per chunk of the plain versions (bounds their f32 temporaries)
+_PLAIN_CHUNK_CELLS = 1 << 26
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _check(Rd: torch.Tensor, rows_vecs=(), cols_vecs=()) -> tuple[int, int]:
+    """Validate a panel and its factor vectors; returns (M, W)."""
+    if Rd.dim() != 2:
+        raise ValueError(f"panel must be 2-D, got shape {tuple(Rd.shape)}")
+    if Rd.dtype not in _DTYPE_CODE:
+        raise TypeError(f"panel dtype must be float32 or bfloat16, got "
+                        f"{Rd.dtype}")
+    if not Rd.is_contiguous():
+        raise ValueError("panel must be contiguous (row-major)")
+    if Rd.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {Rd.device}")
+    M, W = Rd.shape
+    for vecs, n, what in ((rows_vecs, M, "row"), (cols_vecs, W, "column")):
+        for x in vecs:
+            if x.dtype != torch.float32 or x.dim() != 1 or x.shape[0] != n:
+                raise ValueError(f"{what} vector must be float32 of shape "
+                                 f"({n},), got {x.dtype} {tuple(x.shape)}")
+            if x.device != Rd.device or not x.is_contiguous():
+                raise ValueError(f"{what} vector must be contiguous on "
+                                 f"{Rd.device}")
+    return M, W
+
+
+def _rows_per_part(M: int) -> int:
+    need = -(-M // _MAX_PARTS)
+    return max(_ROWS_PER_PART, -(-need // 8) * 8)
+
+
+def _launch(fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
+def _ptr(x: torch.Tensor):
+    return x.data_ptr()
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _col_sweep(name: str, Rd, u_old, u_pend, v_old, v_pend):
+    """Launch K1 (update) or K3 (u_pend is None) on CUDA tensors."""
+    from .build import load
+    M, W = Rd.shape
+    lib = load()
+    rpp = _rows_per_part(M)
+    nparts = -(-M // rpp)
+    opts = dict(dtype=torch.float32, device=Rd.device)
+    g, h = torch.empty(W, **opts), torch.empty(W, **opts)
+    gpart, hpart = torch.empty((nparts, W), **opts), torch.empty((nparts, W),
+                                                                 **opts)
+    code = _DTYPE_CODE[Rd.dtype]
+    if u_pend is None:
+        _launch(lib.crtpu_panel_vsweep, _ptr(Rd), code, _ptr(u_old),
+                _ptr(gpart), _ptr(hpart), _ptr(g), _ptr(h), M, W, rpp,
+                _stream(Rd))
+    else:
+        _launch(lib.crtpu_panel_update_vsweep, _ptr(Rd), code, _ptr(u_old),
+                _ptr(u_pend), _ptr(v_old), _ptr(v_pend), _ptr(gpart),
+                _ptr(hpart), _ptr(g), _ptr(h), M, W, rpp, _stream(Rd))
+    LAUNCHES[name] += 1
+    return g, h
+
+
+def panel_update_vsweep(Rd: torch.Tensor, u_old: torch.Tensor,
+                        u_pend: torch.Tensor, v_old: torch.Tensor,
+                        v_pend: torch.Tensor):
+    """K1: fused residual update (in place) + v-sweep partials for one
+    NaN-sentinel panel. Rd (M, W) float32/bfloat16; u_* (M,) and v_* (W,)
+    float32. Returns (g, h), each (W,) float32."""
+    _check(Rd, (u_old, u_pend), (v_old, v_pend))
+    if Rd.device.type == "cpu":
+        return panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend)
+    return _col_sweep("panel_update_vsweep", Rd, u_old, u_pend, v_old, v_pend)
+
+
+def panel_vsweep(Rd: torch.Tensor, u: torch.Tensor):
+    """K3: v-sweep partials only (no residual update). Returns (g, h), each
+    (W,) float32."""
+    _check(Rd, (u,))
+    if Rd.device.type == "cpu":
+        return panel_vsweep_plain(Rd, u)
+    return _col_sweep("panel_vsweep", Rd, u, None, None, None)
+
+
+def panel_usweep(Rd: torch.Tensor, v: torch.Tensor):
+    """K2: u-sweep partials for one NaN-sentinel panel. Returns (g, h), each
+    (M,) float32."""
+    M, W = _check(Rd, (), (v,))
+    if Rd.device.type == "cpu":
+        return panel_usweep_plain(Rd, v)
+    from .build import load
+    opts = dict(dtype=torch.float32, device=Rd.device)
+    g, h = torch.empty(M, **opts), torch.empty(M, **opts)
+    _launch(load().crtpu_panel_usweep, _ptr(Rd), _DTYPE_CODE[Rd.dtype],
+            _ptr(v), _ptr(g), _ptr(h), M, W, _stream(Rd))
+    LAUNCHES["panel_usweep"] += 1
+    return g, h
+
+
+# ---- plain PyTorch versions (the CPU path and the kernels' oracle) ----
+
+def _row_chunks(M: int, W: int):
+    rows = max(1, _PLAIN_CHUNK_CELLS // max(1, W))
+    return ((r0, min(M, r0 + rows)) for r0 in range(0, M, rows))
+
+
+def _masked_f32(blk: torch.Tensor):
+    """(f32 values with NaN cells zeroed, f32 {0,1} mask) of a panel block."""
+    x = blk.to(torch.float32)
+    m = ~torch.isnan(x)
+    return torch.where(m, x, 0.0), m.to(torch.float32)
+
+
+def panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend):
+    """Plain version of K1: the same delta fl(fl(uo·vo) − fl(up·vp)), added
+    to the residual in f32 and rounded ONCE to the storage dtype by the
+    in-place copy; the sums read the stored values back."""
+    M, W = Rd.shape
+    g = torch.zeros(W, dtype=torch.float32, device=Rd.device)
+    h = torch.zeros_like(g)
+    for r0, r1 in _row_chunks(M, W):
+        blk = Rd[r0:r1]
+        d = torch.outer(u_old[r0:r1], v_old)
+        d.sub_(torch.outer(u_pend[r0:r1], v_pend))
+        d.add_(blk)
+        blk.copy_(d)
+        x, m = _masked_f32(blk)
+        u = u_old[r0:r1]
+        g += torch.mv(x.t(), u)
+        h += torch.mv(m.t(), u * u)
+    return g, h
+
+
+def panel_vsweep_plain(Rd, u):
+    """Plain version of K3."""
+    M, W = Rd.shape
+    g = torch.zeros(W, dtype=torch.float32, device=Rd.device)
+    h = torch.zeros_like(g)
+    for r0, r1 in _row_chunks(M, W):
+        x, m = _masked_f32(Rd[r0:r1])
+        uu = u[r0:r1]
+        g += torch.mv(x.t(), uu)
+        h += torch.mv(m.t(), uu * uu)
+    return g, h
+
+
+def panel_usweep_plain(Rd, v):
+    """Plain version of K2."""
+    M, W = Rd.shape
+    g = torch.empty(M, dtype=torch.float32, device=Rd.device)
+    h = torch.empty_like(g)
+    vv = v * v
+    for r0, r1 in _row_chunks(M, W):
+        x, m = _masked_f32(Rd[r0:r1])
+        g[r0:r1] = torch.mv(x, v)
+        h[r0:r1] = torch.mv(m, vv)
+    return g, h

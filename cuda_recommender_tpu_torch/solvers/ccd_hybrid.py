@@ -1,0 +1,666 @@
+"""CCD++ — panel-hybrid backend (the large-matrix path), in PyTorch.
+
+The port of ``cuda_recommender_tpu/solvers/ccd_hybrid.py`` for one GPU. The
+matrix is split so the cells that carry the mass are dense:
+
+  * users AND items are sorted by degree; real rating matrices are doubly
+    power-law, so the nnz mass concentrates in the top-left corner;
+  * a small stair of **dense panels** covers that corner — panel 1 = top
+    users x ALL items, panel 2 = next users x top-w2 items, ... — each a
+    residual block whose unobserved cells hold a NaN sentinel, driven by
+    the hand-written panel kernels (ops/panel_kernels.py);
+  * the sparse remainder keeps the degree-bucketed padded-ELL layout
+    (data/ell.py), swept by plain torch gathers (ops/ell_ops.py).
+
+Factors live in degree-sorted entity order — W (k, m), H (k, n) — so every
+panel touches a contiguous slice and the ELL bucket ``idx`` arrays
+reference entity positions directly (``index_space="entity"``). Per entity
+the sweep sums combine across parts before the division (RankOneUpdate,
+reference src/CCD.cpp:6-16):
+
+    new_j = (sum_p g_panel_p + g_ell) / (lambda*nnz_j + sum_p h_p + h_ell)
+
+with nnz_j the entity's TOTAL degree (src/CCD.cpp:112,120).
+
+Host half (``HybridPlan``, ``plan_hybrid`` and its search helpers): copied
+from the JAX package with its semantics unchanged, so both packages build
+bit-identical plans. Device half: ``densify_panels``, the outer step and
+``ccd_hybrid_train`` — the JAX package's panel-kernel schedule without the
+rank-deferral option. Every part defers the subtract of a rank's new outer
+product to the next rank through the shared (u_pend, v_pend) state, so each
+panel costs one read-modify-write pass (K1) and one read pass (K2) per rank,
+and each ELL side one gather pass.
+
+Semantics preserved (SURVEY.md §7): H zeroed at entry (src/CCD.cpp:56-60);
+lambda*nnz regularization with total degrees; v-sweep before u-sweep per
+inner iteration (src/CCD.cpp:110-121); empty entity -> 0 factor (via the
+full-denominator guard); rank-major factor layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.device import resolve_device, synchronize
+from ..core.metrics_log import MetricsLog
+from ..data.ell import EllPair, build_ell_pair
+from ..data.groupsort import key_count, perm_gather, stable_perm
+from ..data.sparse import RatingMatrix, TestCOO, from_coo
+from ..eval.metrics import calrmse_device, default_eval_chunk
+from ..ops.densify import densify_coo_nan
+from ..ops.ell_ops import (extend_zero, fused_sweep, fused_update_sweep,
+                           stacked_remap)
+from ..ops.panel_kernels import (panel_update_vsweep, panel_usweep,
+                                 panel_vsweep)
+from .hybrid_state import HybridState
+from .pipeline import pipelined_loop
+from .reference import IterStats
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridPlan:
+    """Host-side panel plan over the degree-sorted matrix."""
+
+    user_order: np.ndarray     # (m,) original user ids, degree-sorted
+    item_order: np.ndarray     # (n,) original item ids, degree-sorted
+    user_pos: np.ndarray       # (m,) original id -> sorted position
+    item_pos: np.ndarray       # (n,)
+    #: dense panels as (r0, r1, width): sorted-user rows [r0, r1) x sorted
+    #: items [0, width). r ranges are contiguous from 0, widths decreasing.
+    panels: tuple[tuple[int, int, int], ...]
+    ell: EllPair               # sparse remainder (m x n, sorted coords,
+    #                            entity-indexed buckets)
+    nnz_light: int
+    Rd: tuple                  # per panel (rows, w) f32 residual init
+    Md: tuple                  # per panel (rows, w) f32 {0,1} mask
+    row_nnz: np.ndarray        # (m,) TOTAL user degrees, sorted order
+    col_nnz: np.ndarray        # (n,) TOTAL item degrees, sorted order
+    # ELL slot <-> entity maps (entities = sorted positions)
+    slot_of_upos: np.ndarray   # (m,)
+    slot_of_ipos: np.ndarray   # (n,)
+    upos_of_slot_safe: np.ndarray  # (n_row_slots,) padding -> m
+    ipos_of_slot_safe: np.ndarray  # (n_col_slots,) padding -> n
+    #: with ``materialize_dense=False``: per panel (local_row, col, val) COO
+    #: for device-side scatter (a host-built Netflix panel is GBs of RAM and
+    #: a multi-GB host->device ship; the COO is ~nnz-sized)
+    panel_coo: Optional[tuple] = None
+
+
+def _candidate_boundaries(m: int, align: int = 8, npts: int = 129,
+                          include_full: bool = False) -> np.ndarray:
+    cand = np.unique((np.linspace(0, m, npts) / align).round()
+                     .astype(np.int64) * align)
+    cand = np.minimum(cand, (m // align) * align)
+    if include_full:
+        # the exact row count as a candidate (kernel blocks clamp+pad, so
+        # alignment is only a sharding constraint): a budget >= m*n then
+        # yields ONE full panel and no ELL tail at all — the dense case as
+        # a degenerate hybrid plan.
+        cand = np.unique(np.append(cand, m))
+    return cand
+
+
+def _search_boundaries(prefixes, widths, cand, budget: int,
+                       passes: int = 6) -> list[int]:
+    """Maximize covered nnz over non-decreasing boundaries r_1 <= ... <= r_W
+    (panel p spans users [r_{p-1}, r_p) at width w_p) under the cell budget
+    Σ (r_p - r_{p-1})·w_p, by coordinate ascent: optimize one boundary at a
+    time (vectorized over candidates) holding the others fixed, alternating
+    sweep direction. O(passes · W · |cand|) — a joint grid would be
+    |cand|^W, which hangs for more than ~3 panel widths."""
+    W = len(widths)
+    r = [0] * W
+
+    def cells(rr):
+        tot, prev = 0, 0
+        for b, w in zip(rr, widths):
+            tot += (b - prev) * w
+            prev = b
+        return tot
+
+    for p in range(passes):
+        order = range(W - 1, -1, -1) if p % 2 == 0 else range(W)
+        changed = False
+        for i in order:
+            lo = r[i - 1] if i > 0 else 0
+            hi = r[i + 1] if i < W - 1 else int(cand[-1])
+            opts = cand[(cand >= lo) & (cand <= hi)]
+            if opts.size == 0:
+                continue
+            base_cells = cells(r)
+            w_next = widths[i + 1] if i < W - 1 else 0
+            d_cells = (opts - r[i]) * (widths[i] - w_next)
+            feasible = base_cells + d_cells <= budget
+            if not feasible.any():
+                continue
+            # coverage as a function of r_i alone: terms i and i+1 depend on
+            # it: ... + (P_i[r_i] - P_i[r_{i-1}]) + (P_{i+1}[r_{i+1}] -
+            # P_{i+1}[r_i]) + ... -> gain(b) = P_i[b] - P_{i+1}[b] + const
+            Pi = prefixes[i]
+            Pn = prefixes[i + 1] if i < W - 1 else None
+            gain = Pi[opts].astype(np.int64)
+            cur_gain = int(Pi[r[i]])
+            if Pn is not None:
+                gain = gain - Pn[opts]
+                cur_gain -= int(Pn[r[i]])
+            gain = np.where(feasible, gain, np.iinfo(np.int64).min)
+            j = int(gain.argmax())
+            if int(gain[j]) > cur_gain:
+                r[i] = int(opts[j])
+                changed = True
+        if not changed and p > 0:
+            break
+    return r
+
+
+def _stair_ladder(n: int, min_width: int = 128, step: float = 2 ** 0.25,
+                  ) -> np.ndarray:
+    """Geometric candidate-width ladder, 128-lane aligned, ascending, ending
+    at exactly n. ~4 candidates per octave is fine enough that snapping to
+    the grid costs <1% coverage while keeping the per-nnz classification to
+    ~30 compare-add passes."""
+    w = float(n)
+    out = [n]
+    while w > min_width:
+        w /= step
+        cand = max(min_width, int(round(w / 128.0)) * 128)
+        if cand != out[-1] and cand < n:
+            out.append(cand)
+    return np.unique(np.asarray(out, np.int64))
+
+
+def _auto_stair(rp: np.ndarray, cp: np.ndarray, m: int, n: int,
+                budget: int, align: int, *, min_width: int = 128,
+                max_panels: int = 8) -> list[tuple[int, int, int]]:
+    """Data-driven panel stair: choose panel WIDTHS and BOUNDARIES jointly
+    from the degree distribution under the cell budget.
+
+    Formulation: with users and items degree-sorted, assign every block of
+    ``align``-aligned user rows a width w(b) from a geometric candidate
+    ladder, maximizing covered nnz  Σ_b cov_b(w(b))  subject to
+    Σ_b rows_b · w(b) <= budget and w non-increasing (a stair). Solved by
+    Lagrangian relaxation: for a price λ per cell each block independently
+    picks argmax_w cov_b(w) − λ·rows_b·w (vectorized over the whole
+    (blocks × ladder) table), the choice is projected to non-increasing by a
+    reverse running max, and λ is bisected to the budget. The relaxation is
+    exact up to one block's rounding because cov_b(w) is near-concave in w
+    for degree-sorted power-law data. A final merge pass caps the number of
+    distinct widths at ``max_panels`` (each panel is an extra scatter
+    program + kernel call set per rank).
+    """
+    ladder = _stair_ladder(n, min_width=min_width)          # ascending
+    K = ladder.size
+    # per-nnz ladder class: cls = #{ladder[j] <= cp, j < K-1} via compare-add
+    # passes (np.searchsorted over 100M elems measured ~16x slower)
+    cls = np.zeros(cp.size, np.int32)
+    for t in ladder[:-1]:
+        cls += (cp >= np.int32(t))
+    # block granularity: align-multiple, <= ~4096 blocks for the search
+    B = align * max(1, -(-m // (align * 4096)))
+    nblk = -(-m // B)
+    key = (rp // np.int32(B)) * np.int32(K) + cls
+    counts = key_count(key, nblk * K).reshape(nblk, K)
+    covB = np.cumsum(counts, axis=1)       # covB[b, j]: block-b nnz in
+    #                                        items [0, ladder[j])
+    rows_b = np.full(nblk, B, np.int64)
+    rows_b[-1] = m - B * (nblk - 1)
+    cost = rows_b[:, None] * ladder[None, :]                # (nblk, K)
+
+    def eval_lam(lam: float):
+        score = covB - lam * cost
+        j = score.argmax(axis=1)
+        w_j = np.where(score[np.arange(nblk), j] > 0, j, -1)  # -1 = no panel
+        # stair projection: widths non-increasing down the degree order
+        w_j = np.maximum.accumulate(w_j[::-1])[::-1]
+        cells = int(np.where(w_j >= 0, rows_b * ladder[np.maximum(w_j, 0)],
+                             0).sum())
+        return cells, w_j
+
+    cells0, w0 = eval_lam(0.0)
+    if cells0 <= budget:
+        w_best = w0                        # budget covers the full matrix
+    else:
+        lo, hi = 0.0, 1.0
+        while eval_lam(hi)[0] > budget:
+            hi *= 4.0
+        w_best = None
+        for _ in range(64):
+            mid = 0.5 * (lo + hi)
+            cells, w_j = eval_lam(mid)
+            if cells <= budget:
+                hi, w_best = mid, w_j
+            else:
+                lo = mid
+        if w_best is None:
+            w_best = eval_lam(hi)[1]
+
+    def total_cells(w_j):
+        return int(np.where(w_j >= 0, rows_b * ladder[np.maximum(w_j, 0)],
+                            0).sum())
+
+    # merge to <= max_panels distinct width levels: raise the lower level to
+    # the upper when the budget allows (coverage can only grow), otherwise
+    # lower the upper level (cheapest coverage loss first)
+    def levels(w_j):
+        lv, prev = [], None
+        for b in range(nblk):
+            if w_j[b] < 0:
+                break
+            if w_j[b] != prev:
+                lv.append([b, b + 1, int(w_j[b])])
+                prev = w_j[b]
+            else:
+                lv[-1][1] = b + 1
+        return lv
+
+    w_j = w_best.copy()
+    while True:
+        lv = levels(w_j)
+        if len(lv) <= max_panels:
+            break
+        best = None                          # (tier, penalty, i, mode)
+        for i in range(len(lv) - 1):
+            (a0, a1, ja), (b0, b1, jb) = lv[i], lv[i + 1]
+            d_cells = int((rows_b[b0:b1]
+                           * (ladder[ja] - ladder[jb])).sum())
+            if total_cells(w_j) + d_cells <= budget:
+                cand = (0, d_cells, i, "raise")   # coverage only grows
+            else:
+                loss = int((covB[a0:a1, ja] - covB[a0:a1, jb]).sum())
+                cand = (1, loss, i, "lower")
+            if best is None or cand < best:
+                best = cand
+        _, _, i, mode = best
+        (a0, a1, ja), (b0, b1, jb) = levels(w_j)[i], levels(w_j)[i + 1]
+        if mode == "raise":
+            w_j[b0:b1] = ja
+        else:
+            w_j[a0:a1] = jb
+
+    panels: list[tuple[int, int, int]] = []
+    for b0, b1, j in levels(w_j):
+        r0, r1 = int(b0) * B, min(int(b1) * B, m)
+        if r1 > r0:
+            panels.append((int(r0), int(r1), int(ladder[j])))
+    return panels
+
+
+def plan_hybrid(R: RatingMatrix, cfg: Config, *,
+                materialize_dense: bool = True,
+                num_shards: int = 1) -> HybridPlan:
+    """Choose panel boundaries maximizing covered nnz under the cell budget
+    (``cfg.hybrid_dense_cells``) by grid search over degree-sorted user
+    boundaries, one per panel width (full n plus
+    ``cfg.hybrid_panel_widths``). With ``num_shards = N`` every panel's row
+    count is N-aligned (device row blocks are equal) and the ELL remainder
+    is built shard-uniform (data/ell.py)."""
+    m, n = R.rows, R.cols
+    deg_u = R.row_nnz.astype(np.int64)
+    deg_i = R.col_nnz.astype(np.int64)
+    user_order = np.argsort(-deg_u, kind="stable").astype(np.int64)
+    item_order = np.argsort(-deg_i, kind="stable").astype(np.int64)
+    user_pos = np.empty(m, np.int64)
+    user_pos[user_order] = np.arange(m)
+    item_pos = np.empty(n, np.int64)
+    item_pos[item_order] = np.arange(n)
+
+    r, c, v = R.to_coo()
+    rp = user_pos.astype(np.int32)[r]
+    cp = item_pos.astype(np.int32)[c]
+
+    align = 8 * num_shards // np.gcd(8, num_shards)     # lcm(8, N)
+    budget = int(cfg.hybrid_dense_cells)
+    if cfg.hybrid_panel_widths == "auto":
+        # data-driven stair: widths AND boundaries chosen from the degree
+        # distribution under the budget (Lagrangian + stair projection)
+        panels = _auto_stair(rp, cp, m, n, budget, align,
+                             max_panels=cfg.hybrid_max_panels)
+        return _finish_plan(R, cfg, materialize_dense, num_shards, panels,
+                            user_order, item_order, user_pos, item_pos,
+                            deg_u, deg_i, rp, cp, v)
+
+    widths = [n] + sorted({min(int(w), n) for w in cfg.hybrid_panel_widths
+                           if 0 < int(w) < n}, reverse=True)
+    # coverage prefix per width: P_w[x] = nnz of the x top users inside the
+    # top-w items. One fused histogram over (user position x width class)
+    # replaces a boolean-select + bincount pass per width.
+    sub = np.asarray(widths[:0:-1], dtype=np.int64)        # ascending, < n
+    ncls = sub.size + 1
+    # class id by comparison chain: np.searchsorted over a 100M-element
+    # int32 array against an int64 needle list measured ~16 s (dtype
+    # promotion + generic binary search); |sub| compare-add passes are ~1 s
+    key = rp * np.int32(ncls)
+    for t in sub:
+        key += cp >= np.int32(t)
+    counts2d = key_count(key, m * ncls).reshape(m, ncls)
+    csum = np.cumsum(counts2d, axis=1)     # csum[:, i]: nnz with cp < sub[i]
+    prefixes = []
+    for w in widths:                       # descending, n first
+        cov = (csum[:, ncls - 1] if w >= n
+               else csum[:, int(np.searchsorted(sub, w))])
+        prefixes.append(np.concatenate([[0], np.cumsum(cov)]))
+
+    cand = _candidate_boundaries(m, align, include_full=(num_shards == 1))
+    best_r = _search_boundaries(prefixes, widths, cand, budget)
+
+    panels = []
+    r_prev = 0
+    for rb, w in zip(best_r, widths):
+        if rb > r_prev:
+            panels.append((r_prev, rb, w))
+            r_prev = rb
+
+    return _finish_plan(R, cfg, materialize_dense, num_shards, panels,
+                        user_order, item_order, user_pos, item_pos,
+                        deg_u, deg_i, rp, cp, v)
+
+
+def _finish_plan(R, cfg, materialize_dense, num_shards, panels,
+                 user_order, item_order, user_pos, item_pos,
+                 deg_u, deg_i, rp, cp, v) -> HybridPlan:
+    """Split the degree-sorted COO into panel cells vs the sparse remainder
+    for a given panel stair and assemble the HybridPlan."""
+    m, n = R.rows, R.cols
+    # split COO: panel cells vs sparse remainder — ONE stable partition by
+    # panel id (remainder last) instead of a boolean-mask cascade per panel;
+    # within each group the COO (CSR) order is preserved, byte-identical to
+    # the mask formulation.
+    P = len(panels)
+    wband = np.asarray([w for _, _, w in panels] + [0], dtype=np.int32)
+    band = np.zeros(rp.size, np.int32)
+    for _, r1, _ in panels:                # <= a few compare-add passes
+        band += rp >= np.int32(r1)
+    pkey = np.where(cp < wband[band], band, np.int32(P))
+    gptr, perm = stable_perm(pkey, P + 1)
+    rp_s = rp[perm]
+    cp_s, v_s = perm_gather(perm, cp, np.ascontiguousarray(v, np.float32))
+
+    Rd, Md, panel_coo = [], [], []
+    for p, (r0, r1, w) in enumerate(panels):
+        seg = slice(gptr[p], gptr[p + 1])
+        lr = (rp_s[seg] - r0).astype(np.int32)
+        lc = cp_s[seg]
+        lv = v_s[seg]
+        if materialize_dense:
+            A = np.zeros((r1 - r0, w), np.float32)
+            M = np.zeros((r1 - r0, w), np.float32)
+            A[lr, lc] = lv
+            M[lr, lc] = 1.0
+            Rd.append(A)
+            Md.append(M)
+        else:
+            panel_coo.append((lr, lc, lv))
+
+    lseg = slice(gptr[P], gptr[P + 1])
+    R_light = from_coo(m, n, rp_s[lseg], cp_s[lseg], v_s[lseg])
+    ell = build_ell_pair(R_light, min_width=cfg.ell_min_width,
+                         num_shards=num_shards, index_space="entity")
+    rows, cols = ell.rows_side, ell.cols_side
+
+    return HybridPlan(
+        user_order=user_order, item_order=item_order,
+        user_pos=user_pos, item_pos=item_pos,
+        panels=tuple(panels), ell=ell, nnz_light=int(gptr[P + 1] - gptr[P]),
+        Rd=tuple(Rd), Md=tuple(Md),
+        row_nnz=deg_u[user_order].astype(np.float32),
+        col_nnz=deg_i[item_order].astype(np.float32),
+        slot_of_upos=rows.slot_of_entity.astype(np.int32),
+        slot_of_ipos=cols.slot_of_entity.astype(np.int32),
+        upos_of_slot_safe=np.where(rows.entity_of_slot < 0, m,
+                                   rows.entity_of_slot).astype(np.int32),
+        ipos_of_slot_safe=np.where(cols.entity_of_slot < 0, n,
+                                   cols.entity_of_slot).astype(np.int32),
+        panel_coo=tuple(panel_coo) if panel_coo else None,
+    )
+
+
+# ---------------------------------------------------------------- device half
+
+_RESIDUAL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for hybrid knobs outside the port's slice,
+    naming the ROADMAP.md item that ports them."""
+    todo = []
+    if cfg.residual_dtype not in _RESIDUAL_DTYPES:
+        todo.append(f"residual_dtype={cfg.residual_dtype!r} (ROADMAP.md "
+                    "'Not ported': the fp8 residual)")
+    if cfg.mask_dtype != "nan" or not cfg.hybrid_panel_kernel:
+        todo.append("explicit panel masks / the einsum panel path "
+                    "(mask_dtype != 'nan' or hybrid_panel_kernel=False; "
+                    "ROADMAP.md queue 1 item 10: dense/pallas, K4)")
+    if cfg.phase_timing:
+        todo.append("phase_timing (ROADMAP.md queue 1 item 13: phase "
+                    "timing)")
+    if cfg.hybrid_transpose:
+        todo.append("hybrid_transpose (ROADMAP.md queue 1 item 9: bench.py "
+                    "on the port, with the transposed stair)")
+    if cfg.hybrid_defer_group > 0:
+        todo.append("hybrid_defer_group > 0 (ROADMAP.md 'Not ported')")
+    if cfg.checkpoint_dir:
+        todo.append("checkpoint_dir (ROADMAP.md queue 1 item 7: "
+                    "checkpoint/resume)")
+    if todo:
+        raise NotImplementedError("not in the port yet: " + "; ".join(todo))
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridDevicePlan:
+    """The plan's index and degree arrays on the training device."""
+
+    idx_r: tuple               # per rows-side bucket (rows, L) int64
+    idx_c: tuple               # per cols-side bucket
+    row_nnz: torch.Tensor      # (m,) f32 total degrees, sorted order
+    col_nnz: torch.Tensor      # (n,)
+    upos_safe: torch.Tensor    # (n_row_slots,) int64, padding -> m
+    ipos_safe: torch.Tensor    # (n_col_slots,) int64, padding -> n
+    slot_of_upos: torch.Tensor  # (m,) int64
+    slot_of_ipos: torch.Tensor  # (n,) int64
+
+
+def device_plan(plan: HybridPlan, device) -> HybridDevicePlan:
+    def i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return HybridDevicePlan(
+        idx_r=tuple(i64(b.idx) for b in plan.ell.rows_side.buckets),
+        idx_c=tuple(i64(b.idx) for b in plan.ell.cols_side.buckets),
+        row_nnz=f32(plan.row_nnz), col_nnz=f32(plan.col_nnz),
+        upos_safe=i64(plan.upos_of_slot_safe),
+        ipos_safe=i64(plan.ipos_of_slot_safe),
+        slot_of_upos=i64(plan.slot_of_upos),
+        slot_of_ipos=i64(plan.slot_of_ipos))
+
+
+def densify_panels(plan: HybridPlan, dtype: torch.dtype, device) -> list:
+    """Scatter each panel's COO (``plan_hybrid(materialize_dense=False)``)
+    into its (r1 - r0, w) NaN-sentinel residual on ``device``, one panel at
+    a time. No block padding: the kernels mask the ragged edge."""
+    if plan.panels and plan.panel_coo is None:
+        raise ValueError("densify_panels needs a plan built with "
+                         "materialize_dense=False (per-panel COO)")
+    return [densify_coo_nan(lr, lc, lv, r1 - r0, w, dtype, device)
+            for (lr, lc, lv), (r0, r1, w) in zip(plan.panel_coo or (),
+                                                 plan.panels)]
+
+
+def initial_state(plan: HybridPlan, W0: np.ndarray, dtype: torch.dtype,
+                  device) -> HybridState:
+    """Training state at outer iteration 1: panels and ELL values hold the
+    ratings, W is ``W0`` in degree-sorted user order, H is zero
+    (src/CCD.cpp:56-60) and nothing is pending."""
+    m, n = plan.row_nnz.shape[0], plan.col_nnz.shape[0]
+    k = W0.shape[0]
+    W = np.ascontiguousarray(np.asarray(W0, np.float32)[:, plan.user_order])
+    zeros = dict(dtype=torch.float32, device=device)
+    return HybridState(
+        Rds=densify_panels(plan, dtype, device),
+        vals_r=[torch.as_tensor(b.val, device=device).clone()
+                for b in plan.ell.rows_side.buckets],
+        vals_c=[torch.as_tensor(b.val, device=device).clone()
+                for b in plan.ell.cols_side.buckets],
+        W=torch.as_tensor(W, device=device).clone(),
+        H=torch.zeros((k, n), **zeros),
+        u_pend=torch.zeros(m, **zeros), v_pend=torch.zeros(n, **zeros))
+
+
+def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
+                           lam: float, maxinneriter: int, *,
+                           nmf: bool = False) -> Callable[[HybridState],
+                                                          torch.Tensor]:
+    """One outer iteration over all k ranks (a Python loop), all parts,
+    updating ``state`` IN PLACE (the JAX step donates these buffers).
+    Returns the state's W.
+
+    Per rank t (the JAX package's panel-kernel schedule): K1 applies the
+    deferred subtract of rank t-1 and the add-back of rank t to every panel
+    and returns the v-sweep partials; the cols-side ELL tail does the same
+    in one gather pass; v = g / (λ·nnz + h). Then K2 and the rows-side tail
+    give the u-sweep partials with the new v; u = g / (λ·nnz + h). Inner
+    iterations i > 0 re-sweep with K3 and ``fused_sweep``, without
+    updates. W[t], H[t] take (u, v), which also become the pending outer
+    product."""
+    rows, cols = plan.ell.rows_side, plan.ell.cols_side
+    panels = plan.panels
+    have_light = plan.nnz_light > 0
+    m, n = plan.row_nnz.shape[0], plan.col_nnz.shape[0]
+    d = dplan
+
+    def new_factor(g, h, nnz):
+        # full-denominator guard: covers empty entities (src/CCD.cpp:8) AND
+        # the degenerate lambda=0 fully-explained-residual case
+        den = lam * nnz + h
+        x = torch.where(den > 0, g / den, 0.0)
+        return x.clamp_min(0.0) if nmf else x   # libpmf -N semantics
+
+    def rank(st: HybridState, t: int) -> None:
+        u_old, v_old = st.W[t], st.H[t]
+        u, v = u_old, v_old
+        f32 = dict(dtype=torch.float32, device=st.W.device)
+        for i in range(maxinneriter):
+            # ---- v-sweep (items): panel partials + ELL partials ----
+            g, h = torch.zeros(n, **f32), torch.zeros(n, **f32)
+            for (r0, r1, w), Rd in zip(panels, st.Rds):
+                if i == 0:
+                    gp, hp = panel_update_vsweep(
+                        Rd, u_old[r0:r1], st.u_pend[r0:r1], v_old[:w],
+                        st.v_pend[:w])
+                else:
+                    gp, hp = panel_vsweep(Rd, u[r0:r1])
+                g[:w] += gp
+                h[:w] += hp
+            if have_light:
+                if i == 0:
+                    ovp, ovo = stacked_remap((st.v_pend, v_old), d.ipos_safe)
+                    g_l, h_l = fused_update_sweep(
+                        d.idx_c, st.vals_c, cols,
+                        extend_zero(torch.stack([st.u_pend, u_old], -1)),
+                        owns=(ovp, ovo), signs=(-1.0, 1.0), sweep_col=1)
+                else:
+                    g_l, h_l = fused_sweep(
+                        d.idx_c, st.vals_c, cols,
+                        extend_zero(torch.stack([u, u], -1)), sweep_col=0)
+                g_e, h_e = stacked_remap((g_l, h_l), d.slot_of_ipos)
+                g = g + g_e
+                h = h + h_e
+            v = new_factor(g, h, d.col_nnz)
+
+            # ---- u-sweep (users) ----
+            gu, hu = torch.zeros(m, **f32), torch.zeros(m, **f32)
+            for (r0, r1, w), Rd in zip(panels, st.Rds):
+                gp, hp = panel_usweep(Rd, v[:w])
+                gu[r0:r1] += gp
+                hu[r0:r1] += hp
+            if have_light:
+                if i == 0:
+                    # the deferred subtract of rank t-1, the add-back, and
+                    # the sweep with the NEW v in one 3-wide gather pass
+                    oup, ouo = stacked_remap((st.u_pend, u_old), d.upos_safe)
+                    g_lr, h_lr = fused_update_sweep(
+                        d.idx_r, st.vals_r, rows,
+                        extend_zero(torch.stack([st.v_pend, v_old, v], -1)),
+                        owns=(oup, ouo), signs=(-1.0, 1.0), sweep_col=2)
+                else:
+                    g_lr, h_lr = fused_sweep(
+                        d.idx_r, st.vals_r, rows,
+                        extend_zero(torch.stack([v, v], -1)), sweep_col=0)
+                gu_e, hu_e = stacked_remap((g_lr, h_lr), d.slot_of_upos)
+                gu = gu + gu_e
+                hu = hu + hu_e
+            u = new_factor(gu, hu, d.row_nnz)
+
+        # ---- write back (src/CCD.cpp:128-134); the subtract of rank t's
+        # new outer product is deferred to rank t+1 via (u_pend, v_pend) ----
+        st.W[t] = u
+        st.H[t] = v
+        st.u_pend, st.v_pend = u, v
+
+    def step(st: HybridState) -> torch.Tensor:
+        for t in range(st.W.shape[0]):
+            rank(st, t)
+        return st.W
+
+    return step
+
+
+def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
+                     T: TestCOO, cfg: Config, *, device="cuda",
+                     callback: Optional[Callable[[IterStats], None]] = None,
+                     plan: Optional[HybridPlan] = None,
+                     log: Optional[MetricsLog] = None,
+                     ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
+    """Train CCD++ on the panel-hybrid backend on ``device``. Returns
+    (W, H, stats) in the reference's rank-major ORIGINAL entity order.
+    ``H0`` is accepted for the solvers' common signature; CCD++ zeroes H at
+    entry (src/CCD.cpp:56-60). With ``log``, the plan and the host set-up
+    times are reported as an info line and a ``hybrid_plan`` event."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if plan is None:
+        plan = plan_hybrid(R, cfg, materialize_dense=False)
+    t1 = time.perf_counter()
+    dplan = device_plan(plan, dev)
+    state = initial_state(plan, W0, _RESIDUAL_DTYPES[cfg.residual_dtype], dev)
+    synchronize(dev)
+    t2 = time.perf_counter()
+    if log is not None:
+        cells = sum((r1 - r0) * w for r0, r1, w in plan.panels)
+        log.info(f"[info] hybrid plan: {len(plan.panels)} panels "
+                 f"{list(plan.panels)}, {cells} panel cells, tail nnz "
+                 f"{plan.nnz_light} of {R.nnz}; plan {t1 - t0:.3f} s, "
+                 f"device set-up {t2 - t1:.3f} s")
+        log.event("hybrid_plan", panels=[list(p) for p in plan.panels],
+                  panel_cells=cells, nnz=R.nnz, nnz_light=plan.nnz_light,
+                  plan_s=t1 - t0, setup_s=t2 - t1)
+    step = make_hybrid_outer_step(plan, dplan, cfg.lambda_, cfg.maxinneriter,
+                                  nmf=cfg.do_nmf)
+
+    def i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    ti, tj = i64(plan.user_pos[T.row_idx]), i64(plan.item_pos[T.col_idx])
+    tv = torch.as_tensor(np.asarray(T.val, np.float32), device=dev)
+    chunk = default_eval_chunk(T.nnz, cfg.eval_chunk)
+
+    stats = pipelined_loop(
+        start_oiter=1, maxiter=cfg.maxiter, fuse=cfg.fused_outer_iters,
+        do_step=lambda: step(state),
+        do_rmse=lambda: calrmse_device(ti, tj, tv, state.W, state.H,
+                                       chunk=chunk),
+        callback=callback,
+        early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
+
+    W = state.W.cpu().numpy()[:, plan.user_pos]      # unsort to orig order
+    H = state.H.cpu().numpy()[:, plan.item_pos]
+    return W, H, stats

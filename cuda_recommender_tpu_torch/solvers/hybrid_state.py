@@ -1,0 +1,101 @@
+"""Training state of the hybrid backend, and its exchange with the JAX
+package.
+
+``HybridState`` is what one outer step reads and updates in place: the
+panel residuals, both ELL residual value sets, the factors in degree-sorted
+order, and the pending outer product (the deferred subtract of the last
+rank, reference src/CCD.cpp:100-134).
+
+``hybrid_state_from_numpy`` / ``hybrid_state_to_numpy`` convert it to and
+from the JAX package's checkpoint payload (keys ``W``, ``H``, ``u_pend``,
+``v_pend``, ``Rd_i``, ``vals_r_i``, ``vals_c_i``;
+``cuda_recommender_tpu/solvers/ccd_hybrid.py::ccd_hybrid_train``), so both
+packages can start from one state. The JAX package's panel-kernel path
+stores each panel padded to its TPU block shape with NaN; the port's panels
+have their true ``(r1 - r0, w)`` shape.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class HybridState:
+    Rds: list          # per panel (r1-r0, w) residual, NaN = unobserved
+    vals_r: list       # rows-side ELL residual value tiles (rows, L) f32
+    vals_c: list       # cols-side ELL residual value tiles
+    W: torch.Tensor    # (k, m) f32, degree-sorted user order
+    H: torch.Tensor    # (k, n) f32, degree-sorted item order
+    u_pend: torch.Tensor   # (m,) f32 — last rank's new u, not yet subtracted
+    v_pend: torch.Tensor   # (n,) f32
+
+
+def _to_torch(x: np.ndarray, device) -> torch.Tensor:
+    """numpy -> a torch copy on ``device``, bit-exact; bfloat16 payloads
+    (the JAX package's ml_dtypes arrays) travel as their 16-bit patterns."""
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).to(device, copy=True).view(
+            torch.bfloat16)
+    return torch.from_numpy(x).to(device, copy=True)
+
+
+def hybrid_state_from_numpy(payload: dict, plan, device) -> HybridState:
+    """The JAX package's hybrid state (numpy arrays under its checkpoint
+    payload keys) as a port ``HybridState`` on ``device``. Panels are
+    trimmed to their true (r1 - r0, w) shape; raises ValueError if a
+    trimmed cell is not NaN (i.e. was an observed rating)."""
+    Rds = []
+    for i, (r0, r1, w) in enumerate(plan.panels):
+        x = np.asarray(payload[f"Rd_{i}"])
+        M = r1 - r0
+        if x.shape[0] < M or x.shape[1] < w:
+            raise ValueError(f"Rd_{i} shape {x.shape} is smaller than panel "
+                             f"{(M, w)}")
+        pad = np.concatenate([x[M:].astype(np.float32).ravel(),
+                              x[:M, w:].astype(np.float32).ravel()])
+        if not np.isnan(pad).all():
+            raise ValueError(f"Rd_{i}: cells outside the ({M}, {w}) panel "
+                             "must all be NaN")
+        Rds.append(_to_torch(x[:M, :w], device))
+    nr = len(plan.ell.rows_side.buckets)
+    nc = len(plan.ell.cols_side.buckets)
+    f32 = np.float32
+    return HybridState(
+        Rds=Rds,
+        vals_r=[_to_torch(np.asarray(payload[f"vals_r_{i}"], f32), device)
+                for i in range(nr)],
+        vals_c=[_to_torch(np.asarray(payload[f"vals_c_{i}"], f32), device)
+                for i in range(nc)],
+        W=_to_torch(np.asarray(payload["W"], f32), device),
+        H=_to_torch(np.asarray(payload["H"], f32), device),
+        u_pend=_to_torch(np.asarray(payload["u_pend"], f32), device),
+        v_pend=_to_torch(np.asarray(payload["v_pend"], f32), device))
+
+
+def hybrid_state_to_numpy(state: HybridState, *, panel_shapes=None) -> dict:
+    """The port's state as a JAX-package payload of numpy arrays (bfloat16
+    panels come back as their exact float32 values). ``panel_shapes``: per
+    panel the (rows, cols) to pad to with NaN, e.g. the JAX panel-kernel
+    path's block-padded shapes; default: the panels' own shapes."""
+    def host(x):
+        return x.detach().to("cpu", torch.float32, copy=True).numpy()
+
+    payload = {"W": host(state.W), "H": host(state.H),
+               "u_pend": host(state.u_pend), "v_pend": host(state.v_pend)}
+    for i, Rd in enumerate(state.Rds):
+        x = host(Rd)
+        if panel_shapes is not None:
+            full = np.full(panel_shapes[i], np.nan, np.float32)
+            full[:x.shape[0], :x.shape[1]] = x
+            x = full
+        payload[f"Rd_{i}"] = x
+    for i, v in enumerate(state.vals_r):
+        payload[f"vals_r_{i}"] = host(v)
+    for i, v in enumerate(state.vals_c):
+        payload[f"vals_c_{i}"] = host(v)
+    return payload
