@@ -2,15 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written panel kernels from ``cuda_recommender_tpu_torch/
-csrc``, checks each against its plain PyTorch version on the card, drives
-the port's main path (CCD++ on the panel-hybrid backend at Netflix-100M
-dims, k=40, bf16 NaN-sentinel panels) through ``train()`` -- three outer
-iterations at one inner iteration as bench.py runs it, then one at two
-inner iterations, which also launches the read-only v-sweep --, checks each
-kernel again at every panel shape that run gave it, times each kernel
-against its plain version, and runs the CLI with the golden check. Any
-failure raises and exits non-zero; nothing falls back to the CPU.
+Builds the hand-written kernels from ``cuda_recommender_tpu_torch/csrc``
+(one nvcc per source, in parallel) and checks each against its plain
+PyTorch version on the card. Then it drives the port's two paths:
+
+* CCD++ on the panel-hybrid backend at Netflix-100M dims (k=40, bf16
+  NaN-sentinel panels, the panel kernels K1-K3) through ``train()`` --
+  three outer iterations at one inner iteration as bench.py runs it, then
+  one at two inner iterations, which also launches the read-only v-sweep
+  --, checks each panel kernel again at every panel shape that run gave it,
+  times each against its plain version, and runs the CLI with the golden
+  check;
+* ALS on the ELL backend at ml20M dims (k=40, the batched Gauss-Jordan
+  kernel K5) through ``train()`` -- five outer iterations --, holds one
+  outer step against the same step with the plain solve, times K5 against
+  its plain version, and runs the ``-ALS`` CLI with the golden check.
+
+Any failure raises and exits non-zero; nothing falls back to the CPU.
 
 The last two lines of standard output are one JSON object of per-kernel
 results (``{"kernels": [...]}``) and one of the device
@@ -32,18 +40,30 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "cuda_recommender_tpu_torch/csrc/panel_kernels.cu"
+CSRC = "cuda_recommender_tpu_torch/csrc"
 PALLAS = "cuda_recommender_tpu/ops/panel_pallas.py"
-#: kernel -> (TPU kernel it replaces, the Pallas call's file:line)
+#: panel kernel -> the Pallas call it replaces (file:line)
 KERNELS = {"panel_update_vsweep": f"{PALLAS}:240",
            "panel_usweep": f"{PALLAS}:321",
            "panel_vsweep": f"{PALLAS}:283"}
+GJ_REPLACES = "cuda_recommender_tpu/ops/gj_pallas.py:245"
 
 #: bench.py's headline configuration (Netflix-100M dims)
 HEADLINE = dict(m=480_189, n=17_770, nnz=100_000_000, k=40, lam=0.05,
                 iters=3, budget=6_500_000_000, widths=(4096, 2048))
 CHECK_SHAPES = ((50, 70), (65_536, 17_770))
 RTOL = 1e-5            # g/h vs the plain version, scaled by sum(|terms|)
+
+#: the JAX package's ALS headline (scripts/bench_als_tpu.py:76-79): ml20M
+#: dims, k=40, lambda=0.1, the gj solver, precision "highest"
+ALS_HEADLINE = dict(m=138_493, n=26_744, nnz=20_000_000, k=40, lam=0.1,
+                    iters=5)
+#: K5 checks: (k, S) -- ragged S at every k, and the headline's two sides
+GJ_CHECKS = ((1, 1037), (10, 1037), (40, 1037), (128, 1037),
+             (40, 138_493), (40, 26_744))
+GJ_RTOL = 1e-5         # per system, max|x - x_plain| / max|x_plain|
+GJ_F64_TOL = 5e-4      # rtol = atol against the f64 solve (test_pallas.py:87)
+GJ_F64_SYSTEMS = 4096  # systems checked against f64 at large S
 
 
 def phase(name: str) -> None:
@@ -158,11 +178,12 @@ def check_kernels(device, shapes, dtypes=(torch.float32, torch.bfloat16),
 
 
 def want_launches(k, iters, inner, panels) -> dict:
-    """Launches of one train() run: per rank and panel, K1 on the first
-    inner iteration, K3 on each further one, K2 on every one."""
+    """Launches of one CCD++ train() run: per rank and panel, K1 on the
+    first inner iteration, K3 on each further one, K2 on every one; no
+    K5."""
     per = k * iters * panels
     return {"panel_update_vsweep": per, "panel_vsweep": per * (inner - 1),
-            "panel_usweep": per * inner}
+            "panel_usweep": per * inner, "gj_solve": 0}
 
 
 def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
@@ -174,7 +195,7 @@ def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
     from cuda_recommender_tpu_torch import Config, train
     from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
     from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
-    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+    from cuda_recommender_tpu_torch.ops import launches as lc
 
     t0 = time.perf_counter()
     R, T = synthetic_cached(m, n, nnz, seed=1, test_fraction=0.02)
@@ -193,17 +214,17 @@ def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    pk.reset_launch_counts()
+    lc.reset_launch_counts()
     try:
         res = train(config(iters, 1), R, T, device=device, log=log)
-        launches = pk.launch_counts()
+        launches = lc.launch_counts()
         peak = (torch.cuda.max_memory_allocated()
                 if torch.device(device).type == "cuda" else 0)
         print("[headline] -T 2, one outer iteration:", flush=True)
         res2 = train(config(1, 2), R, T, device=device, log=log)
     finally:
         log.close()
-    total = pk.launch_counts()
+    total = lc.launch_counts()
     launches2 = {name: total[name] - launches[name] for name in total}
     with open(metrics_file) as f:
         events = [json.loads(line) for line in f]
@@ -237,6 +258,8 @@ def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
             raise AssertionError(f"-T {inner}: launches {got}, want {want} "
                                  f"(k={k}, {n_it} iterations, {P} panels)")
     print(f"[headline] launches in all {total}", flush=True)
+    del res, res2
+    torch.cuda.empty_cache()
     return dict(panels=plan_ev["panels"], s_iter=s_iter, rate=rate,
                 peak=peak, launches=total, rmse=rmse)
 
@@ -324,6 +347,225 @@ def run_cli() -> None:
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
+def spd_systems(k, S, seed, device="cuda"):
+    """S seeded SPD systems F Fᵀ + 3I, F (S, k, min(k, 16)) standard normal
+    (the systems of tests/test_pallas.py:79-87), and right-hand sides."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    F = torch.randn((S, k, min(k, 16)), generator=gen, device=device)
+    A = torch.bmm(F, F.transpose(1, 2))
+    A.diagonal(dim1=1, dim2=2).add_(3.0)
+    b = torch.randn((S, k), generator=gen, device=device)
+    return A, b
+
+
+def check_gj(checks=GJ_CHECKS) -> float:
+    """K5 against its plain version on the same systems: per system
+    max|x - x_plain| <= GJ_RTOL * max|x_plain|, repeat runs bit-identical,
+    both within GJ_F64_TOL of the f64 solve (all systems, or the first
+    GJ_F64_SYSTEMS and the last 37 at large S). Returns the largest
+    |x - x_plain|."""
+    from cuda_recommender_tpu_torch.ops import gj_kernels as gk
+
+    worst = 0.0
+    for k, S in checks:
+        t0 = time.perf_counter()
+        A, b = spd_systems(k, S, seed=k * 7919 + S)
+        x = gk.gj_solve(A, b)
+        x2 = gk.gj_solve(A, b)
+        xp = gk.gj_solve_plain(A, b)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(x).all()) and torch.equal(x, x2)):
+            raise AssertionError(f"K5 k={k} S={S}: non-finite or not "
+                                 "repeatable")
+        err = (x - xp).abs().amax(dim=1)
+        bound = GJ_RTOL * xp.abs().amax(dim=1)
+        if bool((err > bound).any()):
+            s = int(torch.argmax(err - bound))
+            raise AssertionError(f"K5 k={k} S={S}: system {s} max|x - "
+                                 f"x_plain| {float(err[s]):.3e} > "
+                                 f"{float(bound[s]):.3e}")
+        sub = (torch.arange(S, device=A.device) if S <= GJ_F64_SYSTEMS
+               else torch.cat([torch.arange(GJ_F64_SYSTEMS, device=A.device),
+                               torch.arange(S - 37, S, device=A.device)]))
+        ref = torch.linalg.solve(A[sub].double(), b[sub].double())
+        f64 = {}
+        for name, got in (("kernel", x), ("plain", xp)):
+            d = (got[sub].double() - ref).abs()
+            if bool((d > GJ_F64_TOL * (1 + ref.abs())).any()):
+                raise AssertionError(f"K5 k={k} S={S}: {name} off the f64 "
+                                     f"solve by {float(d.max()):.3e}")
+            f64[name] = float(d.max())
+        n_bits = int((x.view(torch.int32) != xp.view(torch.int32)).sum())
+        worst = max(worst, float(err.max()))
+        print(f"[check] gj_solve k={k:3d} S={S:6d}: max|x - x_plain| "
+              f"{float(err.max()):.3e} (largest / max|x_plain| per system "
+              f"{float((err / xp.abs().amax(dim=1)).max()):.2e}, bar "
+              f"{GJ_RTOL}); {n_bits} of {x.numel()} entries differ in bits; "
+              f"repeatable; max|x - f64| kernel {f64['kernel']:.3e} plain "
+              f"{f64['plain']:.3e} (bar {GJ_F64_TOL}) "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+        del A, b, x, x2, xp
+        torch.cuda.empty_cache()
+    return worst
+
+
+def run_als_headline(device, *, m, n, nnz, k, lam, iters,
+                     metrics_file) -> dict:
+    """train() at the ALS headline (ml20M dims, ``iters`` outer
+    iterations); the launch counts are set to 0 just before it and read
+    just after. Then one outer step from the initial state with the
+    kernel (solver gj) and with the plain solve (gj_xla), compared."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.init import init_factors_np
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.data.ell import build_ell_pair
+    from cuda_recommender_tpu_torch.ops import launches as lc
+    from cuda_recommender_tpu_torch.solvers import als_ell
+    from cuda_recommender_tpu_torch.solvers.als_state import (
+        als_state_from_numpy, slot_payload)
+
+    t0 = time.perf_counter()
+    R, T = synthetic_cached(m, n, nnz, seed=1, test_fraction=0.02)
+    data_s = time.perf_counter() - t0
+    print(f"[als] data {R.rows} x {R.cols}, train nnz {R.nnz}, test nnz "
+          f"{T.nnz}: {data_s:.1f} s (host)", flush=True)
+    cfg = Config(solver="als", k=k, lambda_=lam, maxiter=iters,
+                 als_solver="gj", als_precision="highest",
+                 metrics_file=metrics_file)
+    log = MetricsLog(metrics_file)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    try:
+        res = train(cfg, R, T, device=device, log=log)
+    finally:
+        log.close()
+    launches = lc.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(metrics_file) as f:
+        plan = [e for e in map(json.loads, f) if e["kind"] == "als_plan"][0]
+    per_iter = plan["k5_launches_per_iter"]
+    rmse = [st.rmse for st in res.stats]
+    it_s = [st.rank_time for st in res.stats]
+    s_iter = sum(it_s[1:]) / len(it_s[1:])
+    rate = R.nnz / s_iter
+    for name, side in plan["sides"].items():
+        print(f"[als] {name} side: floor {side['min_width']}, widths "
+              f"{side['widths']}, rows {side['rows']}, slots "
+              f"{side['n_slots']}, padded lanes {side['padded_lanes']}, "
+              f"groups {side['groups']}", flush=True)
+    print(f"[als] plan {plan['plan_s']:.2f} s (host), device set-up "
+          f"{plan['setup_s']:.2f} s; K5 launches per iteration {per_iter}",
+          flush=True)
+    print(f"[als] RMSE per iteration {rmse}; s/iter {it_s}", flush=True)
+    print(f"[als] s/iter (iterations 2-{len(it_s)}): {s_iter:.4f}; "
+          f"ratings/s: {rate:.4e}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if not all(math.isfinite(r) for r in rmse) or len(rmse) != iters:
+        raise AssertionError(f"ALS RMSE {rmse}")
+    if not all(r < rmse[0] for r in rmse[1:]):
+        raise AssertionError(f"ALS RMSE does not fall after iteration 1: "
+                             f"{rmse}")
+    want = {name: 0 for name in launches}
+    want["gj_solve"] = per_iter * iters
+    if launches != want:
+        raise AssertionError(f"ALS launches {launches}, want {want}")
+
+    # one outer step from the initial state: kernel against plain solve
+    W0, H0 = init_factors_np(k, R.rows, R.cols, seed=cfg.seed,
+                             entity_major=True)
+    ell = build_ell_pair(R, min_width=cfg.als_min_width)
+    idx_r, vals_r = als_ell.side_tensors(ell.rows_side, device)
+    idx_c, vals_c = als_ell.side_tensors(ell.cols_side, device)
+    nnz_r = torch.as_tensor(ell.rows_side.slot_nnz, device=device)
+    nnz_c = torch.as_tensor(ell.cols_side.slot_nnz, device=device)
+    out = {}
+    for solver in ("gj", "gj_xla"):
+        W, H = als_state_from_numpy(slot_payload(ell, W0, H0), ell, device)
+        step = als_ell.make_als_outer_step(ell, lam, solver=solver)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out[solver] = step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c)
+        torch.cuda.synchronize()
+        print(f"[als] one outer step, solver {solver}: "
+              f"{time.perf_counter() - t1:.4f} s", flush=True)
+    for name, a, b in zip("WH", out["gj"], out["gj_xla"]):
+        d = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"ALS step {name}: gj vs gj_xla max diff "
+                                 f"{d:.3e}")
+        print(f"[als] step {name}: gj vs gj_xla max|diff| {d:.3e} "
+              f"(bar rtol 1e-4, atol 1e-5); bit-equal "
+              f"{torch.equal(a, b)}", flush=True)
+    del R, T, res, out, idx_r, vals_r, idx_c, vals_c
+    torch.cuda.empty_cache()
+    return dict(s_iter=s_iter, rate=rate, peak=peak, launches=launches,
+                rmse=rmse, per_iter=per_iter)
+
+
+def time_gj(k, S=ALS_HEADLINE["m"], reps=5) -> tuple[float, float]:
+    """K5 against its plain version at (k, S), warm, in turns plain,
+    kernel, kernel, plain. Returns (ms, plain_ms)."""
+    from cuda_recommender_tpu_torch.ops import gj_kernels as gk
+
+    A, b = spd_systems(k, S, seed=11)
+    kern, plain = (lambda: gk.gj_solve(A, b)), (lambda: gk.gj_solve_plain(A,
+                                                                         b))
+    kern(), plain()                                   # warm-up
+    torch.cuda.synchronize()
+    p1 = _time(plain, reps)
+    k1 = _time(kern, reps)
+    k2 = _time(kern, reps)
+    p2 = _time(plain, reps)
+    flop = 2 * S * k * k * (k + 1)
+    print(f"[timing] gj_solve S={S} k={k}: kernel {k1:.3f} / {k2:.3f} ms, "
+          f"plain {p1:.3f} / {p2:.3f} ms; kernel "
+          f"{flop / ((k1 + k2) / 2e3) / 1e12:.2f} TFLOP/s of elimination",
+          flush=True)
+    del A, b
+    torch.cuda.empty_cache()
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+#: the ALS CLI run's golden bar: the JAX package's own ALS golden bar
+#: (tests/test_trainer.py:29-34), at most 1.0% of entries off by 10%
+ALS_GOLDEN_PCT = 1.0
+
+
+def run_als_cli() -> None:
+    """The CLI with -ALS --golden: every iteration's RMSE within RMSE_TOL of
+    the reference's, W and H each PASS! or NO PASS! under ALS_GOLDEN_PCT,
+    K5 launched."""
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.cli.train",
+           "--dataset", "synthetic:m=6040,n=3706,nnz=900000", "-k", "10",
+           "-t", "3", "-ALS", "--golden", "--device", "cuda"]
+    print("[cli] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    print(res.stdout + res.stderr, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"ALS CLI exited {res.returncode}")
+    checks = re.findall(r"^Check\.\.\. (.*)$", res.stdout, re.M)
+    pcts = [0.0 if c == "PASS!" else float(re.search(
+        r"NO PASS! \[([0-9.]+)%\]", c).group(1)) for c in checks]
+    if len(checks) != 2 or max(pcts) >= ALS_GOLDEN_PCT:
+        raise AssertionError(f"ALS golden check of W and H: {checks}")
+    rmse = [float(x) for x in re.findall(r"RMSE=([0-9.]+)", res.stdout)]
+    ours, ref = rmse[:3], rmse[3:6]
+    if len(rmse) != 6 or max(abs(a - b)
+                             for a, b in zip(ours, ref)) > RMSE_TOL:
+        raise AssertionError(f"RMSE ell {ours} vs reference {ref}")
+    m = re.search(r"^\[info\] kernel launches: (\{.*\})$", res.stdout, re.M)
+    launches = json.loads(m.group(1))
+    if launches["gj_solve"] <= 0:
+        raise AssertionError("gj_solve never launched by the ALS CLI")
+    print(f"[cli] golden W, H {checks} (bar < {ALS_GOLDEN_PCT}%); RMSE ell "
+          f"{ours} = reference {ref} within {RMSE_TOL}; launches {launches} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -346,18 +588,21 @@ def main() -> int:
     print(nvcc.strip().splitlines()[-1], flush=True)
     dev = resolve_device("cuda")
 
-    phase("2 build")
+    phase("2 build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    so, log = build.build()
-    build.load()
-    print(f"[build] {os.path.relpath(so, HERE)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if re.search(r"Compiling entry|registers|spill", line):
-            print("[ptxas] " + line.strip(), flush=True)
+    built = build.build()
+    for name in built:
+        build.load(name)
+    print(f"[build] {[os.path.relpath(so, HERE) for so, _ in built.values()]}"
+          f" in {time.perf_counter() - t0:.1f} s", flush=True)
+    for _, log in built.values():
+        for line in log.splitlines():
+            if re.search(r"Compiling entry|registers|spill", line):
+                print("[ptxas] " + line.strip(), flush=True)
 
     phase("3 kernel checks")
     worst = check_kernels(dev, CHECK_SHAPES)
+    gj_worst = check_gj()
 
     phase("4 headline run (train(), Netflix-100M dims, k=40, bf16, NaN "
           "sentinel, hand stair (4096, 2048), 6.5e9 cells)")
@@ -377,14 +622,34 @@ def main() -> int:
     phase("7 CLI with golden check (-T 2)")
     run_cli()
 
+    phase("8 ALS headline run (train(), ml20M dims, k=40, 5 iterations, "
+          "K5)")
+    with tempfile.TemporaryDirectory() as tmp:
+        als = run_als_headline(dev, metrics_file=os.path.join(
+            tmp, "als.jsonl"), **ALS_HEADLINE)
+
+    phase("9 K5 timing at the ALS headline's rows side (S=138,493)")
+    gj_times = {k: time_gj(k) for k in (40, 128)}
+    print(f"[timing] card: {smi}", flush=True)
+
+    phase("10 ALS CLI with golden check")
+    run_als_cli()
+
     print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
           flush=True)
     print(smi, flush=True)
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces, "launches": head["launches"][name],
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,
+                "launches": head["launches"][name],
                 "max_abs_err": worst[name], "ms": times[name][0],
                 "plain_ms": times[name][1]}
                for name, replaces in KERNELS.items()]
+    kernels.append({"name": "gj_solve", "route": "cuda",
+                    "source": f"{CSRC}/gj_kernels.cu",
+                    "replaces": GJ_REPLACES,
+                    "launches": als["launches"]["gj_solve"],
+                    "max_abs_err": gj_worst, "ms": gj_times[40][0],
+                    "plain_ms": gj_times[40][1]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ reference's CUDA role) on ``device`` and optionally the NumPy golden backend
 (calculate_rmse_directly, src/extras.cpp:182-216), then cross-validate with
 golden_compare (src/main.cpp:133-144).
 
-The port runs CCD++ on the ``hybrid`` backend and the ``ref`` backend;
-everything else raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port runs CCD++ on the ``hybrid`` backend, ALS on the ``ell`` backend
+(ALS's one compiled path: any backend request but ``ref`` resolves to it),
+and both on the ``ref`` backend; everything else raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -53,10 +55,15 @@ class TrainResult:
 
 def _check_supported(cfg: Config, backend: Backend, mesh,
                      resume_from_checkpoint: bool) -> None:
-    if cfg.solver == Solver.ALS:
-        raise NotImplementedError("ALS is not in the port yet (ROADMAP.md "
-                                  "queue 1 item 11: ALS)")
-    if backend not in (Backend.HYBRID, Backend.REF):
+    als = cfg.solver == Solver.ALS
+    if als and cfg.phase_timing:
+        raise NotImplementedError(
+            "phase_timing is a CCD telemetry mode (the reference splits CCD "
+            "iterations into rank/update phases, src/CCD.cpp:76-139; its ALS "
+            "prints one per-iteration time, which the normal loop already "
+            "measures)")
+    if backend not in ((Backend.ELL, Backend.REF) if als
+                       else (Backend.HYBRID, Backend.REF)):
         raise NotImplementedError(
             f"backend {backend.value!r} is not in the port yet (ROADMAP.md "
             f"queue 1 {_BACKEND_ITEMS[backend]}); use 'hybrid' or 'ref'")
@@ -71,10 +78,13 @@ def _check_supported(cfg: Config, backend: Backend, mesh,
     if backend == Backend.HYBRID:
         from ..solvers.ccd_hybrid import check_supported
         check_supported(cfg)
+    if als and backend == Backend.ELL:
+        from ..solvers.als_ell import check_supported
+        check_supported(cfg)
 
 
 def _run_reference(cfg: Config, R, W0, H0, T, log):
-    from ..solvers.reference import ccd_reference
+    from ..solvers.reference import als_reference, ccd_reference
 
     acc = {"rank": 0.0, "upd": 0.0}
 
@@ -86,27 +96,45 @@ def _run_reference(cfg: Config, R, W0, H0, T, log):
                       rmse_time=getattr(st, "rmse_time", None))
 
     W, H = W0.copy(), H0.copy()
-    stats = ccd_reference(R, W, H, T, lambda_=cfg.lambda_,
-                          maxiter=cfg.maxiter, nmf=cfg.do_nmf,
-                          maxinneriter=cfg.maxinneriter, callback=cb,
-                          early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
+    eps = cfg.eps if cfg.early_stop else 0.0
+    if cfg.solver == Solver.ALS:
+        stats = als_reference(R, W, H, T, lambda_=cfg.lambda_,
+                              maxiter=cfg.maxiter, callback=cb,
+                              early_stop_eps=eps)
+    else:
+        stats = ccd_reference(R, W, H, T, lambda_=cfg.lambda_,
+                              maxiter=cfg.maxiter, nmf=cfg.do_nmf,
+                              maxinneriter=cfg.maxinneriter, callback=cb,
+                              early_stop_eps=eps)
     return W, H, stats
 
 
 def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device):
     if backend == Backend.REF:
         return _run_reference(cfg, R, W0, H0, T, log)
-    from ..solvers.ccd_hybrid import ccd_hybrid_train
 
     acc = {"rank": 0.0, "upd": 0.0}
 
     def cb(st):
+        if cfg.solver == Solver.ALS:
+            # ALS emits one wall time per iteration; the reference prints it
+            # under the update_time label (src/ALS.cpp:224-229).
+            acc["upd"] += st.rank_time
+            log.iteration(cfg.solver.value, backend.value, st.oiter, st.rmse,
+                          0.0, 0.0, st.rank_time, acc["upd"],
+                          rmse_time=getattr(st, "rmse_time", None))
+            return
         acc["rank"] += st.rank_time
         acc["upd"] += st.update_time
         log.iteration(cfg.solver.value, backend.value, st.oiter, st.rmse,
                       st.rank_time, acc["rank"], st.update_time, acc["upd"],
                       rmse_time=getattr(st, "rmse_time", None))
 
+    if cfg.solver == Solver.ALS:
+        from ..solvers.als_ell import als_ell_train
+        return als_ell_train(R, W0, H0, T, cfg, device=device, callback=cb,
+                             log=log)
+    from ..solvers.ccd_hybrid import ccd_hybrid_train
     return ccd_hybrid_train(R, W0, H0, T, cfg, device=device, callback=cb,
                             log=log)
 
@@ -120,6 +148,7 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     _check_supported(cfg, backend, mesh, resume_from_checkpoint)
     device = resolve_device(device)
     log = log or MetricsLog(cfg.metrics_file)
+    entity_major = cfg.solver == Solver.ALS
     log.info(f"[info] Picked Version: {cfg.solver.value.upper()}!")
     log.info("[info] Backend = %s | K = %d | InnerIter = %d | OuterIter = %d "
              "| L = %.3f" % (backend.value, cfg.k, cfg.maxinneriter,
@@ -127,7 +156,8 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
 
     # identical init for every backend copy — the reference's srand(0)
     # discipline that makes golden_compare meaningful (src/main.cpp:86-98)
-    W0, H0 = init_factors_np(cfg.k, R.rows, R.cols, seed=cfg.seed)
+    W0, H0 = init_factors_np(cfg.k, R.rows, R.cols, seed=cfg.seed,
+                             entity_major=entity_major)
 
     log.info(f"[INFO] Computing with {backend.value} backend...")
     t0 = time.perf_counter()
@@ -136,11 +166,11 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     train_time = time.perf_counter() - t0
     log.info("[info] %s Training time: %f s." % (backend.value, train_time))
     t0 = time.perf_counter()
-    final_rmse = calrmse_np(T, W, H, entity_major=False)
+    final_rmse = calrmse_np(T, W, H, entity_major=entity_major)
     log.info("Test RMSE = %f. Calculated in %fs"
              % (final_rmse, time.perf_counter() - t0))
 
-    result = TrainResult(W=W, H=H, stats=stats, entity_major=False,
+    result = TrainResult(W=W, H=H, stats=stats, entity_major=entity_major,
                          backend=backend.value, final_rmse=final_rmse,
                          train_time=train_time)
 
@@ -150,7 +180,8 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
         W_ref, H_ref, ref_stats = _run_reference(cfg, R, W0, H0, T, log)
         log.info("[info] ref Training time: %f s." % (time.perf_counter() - t0))
         result.ref_stats = ref_stats
-        result.ref_final_rmse = calrmse_np(T, W_ref, H_ref, entity_major=False)
+        result.ref_final_rmse = calrmse_np(T, W_ref, H_ref,
+                                           entity_major=entity_major)
         log.info("Test RMSE = %f." % result.ref_final_rmse)
         log.info("[info] validate the results.")
         t0 = time.perf_counter()

@@ -152,6 +152,34 @@ class EllPair:
     nnz: int
 
 
+#: auto bucket-floor padding tolerance: the floor is the LARGEST ladder
+#: width whose padded-lane total stays within this factor of the true nnz.
+AUTO_FLOOR_TAU = 1.3
+
+
+def auto_min_width(degrees: np.ndarray, tau: float = AUTO_FLOOR_TAU) -> int:
+    """Degree-adaptive bucket floor: the largest width in {128, 64, 32, 16,
+    8} such that flooring every nonempty entity's degree at it costs
+    <= tau x the true nnz in padded lanes. Wide buckets help the ALS gram
+    products; the cost of the floor is exactly the padded lanes, so choose
+    from the degree distribution."""
+    deg = np.asarray(degrees, dtype=np.int64)
+    deg = deg[deg > 0]
+    if deg.size == 0:
+        return 8
+    s = float(deg.sum())
+    for w in (128, 64, 32, 16):
+        if float(np.maximum(deg, w).sum()) <= tau * s:
+            return w
+    return 8
+
+
+def _resolve_min_width(min_width, degrees: np.ndarray) -> int:
+    if min_width == "auto":
+        return auto_min_width(degrees)
+    return int(min_width)
+
+
 def _plan_buckets(degrees: np.ndarray, min_width: int,
                   max_buckets: int = MAX_BUCKETS):
     """Group entity ids into <= max_buckets degree buckets whose widths are
@@ -173,12 +201,17 @@ def _plan_buckets(degrees: np.ndarray, min_width: int,
     return plan, empty
 
 
-def _build_side(ptr: np.ndarray, n_entities: int, *, min_width: int,
+def _build_side(ptr: np.ndarray, n_entities: int, *, min_width,
                 num_shards: int) -> tuple[EllSide, list[np.ndarray]]:
     """First pass: slot assignment + bucket geometry. Returns the side with
     zeroed idx/val plus, per bucket, the per-slot raw entity ids (for the
-    fill pass)."""
+    fill pass).
+
+    ``min_width`` may be the string "auto": the floor is then chosen from
+    THIS side's degree distribution (auto_min_width), so each orientation
+    gets its own floor."""
     deg = np.diff(ptr).astype(np.int64)
+    min_width = _resolve_min_width(min_width, deg)
     plan, empty = _plan_buckets(deg, min_width)
 
     buckets_meta = []   # (E, p, rows_per_shard, per-shard entity grid (num_shards, slots_ps))
@@ -287,10 +320,11 @@ def _fill_side(side: EllSide, fill_grids, ptr, nbr_idx, nbr_val,
     return dataclasses.replace(side, other_zero_slot=other_zero_slot)
 
 
-def build_ell_pair(R: RatingMatrix, *, min_width: int = 8,
+def build_ell_pair(R: RatingMatrix, *, min_width: int | str = 8,
                    num_shards: int = 1,
                    index_space: str = "slot") -> EllPair:
-    """Build both orientations.
+    """Build both orientations. ``min_width``: a bucket floor, or "auto"
+    for a per-side floor (auto_min_width).
 
     ``index_space`` selects what the bucket ``idx`` arrays reference:
       * ``"slot"`` (default): the other side's slot ids — gathers read

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-``nvcc`` compiles ``csrc/panel_kernels.cu`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, which ctypes loads. The build
-happens at first use, into ``cuda_recommender_tpu_torch/_build/`` (listed in
-.gitignore), under a name keyed by the source's and the flags' hash, so an
-edited source rebuilds and an unchanged one loads at once. Each build writes
-a per-process temporary file and renames it into place, so concurrent
+``nvcc`` compiles each source of ``csrc/`` for Hopper (``sm_90a``) into a
+shared library of its own with a plain C interface, which ctypes loads:
+``panel_kernels.cu`` (K1-K3, the CCD++ panel passes) and ``gj_kernels.cu``
+(K5, the ALS batched solve). The build happens at first use, into
+``cuda_recommender_tpu_torch/_build/`` (listed in .gitignore), under a name
+keyed by the source's and the flags' hash, so an edited source rebuilds and
+an unchanged one loads at once. ``build()`` starts one ``nvcc`` per missing
+library, all at once, and waits for them all. Each build writes a
+per-process temporary file and renames it into place, so concurrent
 processes never load a half-written library.
 
 A missing ``nvcc`` or a failed compile raises: nothing falls back to the
@@ -21,12 +24,31 @@ import shutil
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "panel_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: library name -> {C function: argtypes}; every function returns the CUDA
+#: error code of its launch (int, 0 = success)
+SIGNATURES = {
+    "panel_kernels": {
+        "crtpu_panel_update_vsweep": [_p, _i, _p, _p, _p, _p, _p, _p, _p,
+                                      _p, _i, _i, _i, _p],
+        "crtpu_panel_vsweep": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+        "crtpu_panel_usweep": [_p, _i, _p, _p, _p, _i, _i, _p],
+    },
+    "gj_kernels": {
+        # A, A's batch and row strides, b, b's strides, x, S, k, stream
+        "crtpu_gj_solve": [_p, _ll, _ll, _p, _ll, _ll, _p, _ll, _i, _p],
+    },
+}
+
+_libs: dict = {}
+
+
+def source(name: str) -> str:
+    return os.path.join(_PKG, "csrc", f"{name}.cu")
 
 
 def nvcc_path() -> str:
@@ -39,47 +61,58 @@ def nvcc_path() -> str:
         path = os.path.join(home, "bin", "nvcc")
     if path is None:
         raise RuntimeError(f"nvcc not found (on PATH or in {home}/bin); the "
-                           "panel kernels cannot be built")
+                           "kernels cannot be built")
     return path
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(name: str) -> str:
+    with open(source(name), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"libpanel_kernels_{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build() -> tuple[str, str]:
-    """Compile the kernels unless this source's library exists. Returns
-    (library path, compiler output — ptxas' register and shared-memory
-    report; empty when the library was already built)."""
-    so = library_path()
-    if os.path.exists(so):
-        return so, ""
-    tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+def build(names=None) -> dict:
+    """Compile the libraries ``names`` (default: all) that are not built
+    yet, one ``nvcc`` each, in parallel. Returns name -> (library path,
+    compiler output: ptxas' register and shared-memory report; empty for a
+    library that was already built)."""
+    names = list(SIGNATURES if names is None else names)
+    out = {name: (library_path(name), "") for name in names}
+    missing = [name for name, (so, _) in out.items()
+               if not os.path.exists(so)]
+    if not missing:
+        return out
+    nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                           f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so, res.stdout + res.stderr
+    procs = {}
+    for name in missing:
+        so = out[name][0]
+        tmp = f"{so}.tmp.{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source(name)]
+        procs[name] = (so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (so, tmp, cmd, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log[-4000:]}")
+            continue
+        os.replace(tmp, so)
+        out[name] = (so, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()[0])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.crtpu_panel_update_vsweep.argtypes = [p, i, p, p, p, p, p, p, p,
-                                                  p, i, i, i, p]
-        lib.crtpu_panel_vsweep.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
-        lib.crtpu_panel_usweep.argtypes = [p, i, p, p, p, i, i, p]
-        for fn in (lib.crtpu_panel_update_vsweep, lib.crtpu_panel_vsweep,
-                   lib.crtpu_panel_usweep):
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built on first call), with every
+    function's argtypes and restype set."""
+    if name not in _libs:
+        lib = ctypes.CDLL(build([name])[name][0])
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]

@@ -23,15 +23,15 @@ TPU's block padding is gone.
 Each wrapper takes the plain version ONLY for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (on the current stream) or raises. It
 checks device, dtype, shape and contiguity, allocates its outputs with
-``torch.empty``, and adds one to ``LAUNCHES[name]`` where it launches.
+``torch.empty``, and adds one to its count in ``ops/launches.py`` where it
+launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-#: kernel launches per wrapper since the last ``reset_launch_counts()``
-LAUNCHES = {"panel_update_vsweep": 0, "panel_vsweep": 0, "panel_usweep": 0}
+from .launches import count
 
 #: storage dtype codes of csrc/panel_kernels.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,15 +43,6 @@ _MAX_PARTS = 65535                   # CUDA grid.y limit
 
 #: cells per chunk of the plain versions (bounds their f32 temporaries)
 _PLAIN_CHUNK_CELLS = 1 << 26
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
 
 
 def _check(Rd: torch.Tensor, rows_vecs=(), cols_vecs=()) -> tuple[int, int]:
@@ -100,7 +91,7 @@ def _col_sweep(name: str, Rd, u_old, u_pend, v_old, v_pend):
     """Launch K1 (update) or K3 (u_pend is None) on CUDA tensors."""
     from .build import load
     M, W = Rd.shape
-    lib = load()
+    lib = load("panel_kernels")
     rpp = _rows_per_part(M)
     nparts = -(-M // rpp)
     opts = dict(dtype=torch.float32, device=Rd.device)
@@ -116,7 +107,7 @@ def _col_sweep(name: str, Rd, u_old, u_pend, v_old, v_pend):
         _launch(lib.crtpu_panel_update_vsweep, _ptr(Rd), code, _ptr(u_old),
                 _ptr(u_pend), _ptr(v_old), _ptr(v_pend), _ptr(gpart),
                 _ptr(hpart), _ptr(g), _ptr(h), M, W, rpp, _stream(Rd))
-    LAUNCHES[name] += 1
+    count(name)
     return g, h
 
 
@@ -150,9 +141,10 @@ def panel_usweep(Rd: torch.Tensor, v: torch.Tensor):
     from .build import load
     opts = dict(dtype=torch.float32, device=Rd.device)
     g, h = torch.empty(M, **opts), torch.empty(M, **opts)
-    _launch(load().crtpu_panel_usweep, _ptr(Rd), _DTYPE_CODE[Rd.dtype],
-            _ptr(v), _ptr(g), _ptr(h), M, W, _stream(Rd))
-    LAUNCHES["panel_usweep"] += 1
+    _launch(load("panel_kernels").crtpu_panel_usweep, _ptr(Rd),
+            _DTYPE_CODE[Rd.dtype], _ptr(v), _ptr(g), _ptr(h), M, W,
+            _stream(Rd))
+    count("panel_usweep")
     return g, h
 
 

@@ -1,0 +1,274 @@
+"""ALS — padded-ELL backend on one GPU, with the batched Gauss-Jordan kernel.
+
+The port of ``cuda_recommender_tpu/solvers/als_ell.py``, the counterpart of
+the reference's ALS paths (reference src/ALS.cpp:81-233,
+cuda_src/ALS_CUDA.cu:65-180). The reference gives each user/item one CUDA
+thread that builds a k×k gram from CSR-gathered factor rows and inverts it.
+Here each degree bucket of the ELL layout (data/ell.py) gathers the other
+side's factor rows for all its slots at once, forms every slot's gram AND
+right-hand side with one batched product of Faug = [F | val] with itself
+(``torch.bmm`` in true f32: TF32 stays off, core/device.py), and solves all
+k×k systems with K5, the hand-written batched Gauss-Jordan kernel
+(ops/gj_kernels.py, csrc/gj_kernels.cu): a solve, not the reference's
+explicit inverse (src/ALS.cpp:41-64) — same math, better numerics.
+
+Semantics preserved (SURVEY.md §7): λ added UNscaled to the gram diagonal
+(src/ALS.cpp:121); empty entities get zero factors (src/ALS.cpp:151-157);
+the H update within an iteration uses the NEW W (Gauss-Seidel across sides,
+Jacobi within a side — src/ALS.cpp:98-219); entity-major (n, k) layout
+(src/main.cpp:87-91). Factors live in slot space during training
+(solvers/als_state.py).
+
+Not ported from the JAX module: the lane-axis chunking of the gram scan
+(a VMEM bound; the port bounds memory by row groups), the (8, 128) tile
+padding in the group budget, the gather-cliff tiling (ROADMAP.md "Not
+ported"; a run that would have tiled logs one line and runs untiled, the
+same math), and ``als_precision`` "high"/"default" (bf16 MXU passes on the
+TPU; raise here).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.device import resolve_device, synchronize
+from ..core.metrics_log import MetricsLog
+from ..data.ell import EllBucket, EllPair, EllSide, _resolve_min_width
+from ..data.ell import build_ell_pair
+from ..data.sparse import RatingMatrix, TestCOO
+from ..eval.metrics import calrmse_device, default_eval_chunk
+from ..ops.gj_kernels import gj_solve, gj_solve_plain
+from .als_state import als_state_from_numpy, slot_payload
+from .pipeline import pipelined_loop
+from .reference import IterStats
+
+#: per-group temp budget of the assembly + solve (cfg.als_group_mb's
+#: default): bounds each group's gathered Faug, its augmented grams and its
+#: solutions, in true bytes
+GROUP_TEMP_BYTES = 2 << 30
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for ALS knobs outside the port."""
+    if cfg.als_precision != "highest":
+        raise NotImplementedError(
+            f"als_precision={cfg.als_precision!r} is not in the port yet "
+            "(ROADMAP.md queue 1 item 17: ALS gram precision on Hopper); "
+            "use 'highest'")
+
+
+def augmented_table(other: torch.Tensor) -> torch.Tensor:
+    """The other side's factors (n, k) as the gather table of the augmented
+    assembly: (n + 1, k + 1), zero row n (the ELL pad lanes' zero slot,
+    ``extend_zero``) and zero column k (where each lane's rating goes)."""
+    n, k = other.shape
+    table = other.new_zeros((n + 1, k + 1))
+    table[:n, :k] = other
+    return table
+
+
+def _gram_and_rhs(idx: torch.Tensor, val: torch.Tensor, table: torch.Tensor,
+                  b: EllBucket):
+    """Per-slot gram and rhs of one bucket's rows: idx (rows, L) int64 and
+    val (rows, L) f32 -> G (S, k, k), r (S, k), S = rows·p, both views of
+    one augmented (S, k+1, k+1) product.
+
+    Lane-packed rows (p > 1) reshape (rows, L) -> (rows·p, E) per-slot
+    lanes. Faug[s, e] = [F[idx[s, e]] | val[s, e]], gathered from
+    ``augmented_table``; Gaug[s] = Faug[s]^T Faug[s] holds the gram in
+    [:k, :k] and the rhs in [:k, k]. Padded lanes gather the zero row with
+    value 0 and contribute exactly 0 to both."""
+    k = table.shape[1] - 1
+    S = idx.shape[0] * b.p
+    Faug = table[idx.reshape(S, b.E)]                     # (S, E, k+1)
+    Faug[:, :, k] = val.reshape(S, b.E)
+    Gaug = torch.bmm(Faug.transpose(1, 2), Faug)          # (S, k+1, k+1)
+    return Gaug[:, :k, :k], Gaug[:, :k, k]
+
+
+def _solve_kxk(A: torch.Tensor, r: torch.Tensor, solver: str) -> torch.Tensor:
+    if solver == "gj":
+        return gj_solve(A, r)                 # K5 on CUDA tensors
+    if solver == "gj_xla":
+        return gj_solve_plain(A, r)           # the JAX package's XLA path
+    C, _ = torch.linalg.cholesky_ex(A)        # no raise: λ=0 pads are masked
+    y = torch.linalg.solve_triangular(C, r.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(C.transpose(-1, -2), y,
+                                         upper=True)[..., 0]
+
+
+def _row_groups(rows: int, L: int, p: int, k: int,
+                group_bytes: int = GROUP_TEMP_BYTES) -> list[tuple[int, int]]:
+    """Row-contiguous groups of one bucket whose temps fit the budget: per
+    row the gathered Faug (L·(k+1)), the p augmented grams (p·(k+1)²) and
+    the p solutions (p·k), f32."""
+    per_row = (L * (k + 1) + p * (k + 1) ** 2 + p * k) * 4
+    g = max(1, min(rows, group_bytes // per_row))
+    return [(r0, min(rows, r0 + g)) for r0 in range(0, rows, g)]
+
+
+def _solve_side(idx_tiles, val_tiles, side: EllSide, other: torch.Tensor,
+                lam: float, slot_nnz: torch.Tensor, solver: str = "gj",
+                group_bytes: int = GROUP_TEMP_BYTES) -> torch.Tensor:
+    """One ALS half-iteration over a side: x_j = (F_Ω^T F_Ω + λI)^{-1}
+    F_Ω^T r for every slot, in row groups per bucket (one K5 launch each);
+    returns the (n_slots, k) new factors."""
+    k = other.shape[1]
+    table = augmented_table(other)
+    new = other.new_zeros((side.n_slots, k))
+    for b, off, idx, val in zip(side.buckets, side.bucket_offsets,
+                                idx_tiles, val_tiles):
+        for r0, r1 in _row_groups(b.rows, b.L, b.p, k, group_bytes):
+            G, r = _gram_and_rhs(idx[r0:r1], val[r0:r1], table, b)
+            G.diagonal(dim1=1, dim2=2).add_(lam)   # λ unscaled, ALS.cpp:121
+            new[off + r0 * b.p:off + r1 * b.p] = _solve_kxk(G, r, solver)
+    # empty/padding slots -> exact zeros (src/ALS.cpp:151-157), also guards
+    # the λ=0 singular-gram case from NaN-poisoning the factor table
+    return torch.where((slot_nnz > 0)[:, None], new, 0.0)
+
+
+def make_als_outer_step(ell: EllPair, lam: float, *, solver: str = "gj",
+                        group_bytes: int = GROUP_TEMP_BYTES) -> Callable:
+    """One outer iteration: the W side from the current H, then the H side
+    from the NEW W. ``step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r,
+    nnz_c) -> (W, H)``, the JAX package's step signature."""
+    rows, cols = ell.rows_side, ell.cols_side
+
+    def step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c):
+        W = _solve_side(idx_r, vals_r, rows, H, lam, nnz_r, solver,
+                        group_bytes)
+        H = _solve_side(idx_c, vals_c, cols, W, lam, nnz_c, solver,
+                        group_bytes)
+        return W, H
+
+    return step
+
+
+def side_tensors(side: EllSide, device) -> tuple[tuple, tuple]:
+    """A side's bucket tiles on ``device``: (idx int64, val f32) tuples."""
+    return (tuple(torch.as_tensor(b.idx.astype(np.int64), device=device)
+                  for b in side.buckets),
+            tuple(torch.as_tensor(b.val, device=device)
+                  for b in side.buckets))
+
+
+def k5_launches_per_iter(ell: EllPair, k: int, solver: str,
+                         group_bytes: int) -> int:
+    """K5 launches of one outer iteration: one per (bucket, row group)."""
+    if solver != "gj":
+        return 0
+    return sum(len(_row_groups(b.rows, b.L, b.p, k, group_bytes))
+               for side in (ell.rows_side, ell.cols_side)
+               for b in side.buckets)
+
+
+def _side_plan(side: EllSide, floor: int, k: int, group_bytes: int) -> dict:
+    return dict(min_width=floor, widths=[b.E for b in side.buckets],
+                rows=[b.rows for b in side.buckets],
+                slots=[b.rows * b.p for b in side.buckets],
+                n_slots=side.n_slots, padded_lanes=side.nnz_padded,
+                groups=[len(_row_groups(b.rows, b.L, b.p, k, group_bytes))
+                        for b in side.buckets])
+
+
+def _untiled_note(ell: EllPair, k: int, tile_mb: float) -> Optional[str]:
+    """The JAX package tiles a side's gathers (gather-cliff tiling) when the
+    OTHER side's table exceeds ``tile_mb`` and the side has p == 1
+    buckets. The port runs those sides untiled; say so."""
+    tile_bytes = int(tile_mb * (1 << 20))
+    sides = [f"{name} side ({other.n_slots * k * 4 / 2**20:.1f} MB table)"
+             for name, side, other in (("rows", ell.rows_side, ell.cols_side),
+                                       ("cols", ell.cols_side, ell.rows_side))
+             if tile_bytes and other.n_slots * k * 4 > tile_bytes
+             and any(b.p == 1 for b in side.buckets)]
+    if not sides:
+        return None
+    return (f"[info] als_gather_tile_mb={tile_mb:g} would tile the gathers "
+            f"of the {' and '.join(sides)}; gather tiling is not in the "
+            "port (ROADMAP.md 'Not ported'): running untiled, the same math")
+
+
+def als_ell_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
+                  T: TestCOO, cfg: Config, *, device="cuda",
+                  callback: Optional[Callable[[IterStats], None]] = None,
+                  log: Optional[MetricsLog] = None, resume=None,
+                  ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
+    """Train ALS on the ELL backend on ``device``. W0 (m, k), H0 (n, k)
+    entity-major; returns factors in the same layout and order.
+    ``resume={"oiter", "W", "H"}`` (a slot-space payload after outer
+    iteration ``oiter``) continues from it. With ``log``, the layout and the
+    set-up times are reported as an info line and an ``als_plan`` event."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    k = W0.shape[1]
+    group_bytes = cfg.als_group_mb << 20
+    t0 = time.perf_counter()
+    ell = build_ell_pair(R, min_width=cfg.als_min_width, num_shards=1)
+    rows, cols = ell.rows_side, ell.cols_side
+    t1 = time.perf_counter()
+    start_oiter = 1
+    if resume is not None:
+        start_oiter = int(resume["oiter"]) + 1
+    W, H = als_state_from_numpy(
+        resume if resume is not None else slot_payload(ell, W0, H0), ell, dev)
+    idx_r, vals_r = side_tensors(rows, dev)
+    idx_c, vals_c = side_tensors(cols, dev)
+    nnz_r = torch.as_tensor(rows.slot_nnz, device=dev)
+    nnz_c = torch.as_tensor(cols.slot_nnz, device=dev)
+    synchronize(dev)
+    t2 = time.perf_counter()
+
+    if log is not None:
+        plan = {name: _side_plan(
+                    side, _resolve_min_width(cfg.als_min_width,
+                                             np.diff(ptr)), k, group_bytes)
+                for name, side, ptr in (("rows", rows, R.csr_ptr),
+                                        ("cols", cols, R.csc_ptr))}
+        launches = k5_launches_per_iter(ell, k, cfg.als_solver, group_bytes)
+        log.info("[info] als plan: " + "; ".join(
+            f"{name} side {len(p['widths'])} buckets (widths "
+            f"{p['widths']}), {p['padded_lanes']} padded lanes, "
+            f"{sum(p['groups'])} groups, floor {p['min_width']}"
+            for name, p in plan.items())
+            + f"; K5 launches per iteration {launches}; plan "
+            f"{t1 - t0:.3f} s, device set-up {t2 - t1:.3f} s")
+        log.event("als_plan", k=k, solver=cfg.als_solver, nnz=R.nnz,
+                  sides=plan, k5_launches_per_iter=launches,
+                  plan_s=t1 - t0, setup_s=t2 - t1)
+        note = _untiled_note(ell, k, cfg.als_gather_tile_mb)
+        if note:
+            log.info(note)
+
+    step = make_als_outer_step(ell, cfg.lambda_, solver=cfg.als_solver,
+                               group_bytes=group_bytes)
+
+    def i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    ti = i64(rows.slot_of_entity[T.row_idx])
+    tj = i64(cols.slot_of_entity[T.col_idx])
+    tv = torch.as_tensor(np.asarray(T.val, np.float32), device=dev)
+    chunk = default_eval_chunk(T.nnz, cfg.eval_chunk)
+    box = {"WH": (W, H)}
+
+    def do_step():
+        box["WH"] = step(idx_r, idx_c, vals_r, vals_c, *box["WH"], nnz_r,
+                         nnz_c)
+        return box["WH"][0]
+
+    stats = pipelined_loop(
+        start_oiter=start_oiter, maxiter=cfg.maxiter,
+        fuse=cfg.fused_outer_iters, do_step=do_step,
+        do_rmse=lambda: calrmse_device(ti, tj, tv, *box["WH"],
+                                       entity_major=True, chunk=chunk),
+        callback=callback,
+        early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
+
+    W, H = box["WH"]
+    return (W.cpu().numpy()[rows.slot_of_entity],
+            H.cpu().numpy()[cols.slot_of_entity], stats)

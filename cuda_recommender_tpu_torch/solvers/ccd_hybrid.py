@@ -657,7 +657,7 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
         start_oiter=1, maxiter=cfg.maxiter, fuse=cfg.fused_outer_iters,
         do_step=lambda: step(state),
         do_rmse=lambda: calrmse_device(ti, tj, tv, state.W, state.H,
-                                       chunk=chunk),
+                                       entity_major=False, chunk=chunk),
         callback=callback,
         early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
 

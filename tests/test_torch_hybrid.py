@@ -32,7 +32,7 @@ from cuda_recommender_tpu_torch.core.init import init_factors_np
 from cuda_recommender_tpu_torch.data import datasets
 from cuda_recommender_tpu_torch.data.sparse import from_coo, make_test
 from cuda_recommender_tpu_torch.eval.metrics import calrmse_np, golden_compare
-from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+from cuda_recommender_tpu_torch.ops import launches
 from cuda_recommender_tpu_torch.solvers import ccd_hybrid as th
 from cuda_recommender_tpu_torch.solvers.hybrid_state import (
     hybrid_state_from_numpy, hybrid_state_to_numpy)
@@ -155,7 +155,7 @@ def test_train_golden_and_jax_trajectory(data, golden, case):
     cells, widths = BUDGETS[case]
     kw = dict(k=K, maxiter=3, lambda_=0.1, hybrid_dense_cells=cells,
               hybrid_panel_widths=widths, **KERNEL)
-    pk.reset_launch_counts()
+    launches.reset_launch_counts()
     W, H, stats = th.ccd_hybrid_train(R, W0.copy(), H0.copy(), T,
                                       Config(**kw), device="cpu")
     assert golden_compare(W, Wr, atol=1e-3).passed
@@ -171,7 +171,7 @@ def test_train_golden_and_jax_trajectory(data, golden, case):
     assert len(stats) == len(rmse_j) == 3
     for a, b in zip(stats, rmse_j):
         assert abs(a.rmse - b) < 1e-3
-    assert sum(pk.launch_counts().values()) == 0      # CPU: plain versions
+    assert sum(launches.launch_counts().values()) == 0      # CPU: plain versions
 
 
 def test_bf16_residual_tracks_golden(data, golden):

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from cuda_recommender_tpu.ops import panel_pallas as jp
-from cuda_recommender_tpu_torch.ops import build
+from cuda_recommender_tpu_torch.ops import build, launches
 from cuda_recommender_tpu_torch.ops import panel_kernels as pk
 
 SHAPES = [(48, 64, 16, 32), (50, 70, 16, 32), (16, 128, 16, 128)]
@@ -64,7 +64,7 @@ def _assert_residual(port, ref, name):
 @pytest.mark.parametrize("M,W,bm,bw", SHAPES)
 def test_panel_kernels_match_pallas(M, W, bm, bw, name, jdt, tdt):
     Rd, (uo, up, vo, vp) = _inputs(M, W, seed=M * W)
-    pk.reset_launch_counts()
+    launches.reset_launch_counts()
     j = {x: jnp.asarray(v) for x, v in zip(("uo", "up", "vo", "vp"),
                                             (uo, up, vo, vp))}
     t = {x: torch.from_numpy(v) for x, v in zip(("uo", "up", "vo", "vp"),
@@ -107,8 +107,9 @@ def test_panel_kernels_match_pallas(M, W, bm, bw, name, jdt, tdt):
                            torch.int16 if name == "bfloat16"
                            else torch.int32))
     # CPU tensors take the plain versions: no kernel launched
-    assert pk.launch_counts() == {"panel_update_vsweep": 0,
-                                  "panel_vsweep": 0, "panel_usweep": 0}
+    assert launches.launch_counts() == {"panel_update_vsweep": 0,
+                                        "panel_vsweep": 0,
+                                        "panel_usweep": 0, "gj_solve": 0}
 
 
 def test_update_rounds_once_to_storage():
@@ -186,8 +187,9 @@ def test_build_requires_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "b"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
-    assert build.library_path() == build.library_path()
-    assert build.library_path().startswith(str(tmp_path / "b"))
+    for name in build.SIGNATURES:
+        assert build.library_path(name) == build.library_path(name)
+        assert build.library_path(name).startswith(str(tmp_path / "b"))
 
 
 def test_rows_per_part_bounds_grid():

@@ -111,7 +111,7 @@ def test_cli_runs_and_matches_train(tmp_path):
 
 
 UNSUPPORTED = {
-    "als": dict(solver="als"),
+    "als": dict(solver="als", als_precision="high"),
     "auto_dense": dict(backend="auto"),
     "dense": dict(backend="dense"),
     "pallas": dict(backend="pallas"),
