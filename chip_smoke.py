@@ -16,7 +16,15 @@ PyTorch version on the card. Then it drives the port's two paths:
 * ALS on the ELL backend at ml20M dims (k=40, the batched Gauss-Jordan
   kernel K5) through ``train()`` -- five outer iterations --, holds one
   outer step against the same step with the plain solve, times K5 against
-  its plain version, and runs the ``-ALS`` CLI with the golden check.
+  its plain version and ``torch.linalg.solve``, and runs the ``-ALS`` CLI
+  with the golden check;
+* CCD++ on the dense backend (K4, the fused masked update + v-sweep, and
+  the masked sweeps): checks them against their plain versions, trains the
+  JAX README's quick start at ml10M dims (AUTO -> dense, k=10, golden dual
+  run; then one iteration at -T 2), holds the pallas backend bit-equal to
+  it, trains the README's k=40 bf16-residual row, times the kernels, trains
+  the explicit-mask hybrid at Netflix-100M dims with the JAX ``Config``
+  defaults, and runs the README's CLI command with no backend flag.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -37,6 +45,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -47,6 +56,17 @@ KERNELS = {"panel_update_vsweep": f"{PALLAS}:240",
            "panel_usweep": f"{PALLAS}:321",
            "panel_vsweep": f"{PALLAS}:283"}
 GJ_REPLACES = "cuda_recommender_tpu/ops/gj_pallas.py:245"
+#: K4 and the masked sweeps -> what they replace (file:line)
+MASKED_KERNELS = {
+    "fused_update_vsweep": "cuda_recommender_tpu/ops/ccd_pallas.py:69",
+    "masked_usweep": "cuda_recommender_tpu/solvers/ccd_dense.py:69",
+    "masked_vsweep": "cuda_recommender_tpu/solvers/ccd_dense.py:69"}
+
+#: the H100 SXM data sheet's peaks (700 W): HBM bytes/s and f32 FLOP/s
+#: outside the tensor cores; a kernel's bound is the larger of its bytes
+#: and its operations over them
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
 
 #: bench.py's headline configuration (Netflix-100M dims)
 HEADLINE = dict(m=480_189, n=17_770, nnz=100_000_000, k=40, lam=0.05,
@@ -64,6 +84,24 @@ GJ_CHECKS = ((1, 1037), (10, 1037), (40, 1037), (128, 1037),
 GJ_RTOL = 1e-5         # per system, max|x - x_plain| / max|x_plain|
 GJ_F64_TOL = 5e-4      # rtol = atol against the f64 solve (test_pallas.py:87)
 GJ_F64_SYSTEMS = 4096  # systems checked against f64 at large S
+
+#: the JAX README's quick start (README.md:22-31): ml10M dims, k=10,
+#: lambda=0.05, 5 iterations, golden dual run, every other knob default
+#: (AUTO -> dense, f32 residual, bf16 mask); nothing cut
+DENSE_HEADLINE = dict(m=69_878, n=10_677, nnz=10_000_000, k=10, lam=0.05,
+                      iters=5)
+MASKED_CHECK_SHAPES = ((50, 70), (69_878, 10_677))
+#: the README's k=40 dense row (README.md:91): bf16 residual
+DENSE_K40 = dict(k=40, iters=3)
+#: the explicit-mask hybrid: Netflix-100M dims with the JAX Config defaults
+#: (AUTO -> hybrid, auto stair, 2e9-cell budget, f32 residual, bf16 mask)
+MASK_HYBRID = dict(k=40, lam=0.05, iters=2)
+#: a golden entry that misses the reference's strict 10% bar may pass at
+#: atol 1e-3 only as rounding at a near-zero entry: its reference value
+#: below GOLDEN_MISS_REF and its error below GOLDEN_MISS_DIFF (a tenth of
+#: that atol), so a wrong kernel cannot hide in the atol's slack
+GOLDEN_MISS_REF = 1e-3
+GOLDEN_MISS_DIFF = 1e-4
 
 
 def phase(name: str) -> None:
@@ -177,13 +215,20 @@ def check_kernels(device, shapes, dtypes=(torch.float32, torch.bfloat16),
     return worst
 
 
-def want_launches(k, iters, inner, panels) -> dict:
-    """Launches of one CCD++ train() run: per rank and panel, K1 on the
-    first inner iteration, K3 on each further one, K2 on every one; no
-    K5."""
-    per = k * iters * panels
-    return {"panel_update_vsweep": per, "panel_vsweep": per * (inner - 1),
-            "panel_usweep": per * inner, "gj_solve": 0}
+def want_launches(k, iters, inner, parts, masked=False) -> dict:
+    """Launches of one CCD++ train() run: per rank and part (a panel, or
+    the dense residual), the update + v-sweep kernel on the first inner
+    iteration, the read-only v-sweep on each further one, the u-sweep on
+    every one; the explicit-mask kernels (K4, masked_vsweep, masked_usweep)
+    with ``masked``, else K1, K3, K2; no other kernel."""
+    from cuda_recommender_tpu_torch.ops.launches import launch_counts
+    want = {name: 0 for name in launch_counts()}
+    per = k * iters * parts
+    names = (("fused_update_vsweep", "masked_vsweep", "masked_usweep")
+             if masked else ("panel_update_vsweep", "panel_vsweep",
+                             "panel_usweep"))
+    want.update(zip(names, (per, per * (inner - 1), per * inner)))
+    return want
 
 
 def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
@@ -276,9 +321,33 @@ def _time(fn, reps) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _turns(fns, reps) -> list:
+    """Warm each of ``fns`` up once, then time them in turns forward and
+    back (a, b, ..., b, a) by CUDA events; returns each one's two mean ms
+    readings."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    first = [_time(fn, reps) for fn in fns]
+    second = [_time(fn, reps) for fn in fns[::-1]][::-1]
+    return list(zip(first, second))
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``flops`` f32 operations, at the data sheet's peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def time_kernels(M, W, reps=5) -> dict:
     """Each kernel against its plain version at one bf16 panel shape, warm,
-    in turns plain, kernel, kernel, plain. Returns name -> (ms, plain_ms)."""
+    in turns plain, kernel, kernel, plain. Returns name -> (ms, plain_ms,
+    bound_ms, bound_by): K1 reads and writes the panel (2 + 2 B/cell) and
+    its four vectors; K2 and K3 read it (2 B/cell) and one vector; each
+    writes g and h; about 7 (K1) and 3 (K2, K3) flops a cell."""
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
 
     Rd, (uo, up, vo, vp) = random_panel(M, W, torch.bfloat16, "cuda", seed=7,
@@ -294,14 +363,14 @@ def time_kernels(M, W, reps=5) -> dict:
     }
     out = {}
     for name, (kern, plain) in calls.items():
-        kern(), plain()                                   # warm-up
-        torch.cuda.synchronize()
-        p1 = _time(plain, reps)
-        k1 = _time(kern, reps)
-        k2 = _time(kern, reps)
-        p2 = _time(plain, reps)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        gb = M * W * 2 * (2 if name == "panel_update_vsweep" else 1) / 1e9
+        (p1, p2), (k1, k2) = _turns([plain, kern], reps)
+        upd = name == "panel_update_vsweep"
+        vec = 4 * (2 * M + 4 * W if upd else M + 2 * W
+                   if name == "panel_vsweep" else W + 2 * M)
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                     *bound(M * W * 2 * (2 if upd else 1) + vec,
+                            M * W * (7 if upd else 3)))
+        gb = M * W * 2 * (2 if upd else 1) / 1e9
         print(f"[timing] {name:20s} {M}x{W} bf16: kernel {k1:.3f} / {k2:.3f} "
               f"ms, plain {p1:.3f} / {p2:.3f} ms; kernel "
               f"{gb / (out[name][0] / 1e3):.0f} GB/s of panel traffic",
@@ -504,28 +573,30 @@ def run_als_headline(device, *, m, n, nnz, k, lam, iters,
                 rmse=rmse, per_iter=per_iter)
 
 
-def time_gj(k, S=ALS_HEADLINE["m"], reps=5) -> tuple[float, float]:
-    """K5 against its plain version at (k, S), warm, in turns plain,
-    kernel, kernel, plain. Returns (ms, plain_ms)."""
+def time_gj(k, S=ALS_HEADLINE["m"], reps=5) -> dict:
+    """K5 against its plain version and the one PyTorch call that computes
+    its function (``torch.linalg.solve``, batched LU; the port never calls
+    it) at (k, S), warm, in turns plain, library, kernel, kernel, library,
+    plain. Returns ms, plain_ms, library_ms, bound_ms, bound_by: K5 reads A
+    and b and writes x, and does 2·S·k²·(k+1) flops of elimination."""
     from cuda_recommender_tpu_torch.ops import gj_kernels as gk
 
     A, b = spd_systems(k, S, seed=11)
     kern, plain = (lambda: gk.gj_solve(A, b)), (lambda: gk.gj_solve_plain(A,
                                                                          b))
-    kern(), plain()                                   # warm-up
-    torch.cuda.synchronize()
-    p1 = _time(plain, reps)
-    k1 = _time(kern, reps)
-    k2 = _time(kern, reps)
-    p2 = _time(plain, reps)
+    lib = (lambda: torch.linalg.solve(A, b))
+    (p1, p2), (l1, l2), (k1, k2) = _turns([plain, lib, kern], reps)
     flop = 2 * S * k * k * (k + 1)
+    b_ms, b_by = bound(4 * (A.numel() + 2 * b.numel()), flop)
     print(f"[timing] gj_solve S={S} k={k}: kernel {k1:.3f} / {k2:.3f} ms, "
-          f"plain {p1:.3f} / {p2:.3f} ms; kernel "
+          f"plain {p1:.3f} / {p2:.3f} ms, torch.linalg.solve {l1:.3f} / "
+          f"{l2:.3f} ms; bound {b_ms:.3f} ms ({b_by}); kernel "
           f"{flop / ((k1 + k2) / 2e3) / 1e12:.2f} TFLOP/s of elimination",
           flush=True)
     del A, b
     torch.cuda.empty_cache()
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(l1 + l2) / 2, bound_ms=b_ms, bound_by=b_by)
 
 
 #: the ALS CLI run's golden bar: the JAX package's own ALS golden bar
@@ -564,6 +635,497 @@ def run_als_cli() -> None:
     print(f"[cli] golden W, H {checks} (bar < {ALS_GOLDEN_PCT}%); RMSE ell "
           f"{ours} = reference {ref} within {RMSE_TOL}; launches {launches} "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+
+def random_masked(m, n, dtype, mask_dtype, device, seed, scale=1.0):
+    """Residual 0 off a 30% {0,1} mask, the mask, and four factor
+    vectors."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep = torch.rand((m, n), generator=gen, device=device) < 0.3
+    R = torch.randn((m, n), generator=gen, device=device, dtype=dtype)
+    R.masked_fill_(~keep, 0.0)
+    M = keep.to(mask_dtype)
+    del keep
+    vecs = [scale * torch.randn(x, generator=gen, device=device)
+            for x in (m, m, n, n)]
+    return R, M, vecs
+
+
+def check_masked_kernels(device, shapes, worst=None,
+                         dtypes=(torch.float32, torch.bfloat16),
+                         mask_dtypes=(torch.bfloat16, torch.int8)) -> dict:
+    """K4, masked_vsweep and masked_usweep vs their plain versions on the
+    same inputs, each residual dtype x each mask dtype: stored residual
+    bit-equal, unobserved cells exactly +0, g/h within RTOL of sum(|terms|),
+    repeat runs bit-identical. Returns ``worst`` updated to the max abs
+    error of g/h per kernel."""
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+
+    worst = dict(worst or {name: 0.0 for name in MASKED_KERNELS})
+    for dtype in dtypes:
+        for mdt in mask_dtypes:
+            for m, n in shapes:
+                t0 = time.perf_counter()
+                ratios = []
+                what = f"{str(dtype)[6:]} residual, {str(mdt)[6:]} mask, " \
+                       f"{m}x{n}"
+                R, M, (ua, us, va, vs) = random_masked(m, n, dtype, mdt,
+                                                       device, seed=m + n)
+                Rk, Rp = R.clone(), R.clone()
+                gk, hk = ck.fused_update_vsweep(Rk, M, ua, us, va, vs)
+                _sync(device)
+                gp, hp = ck.fused_update_vsweep_plain(Rp, M, ua, us, va, vs)
+                _sync(device)
+                if not torch.equal(_bits(Rk), _bits(Rp)):
+                    n_bad = int((_bits(Rk) != _bits(Rp)).sum())
+                    raise AssertionError(f"K4 {what}: stored residual "
+                                         f"differs in {n_bad} cells")
+                if bool((_bits(Rk)[M == 0] != 0).any()):
+                    raise AssertionError(f"K4 {what}: an unobserved cell "
+                                         "is not +0")
+                Rk2 = R.clone()
+                del R
+                gk2, hk2 = ck.fused_update_vsweep(Rk2, M, ua, us, va, vs)
+                _sync(device)
+                if not (torch.equal(gk, gk2) and torch.equal(hk, hk2)
+                        and torch.equal(_bits(Rk), _bits(Rk2))):
+                    raise AssertionError(f"K4 {what}: not repeatable")
+                del Rk2
+                # sum(|terms|): the plain sweeps over |R| and |u|, |v|
+                Ra = Rp.abs()
+                sg, _ = ck.masked_vsweep_plain(Ra, M, ua.abs())
+                s3, _ = ck.masked_vsweep_plain(Ra, M, us.abs())
+                su, _ = ck.masked_usweep_plain(Ra, M, va.abs())
+                del Ra
+                err4 = max(_close("K4 g", gk, gp, sg, ratios),
+                           _close("K4 h", hk, hp, hp, ratios))
+                g3, h3 = ck.masked_vsweep(Rk, M, us)
+                _sync(device)
+                g3p, h3p = ck.masked_vsweep_plain(Rp, M, us)
+                err3 = max(_close("masked_vsweep g", g3, g3p, s3, ratios),
+                           _close("masked_vsweep h", h3, h3p, h3p, ratios))
+                g2, h2 = ck.masked_usweep(Rk, M, va)
+                _sync(device)
+                g2p, h2p = ck.masked_usweep_plain(Rp, M, va)
+                err2 = max(_close("masked_usweep g", g2, g2p, su, ratios),
+                           _close("masked_usweep h", h2, h2p, h2p, ratios))
+                g3b, h3b = ck.masked_vsweep(Rk, M, us)
+                g2b, h2b = ck.masked_usweep(Rk, M, va)
+                _sync(device)
+                if not (torch.equal(g3, g3b) and torch.equal(h3, h3b)
+                        and torch.equal(g2, g2b) and torch.equal(h2, h2b)):
+                    raise AssertionError(f"masked sweeps {what}: not "
+                                         "repeatable")
+                for name, err in (("fused_update_vsweep", err4),
+                                  ("masked_vsweep", err3),
+                                  ("masked_usweep", err2)):
+                    worst[name] = max(worst[name], err)
+                print(f"[check] {what}: residual bit-equal, unobserved +0, "
+                      f"repeatable; max|dg|,|dh| K4 {err4:.3e} masked_vsweep "
+                      f"{err3:.3e} masked_usweep {err2:.3e}; largest error / "
+                      f"sum|terms| {max(ratios):.2e} (bar {RTOL}) "
+                      f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+                del Rk, Rp, M
+                torch.cuda.empty_cache()
+    return worst
+
+
+def _events(metrics_file, kind) -> list:
+    with open(metrics_file) as f:
+        return [e for e in map(json.loads, f) if e["kind"] == kind]
+
+
+def _steady(stats) -> float:
+    """Mean s/iter of iterations 2.. (the first pays the warm-up)."""
+    it_s = [st.rank_time for st in stats]
+    steady = it_s[1:] if len(it_s) > 1 else it_s
+    return sum(steady) / len(steady)
+
+
+def _check_misses(what, misses) -> None:
+    """``misses``: W's and H's (largest |ref|, largest |diff|) over the
+    entries that miss the strict golden bar; each must be a rounding miss at
+    a near-zero entry (GOLDEN_MISS_REF, GOLDEN_MISS_DIFF)."""
+    for name, (ref, diff) in zip("WH", misses):
+        if ref >= GOLDEN_MISS_REF or diff >= GOLDEN_MISS_DIFF:
+            raise AssertionError(
+                f"{what} golden {name}: a strict miss at |ref| {ref:.3e}, "
+                f"|diff| {diff:.3e} (a rounding miss stays below "
+                f"{GOLDEN_MISS_REF:g} and {GOLDEN_MISS_DIFF:g})")
+
+
+def _check_rmse(what, rmse, iters) -> None:
+    if not all(math.isfinite(r) for r in rmse) or len(rmse) != iters:
+        raise AssertionError(f"{what}: RMSE {rmse}")
+    if not all(r < rmse[0] for r in rmse[1:]):
+        raise AssertionError(f"{what}: RMSE does not fall below iteration "
+                             f"1's: {rmse}")
+
+
+def run_dense_headline(device, *, m, n, nnz, k, lam, iters,
+                       metrics_file) -> dict:
+    """train() at the JAX README's quick start (AUTO must pick dense),
+    ``iters`` outer iterations with the golden dual run, then one outer
+    iteration at -T 2 on the same data. The launch counts are set to 0 once,
+    just before the first run, and read after each run."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.config import Backend
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    t0 = time.perf_counter()
+    R, T = synthetic_cached(m, n, nnz, seed=1)
+    print(f"[dense] data {R.rows} x {R.cols}, train nnz {R.nnz}, test nnz "
+          f"{T.nnz}: {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    cfg = Config(k=k, maxiter=iters, lambda_=lam, golden=True,
+                 metrics_file=metrics_file)
+    if cfg.resolve_backend(R.rows, R.cols) != Backend.DENSE:
+        raise AssertionError("AUTO does not pick dense at the quick start")
+    log = MetricsLog(metrics_file)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    try:
+        res = train(cfg, R, T, device=device, log=log)
+        launches = lc.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print("[dense] -T 2, one outer iteration:", flush=True)
+        res2 = train(Config(k=k, maxiter=1, maxinneriter=2, lambda_=lam,
+                            metrics_file=metrics_file), R, T, device=device,
+                     log=log)
+    finally:
+        log.close()
+    total = lc.launch_counts()
+    launches2 = {name: total[name] - launches[name] for name in total}
+    gold = _events(metrics_file, "golden")[0]
+    rmse = [st.rmse for st in res.stats]
+    rmse_ref = [st.rmse for st in res.ref_stats]
+    s_iter = _steady(res.stats)
+    rate = R.nnz * k / s_iter
+    cells = R.rows * R.cols
+    # per rank K4 reads and writes the f32 residual and reads the bf16 mask
+    # (10 B/cell), masked_usweep reads both (6 B/cell)
+    b_ms = k * 1e3 * cells * 16 / PEAK_BYTES_S
+    print(f"[dense] backend {res.backend}; RMSE per iteration {rmse}; "
+          f"reference {rmse_ref}; s/iter {[st.rank_time for st in res.stats]}"
+          , flush=True)
+    share = 100 * b_ms / 1e3 / s_iter
+    print(f"[dense] s/iter (iterations 2-{iters}): {s_iter:.4f}; "
+          f"rating-updates/s: {rate:.4e}; bound {b_ms:.2f} ms/iter (16 B/cell"
+          f"/rank over {PEAK_BYTES_S / 1e12} TB/s), {share:.1f}% of it; peak "
+          f"device memory {peak / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    misses = [(gold[f"{x}_miss_ref"], gold[f"{x}_miss_diff"]) for x in "WH"]
+    print(f"[dense] golden: W {res.golden_W.message()} H "
+          f"{res.golden_H.message()}; with atol 1e-3: W "
+          f"{gold['W_pass_atol']}, H {gold['H_pass_atol']}; strict misses "
+          f"(max |ref|, max |diff|): W {misses[0]}, H {misses[1]}",
+          flush=True)
+    print(f"[dense] -T 2: RMSE {[st.rmse for st in res2.stats]}, s/iter "
+          f"{[st.rank_time for st in res2.stats]}; launches {launches2}",
+          flush=True)
+    if res.backend != "dense" or res2.backend != "dense":
+        raise AssertionError(f"backends {res.backend}, {res2.backend}")
+    _check_rmse("dense headline", rmse, iters)
+    _check_rmse("dense -T 2", [st.rmse for st in res2.stats], 1)
+    if max(abs(a - b) for a, b in zip(rmse, rmse_ref)) > 1e-3:
+        raise AssertionError(f"RMSE dense {rmse} vs reference {rmse_ref}")
+    if not (gold["W_pass_atol"] and gold["H_pass_atol"]):
+        raise AssertionError(f"golden with atol 1e-3 fails: {gold}")
+    _check_misses("dense headline", misses)
+    for got, inner, n_it in ((launches, 1, iters), (launches2, 2, 1)):
+        want = want_launches(k, n_it, inner, 1, masked=True)
+        if got != want:
+            raise AssertionError(f"dense -T {inner}: launches {got}, want "
+                                 f"{want}")
+    del res, res2
+    torch.cuda.empty_cache()
+    return dict(s_iter=s_iter, rate=rate, peak=peak, launches=total,
+                rmse=rmse, bound_ms=b_ms)
+
+
+def profile_dense_iteration(device, *, m, n, nnz, k, lam) -> dict:
+    """One steady outer iteration of the dense step (after two untraced
+    ones) under torch.profiler: device time per kernel name, the span from
+    the first kernel's start to the last one's end, the busy time (union of
+    kernel intervals) and the idle share of the span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_recommender_tpu_torch.core.init import init_factors_np
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.solvers import ccd_dense as cd
+
+    R, _ = synthetic_cached(m, n, nnz, seed=1)
+    Rd, mask = cd.device_densify(R, torch.float32, "bfloat16", device)
+    W0, _ = init_factors_np(k, R.rows, R.cols, seed=0)
+    zeros = dict(dtype=torch.float32, device=device)
+    st = cd.DenseState(Rhat=Rd, W=torch.as_tensor(W0, device=device),
+                       H=torch.zeros((k, R.cols), **zeros),
+                       u_pend=torch.zeros(R.rows, **zeros),
+                       v_pend=torch.zeros(R.cols, **zeros))
+    rnz = torch.as_tensor(np.diff(R.csr_ptr).astype(np.float32),
+                          device=device)
+    cnz = torch.as_tensor(np.diff(R.csc_ptr).astype(np.float32),
+                          device=device)
+    step = cd.make_outer_step(lam, 1)
+    for _ in range(2):
+        step(st, mask, rnz, cnz)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(st, mask, rnz, cnz)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    busy /= 1e3
+    print(f"[profile] one dense outer iteration (k={k}): host wall "
+          f"{1e3 * wall:.3f} ms; device span {span:.3f} ms, kernels busy "
+          f"{busy:.3f} ms, idle {100 * (1 - busy / span) if span else 0:.2f}%"
+          f" of the span", flush=True)
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda x: -x[1][0]):
+        print(f"[profile]   {ms:9.3f} ms {cnt:5d} launches  {name[:90]}",
+              flush=True)
+    del st, Rd, mask
+    torch.cuda.empty_cache()
+    return dict(wall_ms=1e3 * wall, span_ms=span, busy_ms=busy)
+
+
+def run_pallas_vs_dense(device, *, m, n, nnz, k, lam, iters=2) -> None:
+    """The pallas backend runs the dense backend's kernels in the same
+    order, so after ``iters`` iterations W and H must be bit-equal."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+
+    R, T = synthetic_cached(m, n, nnz, seed=1)
+    out = {}
+    for backend in ("dense", "pallas"):
+        log = MetricsLog(None)
+        res = train(Config(k=k, maxiter=iters, lambda_=lam, backend=backend),
+                    R, T, device=device, log=log)
+        out[backend] = res
+        print(f"[pallas] {backend}: RMSE {[st.rmse for st in res.stats]}, "
+              f"s/iter {[st.rank_time for st in res.stats]}", flush=True)
+    for name in "WH":
+        a, b = getattr(out["dense"], name), getattr(out["pallas"], name)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"pallas vs dense {name}: max|diff| "
+                                 f"{float(np.abs(a - b).max()):.3e}")
+    print(f"[pallas] W and H bit-equal to the dense run's after {iters} "
+          "iterations", flush=True)
+    torch.cuda.empty_cache()
+
+
+def run_dense_k40(device, *, m, n, nnz, lam, k, iters, metrics_file) -> dict:
+    """The README's k=40 dense row: bf16 residual, AUTO -> dense."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    R, T = synthetic_cached(m, n, nnz, seed=1)
+    log = MetricsLog(metrics_file)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    try:
+        res = train(Config(k=k, maxiter=iters, lambda_=lam,
+                           residual_dtype="bfloat16"), R, T, device=device,
+                    log=log)
+    finally:
+        log.close()
+    launches = lc.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rmse = [st.rmse for st in res.stats]
+    s_iter = _steady(res.stats)
+    rate = R.nnz * k / s_iter
+    b_ms = k * 1e3 * R.rows * R.cols * 10 / PEAK_BYTES_S  # 6 + 4 B/cell/rank
+    print(f"[k40] backend {res.backend}; RMSE per iteration {rmse}; s/iter "
+          f"{[st.rank_time for st in res.stats]}", flush=True)
+    print(f"[k40] s/iter (iterations 2-{iters}): {s_iter:.4f}; "
+          f"rating-updates/s: {rate:.4e}; bound {b_ms:.2f} ms/iter (10 B/cell"
+          f"/rank), {100 * b_ms / 1e3 / s_iter:.1f}% of it; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if res.backend != "dense":
+        raise AssertionError(f"k=40 backend {res.backend}")
+    _check_rmse("dense k=40 bf16", rmse, iters)
+    if launches != want_launches(k, iters, 1, 1, masked=True):
+        raise AssertionError(f"k=40 launches {launches}")
+    del res
+    torch.cuda.empty_cache()
+    return dict(s_iter=s_iter, rate=rate, peak=peak, bound_ms=b_ms)
+
+
+def time_masked_kernels(m, n, reps=5) -> dict:
+    """K4 and the masked sweeps against their plain versions at (m, n),
+    f32 and bf16 residuals with a bf16 mask, warm, in turns plain, kernel,
+    kernel, plain. Returns {dtype name: {kernel: (ms, plain_ms, bound_ms,
+    bound_by)}}. Bytes: K4 reads and writes the residual and reads the
+    mask, the sweeps read both; each reads its vectors and writes g and h.
+    Flops a cell: 6 (K4, as the Pallas kernel's cost estimate), 4 (the
+    sweeps)."""
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        R, M, (ua, us, va, vs) = random_masked(m, n, dtype, torch.bfloat16,
+                                               "cuda", seed=7, scale=1e-3)
+        cells, rb = m * n, R.element_size()
+        calls = {
+            "fused_update_vsweep": (
+                lambda: ck.fused_update_vsweep(R, M, ua, us, va, vs),
+                lambda: ck.fused_update_vsweep_plain(R, M, ua, us, va, vs),
+                cells * (2 * rb + 2) + 4 * (2 * m + 4 * n), 6 * cells),
+            "masked_usweep": (
+                lambda: ck.masked_usweep(R, M, va),
+                lambda: ck.masked_usweep_plain(R, M, va),
+                cells * (rb + 2) + 4 * (n + 2 * m), 4 * cells),
+            "masked_vsweep": (
+                lambda: ck.masked_vsweep(R, M, ua),
+                lambda: ck.masked_vsweep_plain(R, M, ua),
+                cells * (rb + 2) + 4 * (m + 2 * n), 4 * cells),
+        }
+        res = {}
+        for name, (kern, plain, nbytes, flops) in calls.items():
+            (p1, p2), (k1, k2) = _turns([plain, kern], reps)
+            b_ms, b_by = bound(nbytes, flops)
+            res[name] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by)
+            print(f"[timing] {name:20s} {m}x{n} {str(dtype)[6:]} residual, "
+                  f"bf16 mask: kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f}"
+                  f" / {p2:.3f} ms; bound {b_ms:.3f} ms ({b_by}); kernel "
+                  f"{nbytes / 1e9 / (res[name][0] / 1e3):.0f} GB/s, "
+                  f"{100 * b_ms / res[name][0]:.1f}% of the bound",
+                  flush=True)
+        out[str(dtype)[6:]] = res
+        del R, M
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_mask_hybrid(device, *, k, lam, iters, metrics_file) -> dict:
+    """CCD++ at Netflix-100M dims with the JAX Config defaults: AUTO must
+    pick hybrid, and its explicit bf16-mask panels run K4 and the masked
+    sweeps (the launch counts are set to 0 just before the run and read
+    just after)."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.config import Backend
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    t0 = time.perf_counter()
+    R, T = synthetic_cached(HEADLINE["m"], HEADLINE["n"], HEADLINE["nnz"],
+                            seed=1, test_fraction=0.02)
+    print(f"[mask-hybrid] data {R.rows} x {R.cols}, train nnz {R.nnz}: "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+    cfg = Config(k=k, maxiter=iters, lambda_=lam, metrics_file=metrics_file)
+    if cfg.resolve_backend(R.rows, R.cols) != Backend.HYBRID:
+        raise AssertionError("AUTO does not pick hybrid at Netflix dims")
+    log = MetricsLog(metrics_file)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    try:
+        res = train(cfg, R, T, device=device, log=log)
+    finally:
+        log.close()
+    launches = lc.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plan = _events(metrics_file, "hybrid_plan")[0]
+    P = len(plan["panels"])
+    rmse = [st.rmse for st in res.stats]
+    s_iter = _steady(res.stats)
+    rate = R.nnz * k / s_iter
+    print(f"[mask-hybrid] plan: {P} panels {plan['panels']}, "
+          f"{plan['panel_cells']} cells, {plan['mask_dtype']} masks, tail nnz "
+          f"{plan['nnz_light']} ({100.0 * plan['nnz_light'] / R.nnz:.2f}% of "
+          f"nnz); plan {plan['plan_s']:.1f} s (host), device set-up "
+          f"{plan['setup_s']:.1f} s", flush=True)
+    print(f"[mask-hybrid] RMSE per iteration {rmse}; s/iter "
+          f"{[st.rank_time for st in res.stats]}; steady {s_iter:.4f}; "
+          f"rating-updates/s {rate:.4e}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if res.backend != "hybrid" or plan["mask_dtype"] != "bfloat16":
+        raise AssertionError(f"backend {res.backend}, masks "
+                             f"{plan['mask_dtype']}")
+    _check_rmse("explicit-mask hybrid", rmse, iters)
+    want = want_launches(k, iters, 1, P, masked=True)
+    if launches != want:
+        raise AssertionError(f"explicit-mask hybrid launches {launches}, "
+                             f"want {want}")
+    del res, R, T
+    torch.cuda.empty_cache()
+    return dict(s_iter=s_iter, rate=rate, peak=peak,
+                panels=[tuple(p) for p in plan["panels"]])
+
+
+def run_dense_cli() -> None:
+    """The JAX README's CLI command with --golden and no backend flag: AUTO
+    must pick dense; every iteration's RMSE within RMSE_TOL of the
+    reference's; W and H each PASS! the reference's strict check, or, where
+    a near-zero entry misses it by rounding, PASS with atol 1e-3 (the
+    compiled-backend tests' bar; PERF.md, Open questions) with every strict
+    miss a rounding miss (_check_misses); K4 launched."""
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.cli.train",
+           "--dataset", "synthetic:m=6040,n=3706,nnz=900000", "-k", "10",
+           "-t", "5", "-l", "0.05", "--golden", "--device", "cuda"]
+    print("[cli] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    print(res.stdout + res.stderr, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"dense CLI exited {res.returncode}")
+    if not re.search(r"^\[info\] Backend = dense \|", res.stdout, re.M):
+        raise AssertionError("the CLI did not run the dense backend")
+    checks = re.findall(r"^Check\.\.\. (.*)$", res.stdout, re.M)
+    near = re.search(r"^\[info\] golden with atol 0\.001: W (.*), H (.*)$",
+                     res.stdout, re.M)
+    if checks != ["PASS!", "PASS!"] and not (
+            near and near.groups() == ("PASS", "PASS")):
+        raise AssertionError(f"golden check of W and H: {checks}, with atol "
+                             f"1e-3: {near and near.groups()}")
+    found = re.search(r"^\[info\] golden misses: W max\|ref\| (\S+) max\|"
+                      r"diff\| (\S+), H max\|ref\| (\S+) max\|diff\| (\S+)$",
+                      res.stdout, re.M)
+    if checks != ["PASS!", "PASS!"]:
+        if found is None:
+            raise AssertionError("the CLI printed no golden misses line")
+        x = [float(v) for v in found.groups()]
+        _check_misses("README CLI", [(x[0], x[1]), (x[2], x[3])])
+    rmse = [float(x) for x in re.findall(r"RMSE=([0-9.]+)", res.stdout)]
+    ours, ref = rmse[:5], rmse[5:10]
+    if len(rmse) != 10 or max(abs(a - b) for a, b in zip(ours, ref)) > \
+            RMSE_TOL:
+        raise AssertionError(f"RMSE dense {ours} vs reference {ref}")
+    m = re.search(r"^\[info\] kernel launches: (\{.*\})$", res.stdout, re.M)
+    launches = json.loads(m.group(1))
+    if launches["fused_update_vsweep"] != 50:
+        raise AssertionError(f"dense CLI launches {launches}")
+    print(f"[cli] golden W, H {checks}"
+          f"{'' if near is None else ', with atol 1e-3 ' + str(near.groups())}"
+          f"; RMSE dense {ours} = reference {ref} within {RMSE_TOL}; "
+          f"launches {launches} [{time.perf_counter() - t0:.1f} s]",
+          flush=True)
 
 
 def main() -> int:
@@ -628,12 +1190,54 @@ def main() -> int:
         als = run_als_headline(dev, metrics_file=os.path.join(
             tmp, "als.jsonl"), **ALS_HEADLINE)
 
-    phase("9 K5 timing at the ALS headline's rows side (S=138,493)")
+    phase("9 K5 timing at the ALS headline's rows side (S=138,493), "
+          "against its plain version and torch.linalg.solve")
     gj_times = {k: time_gj(k) for k in (40, 128)}
     print(f"[timing] card: {smi}", flush=True)
 
     phase("10 ALS CLI with golden check")
     run_als_cli()
+
+    phase("11 K4 and masked sweep checks (f32, bf16 residual x bf16, int8 "
+          "mask)")
+    masked_worst = check_masked_kernels(dev, MASKED_CHECK_SHAPES)
+
+    phase("12 dense headline (train(), the README quick start: ml10M dims, "
+          "k=10, AUTO -> dense, golden)")
+    with tempfile.TemporaryDirectory() as tmp:
+        dense = run_dense_headline(dev, metrics_file=os.path.join(
+            tmp, "dense.jsonl"), **DENSE_HEADLINE)
+    ml10m = {key: DENSE_HEADLINE[key] for key in ("m", "n", "nnz")}
+    k10 = {key: DENSE_HEADLINE[key] for key in ("k", "lam")}
+    profile_dense_iteration(dev, **ml10m, **k10)
+
+    phase("13 pallas backend against dense (2 iterations, bit-equal W, H)")
+    run_pallas_vs_dense(dev, **ml10m, **k10)
+
+    phase("14 dense k=40, bf16 residual (README.md:91)")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dense_k40(dev, lam=k10["lam"], metrics_file=os.path.join(
+            tmp, "k40.jsonl"), **ml10m, **DENSE_K40)
+
+    phase("15 K4 and masked sweep timing at the ml10M shape")
+    masked_times = time_masked_kernels(DENSE_HEADLINE["m"],
+                                       DENSE_HEADLINE["n"])
+    print(f"[timing] card: {smi}", flush=True)
+
+    phase("16 explicit-mask hybrid (Netflix-100M dims, JAX Config "
+          "defaults: auto stair, 2e9 cells, f32 residual, bf16 mask, k=40), "
+          "then the masked kernel checks at its panel shapes")
+    with tempfile.TemporaryDirectory() as tmp:
+        mask_hybrid = run_mask_hybrid(dev, metrics_file=os.path.join(
+            tmp, "mh.jsonl"), **MASK_HYBRID)
+    # K4 and the masked sweeps at every panel shape that run gave them (f32
+    # residual, bf16 mask): the full-width panel 0 down to the narrowest
+    masked_worst = check_masked_kernels(
+        dev, [(r1 - r0, w) for r0, r1, w in mask_hybrid["panels"]],
+        masked_worst, dtypes=(torch.float32,), mask_dtypes=(torch.bfloat16,))
+
+    phase("17 README CLI with golden check (no backend flag: dense)")
+    run_dense_cli()
 
     print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
           flush=True)
@@ -642,14 +1246,25 @@ def main() -> int:
                 "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,
                 "launches": head["launches"][name],
                 "max_abs_err": worst[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "plain_ms": times[name][1], "bound_ms": times[name][2],
+                "bound_by": times[name][3], "library_ms": None}
                for name, replaces in KERNELS.items()]
     kernels.append({"name": "gj_solve", "route": "cuda",
                     "source": f"{CSRC}/gj_kernels.cu",
                     "replaces": GJ_REPLACES,
                     "launches": als["launches"]["gj_solve"],
-                    "max_abs_err": gj_worst, "ms": gj_times[40][0],
-                    "plain_ms": gj_times[40][1]})
+                    "max_abs_err": gj_worst, **gj_times[40]})
+    # K4 and the masked sweeps: the dense headline's f32 residual
+    kernels += [{"name": name, "route": "cuda",
+                 "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,
+                 "launches": dense["launches"][name],
+                 "max_abs_err": masked_worst[name],
+                 "ms": masked_times["float32"][name][0],
+                 "plain_ms": masked_times["float32"][name][1],
+                 "bound_ms": masked_times["float32"][name][2],
+                 "bound_by": masked_times["float32"][name][3],
+                 "library_ms": None}
+                for name, replaces in MASKED_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@ knobs, ``--seed``, ``--metrics-file`` and ``--device``. Knobs outside the
 slice raise ``NotImplementedError`` from the trainer.
 
     python -m cuda_recommender_tpu_torch.cli.train \\
+        --dataset synthetic:m=6040,n=3706,nnz=900000 -k 10 -t 5 -l 0.05 \\
+        --golden
+    python -m cuda_recommender_tpu_torch.cli.train \\
         --dataset synthetic:m=6040,n=3706,nnz=900000 -k 10 -t 3 \\
         --backend hybrid --mask-dtype nan --panel-kernel --golden
     python -m cuda_recommender_tpu_torch.cli.train \\
@@ -49,15 +52,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also run the golden NumPy backend and cross-validate")
     p.add_argument("--backend", default="auto",
                    choices=[b.value for b in Backend],
-                   help="the port runs 'hybrid' (CCD++), 'ell' (ALS; any "
-                        "request but 'ref' resolves to it) and 'ref'")
+                   help="CCD++: 'dense' (AUTO's choice for m*n <= "
+                        "Config.dense_max_cells), 'pallas' (dense with a "
+                        "bf16 mask), 'hybrid' (AUTO's choice above) or "
+                        "'ref'; 'ell' is not in the port yet. ALS: 'ell' "
+                        "(any request but 'ref' resolves to it) or 'ref'")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--residual-dtype", default="float32",
                    choices=["float32", "bfloat16", "float8_e4m3fn"])
     p.add_argument("--mask-dtype", default="bfloat16",
                    choices=["bfloat16", "int8", "nan"],
-                   help="panel mask storage; the port runs 'nan' (no mask "
-                        "array: unobserved cells are NaN in the residual)")
+                   help="residual mask storage: 'bfloat16' or 'int8' (a "
+                        "{0,1} array beside the residual; dense and hybrid), "
+                        "or 'nan' (hybrid only: no mask array, unobserved "
+                        "panel cells are NaN in the residual)")
     p.add_argument("--hybrid-cells", type=int, default=None, metavar="N",
                    help="hybrid panel-stair cell budget "
                         "(default Config.hybrid_dense_cells)")

@@ -6,10 +6,11 @@ packages. It carries the semantic knob set of the reference's ``parameter``
 class (reference src/pmf.h:8-43) and its CLI (reference
 src/extras.cpp:68-141).
 
-The port runs a slice of these knobs: CCD++ on the ``hybrid`` backend with
-NaN-sentinel panels and the hand-written panel kernels, and the NumPy
-``ref`` backend. ``core/trainer.py`` raises ``NotImplementedError`` for the
-rest, naming the ROADMAP.md item that ports it.
+The port runs a slice of these knobs: CCD++ on the ``dense``, ``pallas``
+and ``hybrid`` backends (explicit bfloat16/int8 masks or NaN-sentinel
+panels, the hand-written kernels), ALS on ``ell``, and the NumPy ``ref``
+backend. ``core/trainer.py`` raises ``NotImplementedError`` for the rest,
+naming the ROADMAP.md item that ports it.
 
 Reference quirks preserved deliberately:
   * ``maxinneriter`` defaults to 1 (the code default at src/pmf.h:31, not the

@@ -8,7 +8,8 @@ reference's CUDA role) on ``device`` and optionally the NumPy golden backend
 (calculate_rmse_directly, src/extras.cpp:182-216), then cross-validate with
 golden_compare (src/main.cpp:133-144).
 
-The port runs CCD++ on the ``hybrid`` backend, ALS on the ``ell`` backend
+The port runs CCD++ on the ``dense``, ``pallas`` and ``hybrid`` backends
+(so AUTO's every CCD++ choice but pure ELL), ALS on the ``ell`` backend
 (ALS's one compiled path: any backend request but ``ref`` resolves to it),
 and both on the ``ref`` backend; everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
@@ -23,18 +24,21 @@ from typing import Optional
 import numpy as np
 
 from ..data.sparse import RatingMatrix, TestCOO
-from ..eval.metrics import GoldenResult, calrmse_np, golden_compare
+from ..eval.metrics import (GoldenResult, calrmse_np, golden_compare,
+                            strict_misses)
 from .config import Backend, Config, Solver
 from .device import resolve_device
 from .init import init_factors_np
 from .metrics_log import MetricsLog
 
 #: ROADMAP.md queue-1 items that port the backends outside the slice
-_BACKEND_ITEMS = {
-    Backend.DENSE: "item 10: dense/pallas",
-    Backend.PALLAS: "item 10: dense/pallas",
-    Backend.ELL: "item 12: pure ELL",
-}
+_BACKEND_ITEMS = {Backend.ELL: "item 12: pure ELL"}
+#: the compiled-backend tests' golden atol (tests/test_compiled_solvers.py:
+#: 38-40): reported beside the reference's strict check when that fails, to
+#: tell rounding-level misses on near-zero entries from real ones
+GOLDEN_ATOL = 1e-3
+#: the compiled CCD++ backends of the port
+_CCD_BACKENDS = (Backend.DENSE, Backend.PALLAS, Backend.HYBRID)
 
 
 @dataclasses.dataclass
@@ -63,10 +67,11 @@ def _check_supported(cfg: Config, backend: Backend, mesh,
             "prints one per-iteration time, which the normal loop already "
             "measures)")
     if backend not in ((Backend.ELL, Backend.REF) if als
-                       else (Backend.HYBRID, Backend.REF)):
+                       else (*_CCD_BACKENDS, Backend.REF)):
         raise NotImplementedError(
             f"backend {backend.value!r} is not in the port yet (ROADMAP.md "
-            f"queue 1 {_BACKEND_ITEMS[backend]}); use 'hybrid' or 'ref'")
+            f"queue 1 {_BACKEND_ITEMS[backend]}); use 'dense', 'pallas', "
+            "'hybrid' or 'ref'")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not in the port yet "
                                   "(ROADMAP.md queue 1 item 15: "
@@ -77,6 +82,12 @@ def _check_supported(cfg: Config, backend: Backend, mesh,
                                   "checkpoint/resume)")
     if backend == Backend.HYBRID:
         from ..solvers.ccd_hybrid import check_supported
+        check_supported(cfg)
+    if backend == Backend.DENSE:
+        from ..solvers.ccd_dense import check_supported
+        check_supported(cfg)
+    if backend == Backend.PALLAS:
+        from ..solvers.ccd_pallas import check_supported
         check_supported(cfg)
     if als and backend == Backend.ELL:
         from ..solvers.als_ell import check_supported
@@ -134,6 +145,14 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device):
         from ..solvers.als_ell import als_ell_train
         return als_ell_train(R, W0, H0, T, cfg, device=device, callback=cb,
                              log=log)
+    if backend == Backend.PALLAS:
+        from ..solvers.ccd_pallas import ccd_pallas_train
+        return ccd_pallas_train(R, W0, H0, T, cfg, device=device, callback=cb,
+                                log=log)
+    if backend == Backend.DENSE:
+        from ..solvers.ccd_dense import ccd_dense_train
+        return ccd_dense_train(R, W0, H0, T, cfg, device=device, callback=cb,
+                               log=log)
     from ..solvers.ccd_hybrid import ccd_hybrid_train
     return ccd_hybrid_train(R, W0, H0, T, cfg, device=device, callback=cb,
                             log=log)
@@ -187,12 +206,25 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
         t0 = time.perf_counter()
         result.golden_W = golden_compare(W, W_ref)
         result.golden_H = golden_compare(H, H_ref)
+        near = [golden_compare(A, B, atol=GOLDEN_ATOL).passed
+                for A, B in ((W, W_ref), (H, H_ref))]
+        misses = [strict_misses(A, B) for A, B in ((W, W_ref), (H, H_ref))]
         result.validate_time = time.perf_counter() - t0
         log.info(result.golden_W.message())
         log.info(result.golden_H.message())
+        if not (result.golden_W.passed and result.golden_H.passed):
+            log.info("[info] golden with atol %g: W %s, H %s"
+                     % (GOLDEN_ATOL, *("PASS" if p else "NO PASS"
+                                       for p in near)))
+            log.info("[info] golden misses: W max|ref| %.3e max|diff| %.3e, "
+                     "H max|ref| %.3e max|diff| %.3e"
+                     % (*misses[0], *misses[1]))
         log.info("[info] Validate Time: %f s." % result.validate_time)
         log.event("golden", W_pass=result.golden_W.passed,
-                  H_pass=result.golden_H.passed,
+                  H_pass=result.golden_H.passed, W_pass_atol=near[0],
+                  H_pass_atol=near[1],
                   W_err_pct=result.golden_W.error_percentage,
-                  H_err_pct=result.golden_H.error_percentage)
+                  H_err_pct=result.golden_H.error_percentage,
+                  W_miss_ref=misses[0][0], W_miss_diff=misses[0][1],
+                  H_miss_ref=misses[1][0], H_miss_diff=misses[1][1])
     return result

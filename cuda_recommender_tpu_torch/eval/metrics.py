@@ -100,3 +100,18 @@ def golden_compare(A, A_ref, *, rtol: float = GOLDEN_RTOL,
     bad = np.abs(A - A_ref) > rtol * np.abs(A_ref) + atol
     return GoldenResult(passed=not bad.any(), error_count=int(bad.sum()),
                         total=int(A.size))
+
+
+def strict_misses(A, A_ref, *, rtol: float = GOLDEN_RTOL
+                  ) -> tuple[float, float]:
+    """(largest |a_ref|, largest |a - a_ref|) over the entries that miss the
+    reference's relative bar (``golden_compare`` with atol 0); (0.0, 0.0)
+    when none does. Small values say the misses are rounding at near-zero
+    entries, which a relative bar cannot absorb."""
+    A = np.asarray(A, dtype=np.float64)
+    A_ref = np.asarray(A_ref, dtype=np.float64)
+    diff = np.abs(A - A_ref)
+    bad = diff > rtol * np.abs(A_ref)
+    if not bad.any():
+        return 0.0, 0.0
+    return float(np.abs(A_ref[bad]).max()), float(diff[bad].max())

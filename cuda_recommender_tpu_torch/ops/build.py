@@ -2,14 +2,15 @@
 
 ``nvcc`` compiles each source of ``csrc/`` for Hopper (``sm_90a``) into a
 shared library of its own with a plain C interface, which ctypes loads:
-``panel_kernels.cu`` (K1-K3, the CCD++ panel passes) and ``gj_kernels.cu``
-(K5, the ALS batched solve). The build happens at first use, into
-``cuda_recommender_tpu_torch/_build/`` (listed in .gitignore), under a name
-keyed by the source's and the flags' hash, so an edited source rebuilds and
-an unchanged one loads at once. ``build()`` starts one ``nvcc`` per missing
-library, all at once, and waits for them all. Each build writes a
-per-process temporary file and renames it into place, so concurrent
-processes never load a half-written library.
+``panel_kernels.cu`` (the CCD++ residual passes: K1-K3 over NaN-sentinel
+panels, K4 and the masked sweeps over explicit-mask residuals) and
+``gj_kernels.cu`` (K5, the ALS batched solve). The build happens at first
+use, into ``cuda_recommender_tpu_torch/_build/`` (listed in .gitignore),
+under a name keyed by the source's and the flags' hash, so an edited source
+rebuilds and an unchanged one loads at once. ``build()`` starts one
+``nvcc`` per missing library, all at once, and waits for them all. Each
+build writes a per-process temporary file and renames it into place, so
+concurrent processes never load a half-written library.
 
 A missing ``nvcc`` or a failed compile raises: nothing falls back to the
 plain PyTorch versions on a CUDA device.
@@ -33,10 +34,12 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: error code of its launch (int, 0 = success)
 SIGNATURES = {
     "panel_kernels": {
-        "crtpu_panel_update_vsweep": [_p, _i, _p, _p, _p, _p, _p, _p, _p,
-                                      _p, _i, _i, _i, _p],
-        "crtpu_panel_vsweep": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
-        "crtpu_panel_usweep": [_p, _i, _p, _p, _p, _i, _i, _p],
+        # R, dtype, mask (None for the NaN sentinel), mask code, vectors,
+        # strip partials, g, h, rows, width, rows per strip, stream
+        "crtpu_update_vsweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p,
+                                _p, _i, _i, _i, _p],
+        "crtpu_vsweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+        "crtpu_usweep": [_p, _i, _p, _i, _p, _p, _p, _i, _i, _p],
     },
     "gj_kernels": {
         # A, A's batch and row strides, b, b's strides, x, S, k, stream

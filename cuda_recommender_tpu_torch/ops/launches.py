@@ -10,6 +10,7 @@ from __future__ import annotations
 
 #: kernel launches per wrapper since the last ``reset_launch_counts()``
 LAUNCHES = {"panel_update_vsweep": 0, "panel_vsweep": 0, "panel_usweep": 0,
+            "fused_update_vsweep": 0, "masked_vsweep": 0, "masked_usweep": 0,
             "gj_solve": 0}
 
 

@@ -35,6 +35,9 @@ from .launches import count
 
 #: storage dtype codes of csrc/panel_kernels.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: explicit mask dtype codes of csrc/panel_kernels.cu (0: no mask array,
+#: the NaN sentinel)
+_MASK_CODE = {torch.bfloat16: 1, torch.int8: 2}
 
 #: rows per column-sum strip (the first pass of K1/K3's deterministic
 #: two-pass reduce); a function of the shape alone, so runs repeat exactly
@@ -87,26 +90,54 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _col_sweep(name: str, Rd, u_old, u_pend, v_old, v_pend):
-    """Launch K1 (update) or K3 (u_pend is None) on CUDA tensors."""
-    from .build import load
+def _sweep_buffers(Rd: torch.Tensor):
+    """(rows per strip, g, h, gpart, hpart): the outputs and the per-strip
+    partials of a column sweep over ``Rd``, f32 on its device."""
     M, W = Rd.shape
-    lib = load("panel_kernels")
     rpp = _rows_per_part(M)
     nparts = -(-M // rpp)
     opts = dict(dtype=torch.float32, device=Rd.device)
-    g, h = torch.empty(W, **opts), torch.empty(W, **opts)
-    gpart, hpart = torch.empty((nparts, W), **opts), torch.empty((nparts, W),
-                                                                 **opts)
-    code = _DTYPE_CODE[Rd.dtype]
-    if u_pend is None:
-        _launch(lib.crtpu_panel_vsweep, _ptr(Rd), code, _ptr(u_old),
-                _ptr(gpart), _ptr(hpart), _ptr(g), _ptr(h), M, W, rpp,
-                _stream(Rd))
+    return (rpp, torch.empty(W, **opts), torch.empty(W, **opts),
+            torch.empty((nparts, W), **opts), torch.empty((nparts, W),
+                                                          **opts))
+
+
+def _mask_args(M):
+    """(pointer, code) of a mask for the C entry points: (None, none) for
+    the NaN sentinel."""
+    return (None, 0) if M is None else (_ptr(M), _MASK_CODE[M.dtype])
+
+
+def _col_sweep(name: str, R, M, u_add, u_sub, v_add, v_sub):
+    """Launch a column sweep on CUDA tensors: with the update (K1, or K4
+    with a mask ``M``) or without it (``u_sub`` None: K3, or masked_vsweep
+    with a mask); counted under ``name``."""
+    from .build import load
+    rows, width = R.shape
+    lib = load("panel_kernels")
+    rpp, g, h, gpart, hpart = _sweep_buffers(R)
+    head = (_ptr(R), _DTYPE_CODE[R.dtype], *_mask_args(M))
+    tail = (_ptr(gpart), _ptr(hpart), _ptr(g), _ptr(h), rows, width, rpp,
+            _stream(R))
+    if u_sub is None:
+        _launch(lib.crtpu_vsweep, *head, _ptr(u_add), *tail)
     else:
-        _launch(lib.crtpu_panel_update_vsweep, _ptr(Rd), code, _ptr(u_old),
-                _ptr(u_pend), _ptr(v_old), _ptr(v_pend), _ptr(gpart),
-                _ptr(hpart), _ptr(g), _ptr(h), M, W, rpp, _stream(Rd))
+        _launch(lib.crtpu_update_vsweep, *head, _ptr(u_add), _ptr(u_sub),
+                _ptr(v_add), _ptr(v_sub), *tail)
+    count(name)
+    return g, h
+
+
+def _row_sweep(name: str, R, M, v):
+    """Launch a row sweep on CUDA tensors: K2, or masked_usweep with a mask
+    ``M``; counted under ``name``."""
+    from .build import load
+    rows, width = R.shape
+    opts = dict(dtype=torch.float32, device=R.device)
+    g, h = torch.empty(rows, **opts), torch.empty(rows, **opts)
+    _launch(load("panel_kernels").crtpu_usweep, _ptr(R),
+            _DTYPE_CODE[R.dtype], *_mask_args(M), _ptr(v), _ptr(g), _ptr(h),
+            rows, width, _stream(R))
     count(name)
     return g, h
 
@@ -120,7 +151,8 @@ def panel_update_vsweep(Rd: torch.Tensor, u_old: torch.Tensor,
     _check(Rd, (u_old, u_pend), (v_old, v_pend))
     if Rd.device.type == "cpu":
         return panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend)
-    return _col_sweep("panel_update_vsweep", Rd, u_old, u_pend, v_old, v_pend)
+    return _col_sweep("panel_update_vsweep", Rd, None, u_old, u_pend, v_old,
+                      v_pend)
 
 
 def panel_vsweep(Rd: torch.Tensor, u: torch.Tensor):
@@ -129,23 +161,16 @@ def panel_vsweep(Rd: torch.Tensor, u: torch.Tensor):
     _check(Rd, (u,))
     if Rd.device.type == "cpu":
         return panel_vsweep_plain(Rd, u)
-    return _col_sweep("panel_vsweep", Rd, u, None, None, None)
+    return _col_sweep("panel_vsweep", Rd, None, u, None, None, None)
 
 
 def panel_usweep(Rd: torch.Tensor, v: torch.Tensor):
     """K2: u-sweep partials for one NaN-sentinel panel. Returns (g, h), each
     (M,) float32."""
-    M, W = _check(Rd, (), (v,))
+    _check(Rd, (), (v,))
     if Rd.device.type == "cpu":
         return panel_usweep_plain(Rd, v)
-    from .build import load
-    opts = dict(dtype=torch.float32, device=Rd.device)
-    g, h = torch.empty(M, **opts), torch.empty(M, **opts)
-    _launch(load("panel_kernels").crtpu_panel_usweep, _ptr(Rd),
-            _DTYPE_CODE[Rd.dtype], _ptr(v), _ptr(g), _ptr(h), M, W,
-            _stream(Rd))
-    count("panel_usweep")
-    return g, h
+    return _row_sweep("panel_usweep", Rd, None, v)
 
 
 # ---- plain PyTorch versions (the CPU path and the kernels' oracle) ----

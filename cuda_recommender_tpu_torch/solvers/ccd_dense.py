@@ -1,0 +1,200 @@
+"""CCD++ — dense-residual backend, in PyTorch.
+
+The port of ``cuda_recommender_tpu/solvers/ccd_dense.py`` for one GPU. The
+residual is a dense (m, n) array kept only at observed cells (zero
+elsewhere) beside a {0,1} mask of bfloat16 or int8 (both exact), so every
+sweep is a streaming pass over the residual (the reference's CSC walk,
+reference cuda_src/CCD_CUDA.cu:224-451, re-derived as matvec pairs).
+
+Schedule (the JAX package's deferred-subtract form): per rank t ONE
+read-modify-write pass applies the subtract of rank t-1's new outer product
+and the add-back of rank t,
+
+    Rhat += (outer(u_add, v_add) - outer(u_sub, v_sub)) * mask,
+
+with (u_sub, v_sub) carried across ranks and outer iterations in the state
+(``u_pend``, ``v_pend``); the add-back is unconditional (H[t] is 0 in outer
+iteration 1, so it vanishes there).
+
+On the card the step runs the JAX package's **pallas** schedule through the
+hand-written kernels (ops/ccd_kernels.py): K4 ``fused_update_vsweep`` does
+the update and the first v-sweep in one pass, ``masked_usweep`` the
+u-sweep, ``masked_vsweep`` the v-sweeps of inner iterations i > 0. The JAX
+package kept XLA's unfused step for this backend only because XLA's
+cross-op fusion matched the Pallas kernel on v5e (its core/config.py:
+280-284); eager PyTorch has no such fusion, and a torch-op step would
+stream (m, n) f32 temporaries on every pass. At f32 the two schedules are
+the same math: the dense step sweeps the stored residual, K4 the f32 sum it
+stores. At bf16 they differ, and the port follows the pallas schedule, not
+the JAX dense step: that step rounds delta·mask to bf16 before the add and
+sweeps the stored value; K4 rounds the f32 sum once and sweeps that sum.
+On the CPU the same step runs the kernels' plain PyTorch versions.
+
+Semantics preserved (SURVEY.md §7): H zeroed at entry (src/CCD.cpp:56-60);
+λ scaled by the entity's nnz (src/CCD.cpp:112,120); empty entity → 0
+(src/CCD.cpp:8, through the full-denominator guard); v-sweep before u-sweep
+per inner iteration (src/CCD.cpp:110-121); rank-major (k, n) factors.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.device import resolve_device, synchronize
+from ..core.metrics_log import MetricsLog
+from ..data.sparse import RatingMatrix, TestCOO
+from ..eval.metrics import calrmse_device, default_eval_chunk
+from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep
+from ..ops.densify import RESIDUAL_DTYPES, densify_coo_mask
+from .dense_state import DenseState, dense_state_from_numpy
+from .pipeline import pipelined_loop
+from .reference import IterStats
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise for dense knobs the port does not run: NotImplementedError
+    naming the ROADMAP.md item that ports it, ValueError for
+    ``mask_dtype="nan"`` (the dense residual keeps an explicit mask; the
+    JAX package fails there too)."""
+    if cfg.mask_dtype == "nan":
+        raise ValueError("the dense backend needs an explicit mask "
+                         "(mask_dtype 'bfloat16' or 'int8'); the NaN "
+                         "sentinel is a hybrid-panel layout")
+    todo = []
+    if cfg.residual_dtype not in RESIDUAL_DTYPES:
+        todo.append(f"residual_dtype={cfg.residual_dtype!r} (ROADMAP.md "
+                    "'Not ported': the fp8 residual)")
+    if cfg.phase_timing:
+        todo.append("phase_timing (ROADMAP.md queue 1 item 13: phase "
+                    "timing)")
+    if cfg.checkpoint_dir:
+        todo.append("checkpoint_dir (ROADMAP.md queue 1 item 7: "
+                    "checkpoint/resume)")
+    if todo:
+        raise NotImplementedError("not in the port yet: " + "; ".join(todo))
+
+
+def _half_sweep(g: torch.Tensor, h: torch.Tensor, lam: float,
+                nnz: torch.Tensor, nmf: bool = False) -> torch.Tensor:
+    """One side of a rank-one sweep from its partial sums g = Σ other·R and
+    h = Σ other²·mask: new_j = g_j / (λ·nnz_j + h_j), 0 where that
+    denominator is not positive (the JAX package's ``_half_sweep``,
+    ccd_dense.py:69-79). ``nmf`` clamps at 0 (libpmf -N semantics)."""
+    den = lam * nnz + h
+    out = torch.where(den > 0, g / den, 0.0)
+    return out.clamp_min(0.0) if nmf else out
+
+
+def make_outer_step(lam: float, maxinneriter: int, *, nmf: bool = False
+                    ) -> Callable[..., torch.Tensor]:
+    """One outer iteration over all k ranks (a Python loop), updating the
+    state IN PLACE (the JAX step donates it). ``step(state, mask, row_nnz,
+    col_nnz)`` returns the state's W."""
+
+    def step(st: DenseState, mask, row_nnz, col_nnz) -> torch.Tensor:
+        for t in range(st.W.shape[0]):
+            # K4: deferred subtract of rank t-1 + add-back of rank t, and
+            # the first v-sweep with the old u, in one residual pass
+            g, h = fused_update_vsweep(st.Rhat, mask, st.W[t], st.u_pend,
+                                       st.H[t], st.v_pend)
+            v = _half_sweep(g, h, lam, col_nnz, nmf)
+            u = _half_sweep(*masked_usweep(st.Rhat, mask, v), lam, row_nnz,
+                            nmf)
+            for _ in range(maxinneriter - 1):      # src/CCD.cpp:107-123
+                v = _half_sweep(*masked_vsweep(st.Rhat, mask, u), lam,
+                                col_nnz, nmf)
+                u = _half_sweep(*masked_usweep(st.Rhat, mask, v), lam,
+                                row_nnz, nmf)
+            # write back (src/CCD.cpp:128-134); the subtract of rank t's new
+            # outer product is deferred to rank t+1 via (u_pend, v_pend)
+            st.W[t] = u
+            st.H[t] = v
+            st.u_pend, st.v_pend = u, v
+        return st.W
+
+    return step
+
+
+def device_densify(R: RatingMatrix, dtype: torch.dtype, mask_dtype: str,
+                   device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (m, n) residual and mask built on ``device`` by one scatter each
+    from the COO: ships ~16 B per rating instead of the (m, n) arrays
+    (4.5 GB at ml10M dims with an f32 residual and a bf16 mask). The same
+    arrays as the JAX package's host-side ``build_dense_inputs``: the mask is
+    the observed pattern, so an explicit 0 rating stays observed."""
+    r, c, v = R.to_coo()
+    return densify_coo_mask(r, c, v, R.rows, R.cols, dtype, mask_dtype,
+                            device)
+
+
+def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
+                    T: TestCOO, cfg: Config, *, device="cuda",
+                    callback: Optional[Callable[[IterStats], None]] = None,
+                    shardings: Optional[dict] = None, resume=None,
+                    log: Optional[MetricsLog] = None,
+                    ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
+    """Train CCD++ with the dense backend on ``device``. Returns (W, H,
+    per-iteration stats) in the reference's rank-major layout. ``H0`` is
+    accepted for the solvers' common signature; CCD++ zeroes H at entry
+    (src/CCD.cpp:56-60). ``resume`` (the JAX payload keys plus ``oiter``,
+    see solvers/dense_state.py) continues a run after outer iteration
+    ``oiter``. With ``log``, the residual's size and the device set-up time
+    are reported as an info line."""
+    check_supported(cfg)
+    if shardings is not None:
+        raise NotImplementedError("a sharded dense residual is not in the "
+                                  "port yet (ROADMAP.md queue 1 item 15: "
+                                  "multi-device)")
+    dev = resolve_device(device)
+    rdt = RESIDUAL_DTYPES[cfg.residual_dtype]
+    m, n = R.rows, R.cols
+
+    t0 = time.perf_counter()
+    Rd, mask = device_densify(R, rdt, cfg.mask_dtype, dev)
+    start_oiter = 1
+    if resume is not None:
+        start_oiter = int(resume["oiter"]) + 1
+        del Rd
+        state = dense_state_from_numpy(resume, (m, n), rdt, dev)
+    else:
+        zeros = dict(dtype=torch.float32, device=dev)
+        state = DenseState(
+            Rhat=Rd,
+            W=torch.as_tensor(np.asarray(W0, np.float32), device=dev).clone(),
+            H=torch.zeros((W0.shape[0], n), **zeros),   # src/CCD.cpp:56-60
+            u_pend=torch.zeros(m, **zeros), v_pend=torch.zeros(n, **zeros))
+    row_nnz = torch.as_tensor(np.diff(R.csr_ptr).astype(np.float32),
+                              device=dev)
+    col_nnz = torch.as_tensor(np.diff(R.csc_ptr).astype(np.float32),
+                              device=dev)
+    synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    if log is not None:
+        nbytes = m * n * (state.Rhat.element_size() + mask.element_size())
+        log.info(f"[info] dense residual: {m} x {n} = {m * n} cells, "
+                 f"{cfg.residual_dtype} residual + {cfg.mask_dtype} mask, "
+                 f"{nbytes / 1e9:.2f} GB; device set-up {setup_s:.3f} s")
+
+    step = make_outer_step(cfg.lambda_, cfg.maxinneriter, nmf=cfg.do_nmf)
+
+    def i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    ti, tj = i64(T.row_idx), i64(T.col_idx)
+    tv = torch.as_tensor(np.asarray(T.val, np.float32), device=dev)
+    chunk = default_eval_chunk(T.nnz, cfg.eval_chunk)
+
+    stats = pipelined_loop(
+        start_oiter=start_oiter, maxiter=cfg.maxiter,
+        fuse=cfg.fused_outer_iters,
+        do_step=lambda: step(state, mask, row_nnz, col_nnz),
+        do_rmse=lambda: calrmse_device(ti, tj, tv, state.W, state.H,
+                                       entity_major=False, chunk=chunk),
+        callback=callback,
+        early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
+    return state.W.cpu().numpy(), state.H.cpu().numpy(), stats

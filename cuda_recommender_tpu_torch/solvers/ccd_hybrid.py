@@ -7,8 +7,10 @@ matrix is split so the cells that carry the mass are dense:
     power-law, so the nnz mass concentrates in the top-left corner;
   * a small stair of **dense panels** covers that corner — panel 1 = top
     users x ALL items, panel 2 = next users x top-w2 items, ... — each a
-    residual block whose unobserved cells hold a NaN sentinel, driven by
-    the hand-written panel kernels (ops/panel_kernels.py);
+    residual block whose unobserved cells either hold a NaN sentinel
+    (``mask_dtype="nan"``; the panel kernels K1-K3, ops/panel_kernels.py)
+    or hold 0 beside an explicit {0,1} mask of bfloat16 or int8 (K4 and the
+    masked sweeps, ops/ccd_kernels.py);
   * the sparse remainder keeps the degree-bucketed padded-ELL layout
     (data/ell.py), swept by plain torch gathers (ops/ell_ops.py).
 
@@ -26,10 +28,18 @@ Host half (``HybridPlan``, ``plan_hybrid`` and its search helpers): copied
 from the JAX package with its semantics unchanged, so both packages build
 bit-identical plans. Device half: ``densify_panels``, the outer step and
 ``ccd_hybrid_train`` — the JAX package's panel-kernel schedule without the
-rank-deferral option. Every part defers the subtract of a rank's new outer
-product to the next rank through the shared (u_pend, v_pend) state, so each
-panel costs one read-modify-write pass (K1) and one read pass (K2) per rank,
-and each ELL side one gather pass.
+rank-deferral option, for both panel layouts. Every part defers the
+subtract of a rank's new outer product to the next rank through the shared
+(u_pend, v_pend) state, so each panel costs one read-modify-write pass (K1,
+or K4 with a mask) and one read pass (K2, or ``masked_usweep``) per rank,
+and each ELL side one gather pass. ``hybrid_panel_kernel=False`` with NaN
+panels runs the same kernels. At an f32 residual the JAX package's einsum
+panel path (ccd_hybrid.py:580-586, 615-626, 654-662, 715-723) is the same
+math. At a bf16 residual it is not: the einsum path rounds the delta (or
+delta·mask) to bf16 before the add, rounds the sum again and sweeps the
+stored value, while the port rounds once and, in a masked panel, K4 sweeps
+the f32 sum before that rounding (the JAX pallas schedule; K1 sweeps the
+stored value, as the JAX panel kernel does).
 
 Semantics preserved (SURVEY.md §7): H zeroed at entry (src/CCD.cpp:56-60);
 lambda*nnz regularization with total degrees; v-sweep before u-sweep per
@@ -53,7 +63,8 @@ from ..data.ell import EllPair, build_ell_pair
 from ..data.groupsort import key_count, perm_gather, stable_perm
 from ..data.sparse import RatingMatrix, TestCOO, from_coo
 from ..eval.metrics import calrmse_device, default_eval_chunk
-from ..ops.densify import densify_coo_nan
+from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep
+from ..ops.densify import RESIDUAL_DTYPES, densify_coo_mask, densify_coo_nan
 from ..ops.ell_ops import (extend_zero, fused_sweep, fused_update_sweep,
                            stacked_remap)
 from ..ops.panel_kernels import (panel_update_vsweep, panel_usweep,
@@ -422,20 +433,13 @@ def _finish_plan(R, cfg, materialize_dense, num_shards, panels,
 
 # ---------------------------------------------------------------- device half
 
-_RESIDUAL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for hybrid knobs outside the port's slice,
     naming the ROADMAP.md item that ports them."""
     todo = []
-    if cfg.residual_dtype not in _RESIDUAL_DTYPES:
+    if cfg.residual_dtype not in RESIDUAL_DTYPES:
         todo.append(f"residual_dtype={cfg.residual_dtype!r} (ROADMAP.md "
                     "'Not ported': the fp8 residual)")
-    if cfg.mask_dtype != "nan" or not cfg.hybrid_panel_kernel:
-        todo.append("explicit panel masks / the einsum panel path "
-                    "(mask_dtype != 'nan' or hybrid_panel_kernel=False; "
-                    "ROADMAP.md queue 1 item 10: dense/pallas, K4)")
     if cfg.phase_timing:
         todo.append("phase_timing (ROADMAP.md queue 1 item 13: phase "
                     "timing)")
@@ -482,20 +486,32 @@ def device_plan(plan: HybridPlan, device) -> HybridDevicePlan:
         slot_of_ipos=i64(plan.slot_of_ipos))
 
 
-def densify_panels(plan: HybridPlan, dtype: torch.dtype, device) -> list:
+def densify_panels(plan: HybridPlan, dtype: torch.dtype, device,
+                   mask_dtype: str = "nan") -> tuple[list, list]:
     """Scatter each panel's COO (``plan_hybrid(materialize_dense=False)``)
-    into its (r1 - r0, w) NaN-sentinel residual on ``device``, one panel at
-    a time. No block padding: the kernels mask the ragged edge."""
+    into its (r1 - r0, w) residual on ``device``, one panel at a time.
+    Returns (residuals, masks): with ``mask_dtype="nan"`` unobserved cells
+    hold NaN and ``masks`` is EMPTY; with "bfloat16" or "int8" they hold 0
+    and each panel has a {0,1} mask of that dtype. No block padding: the
+    kernels mask the ragged edge."""
     if plan.panels and plan.panel_coo is None:
         raise ValueError("densify_panels needs a plan built with "
                          "materialize_dense=False (per-panel COO)")
-    return [densify_coo_nan(lr, lc, lv, r1 - r0, w, dtype, device)
-            for (lr, lc, lv), (r0, r1, w) in zip(plan.panel_coo or (),
-                                                 plan.panels)]
+    Rds, masks = [], []
+    for (lr, lc, lv), (r0, r1, w) in zip(plan.panel_coo or (), plan.panels):
+        if mask_dtype == "nan":
+            Rds.append(densify_coo_nan(lr, lc, lv, r1 - r0, w, dtype,
+                                       device))
+        else:
+            Rd, Md = densify_coo_mask(lr, lc, lv, r1 - r0, w, dtype,
+                                      mask_dtype, device)
+            Rds.append(Rd)
+            masks.append(Md)
+    return Rds, masks
 
 
 def initial_state(plan: HybridPlan, W0: np.ndarray, dtype: torch.dtype,
-                  device) -> HybridState:
+                  device, mask_dtype: str = "nan") -> HybridState:
     """Training state at outer iteration 1: panels and ELL values hold the
     ratings, W is ``W0`` in degree-sorted user order, H is zero
     (src/CCD.cpp:56-60) and nothing is pending."""
@@ -503,8 +519,9 @@ def initial_state(plan: HybridPlan, W0: np.ndarray, dtype: torch.dtype,
     k = W0.shape[0]
     W = np.ascontiguousarray(np.asarray(W0, np.float32)[:, plan.user_order])
     zeros = dict(dtype=torch.float32, device=device)
+    Rds, masks = densify_panels(plan, dtype, device, mask_dtype)
     return HybridState(
-        Rds=densify_panels(plan, dtype, device),
+        Rds=Rds, masks=masks,
         vals_r=[torch.as_tensor(b.val, device=device).clone()
                 for b in plan.ell.rows_side.buckets],
         vals_c=[torch.as_tensor(b.val, device=device).clone()
@@ -529,7 +546,8 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
     give the u-sweep partials with the new v; u = g / (λ·nnz + h). Inner
     iterations i > 0 re-sweep with K3 and ``fused_sweep``, without
     updates. W[t], H[t] take (u, v), which also become the pending outer
-    product."""
+    product. A state with explicit panel masks (``state.masks``) runs K4,
+    ``masked_usweep`` and ``masked_vsweep`` in those three places."""
     rows, cols = plan.ell.rows_side, plan.ell.cols_side
     panels = plan.panels
     have_light = plan.nnz_light > 0
@@ -547,16 +565,20 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
         u_old, v_old = st.W[t], st.H[t]
         u, v = u_old, v_old
         f32 = dict(dtype=torch.float32, device=st.W.device)
+        masks = st.masks or [None] * len(panels)
         for i in range(maxinneriter):
             # ---- v-sweep (items): panel partials + ELL partials ----
             g, h = torch.zeros(n, **f32), torch.zeros(n, **f32)
-            for (r0, r1, w), Rd in zip(panels, st.Rds):
+            for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
                 if i == 0:
-                    gp, hp = panel_update_vsweep(
-                        Rd, u_old[r0:r1], st.u_pend[r0:r1], v_old[:w],
-                        st.v_pend[:w])
-                else:
+                    vecs = (u_old[r0:r1], st.u_pend[r0:r1], v_old[:w],
+                            st.v_pend[:w])
+                    gp, hp = (panel_update_vsweep(Rd, *vecs) if Mk is None
+                              else fused_update_vsweep(Rd, Mk, *vecs))
+                elif Mk is None:
                     gp, hp = panel_vsweep(Rd, u[r0:r1])
+                else:
+                    gp, hp = masked_vsweep(Rd, Mk, u[r0:r1])
                 g[:w] += gp
                 h[:w] += hp
             if have_light:
@@ -577,8 +599,9 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
 
             # ---- u-sweep (users) ----
             gu, hu = torch.zeros(m, **f32), torch.zeros(m, **f32)
-            for (r0, r1, w), Rd in zip(panels, st.Rds):
-                gp, hp = panel_usweep(Rd, v[:w])
+            for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
+                gp, hp = (panel_usweep(Rd, v[:w]) if Mk is None
+                          else masked_usweep(Rd, Mk, v[:w]))
                 gu[r0:r1] += gp
                 hu[r0:r1] += hp
             if have_light:
@@ -631,7 +654,8 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
         plan = plan_hybrid(R, cfg, materialize_dense=False)
     t1 = time.perf_counter()
     dplan = device_plan(plan, dev)
-    state = initial_state(plan, W0, _RESIDUAL_DTYPES[cfg.residual_dtype], dev)
+    state = initial_state(plan, W0, RESIDUAL_DTYPES[cfg.residual_dtype], dev,
+                          cfg.mask_dtype)
     synchronize(dev)
     t2 = time.perf_counter()
     if log is not None:
@@ -641,8 +665,8 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
                  f"{plan.nnz_light} of {R.nnz}; plan {t1 - t0:.3f} s, "
                  f"device set-up {t2 - t1:.3f} s")
         log.event("hybrid_plan", panels=[list(p) for p in plan.panels],
-                  panel_cells=cells, nnz=R.nnz, nnz_light=plan.nnz_light,
-                  plan_s=t1 - t0, setup_s=t2 - t1)
+                  mask_dtype=cfg.mask_dtype, panel_cells=cells, nnz=R.nnz,
+                  nnz_light=plan.nnz_light, plan_s=t1 - t0, setup_s=t2 - t1)
     step = make_hybrid_outer_step(plan, dplan, cfg.lambda_, cfg.maxinneriter,
                                   nmf=cfg.do_nmf)
 

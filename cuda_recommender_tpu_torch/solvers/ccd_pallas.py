@@ -1,0 +1,64 @@
+"""CCD++ — the pallas backend, in PyTorch: a thin alias of the dense backend.
+
+The JAX package's pallas backend (``cuda_recommender_tpu/solvers/
+ccd_pallas.py``) runs the dense backend's state and schedule with the rank-1
+residual update fused into the first v-sweep by its Pallas kernel
+(``ops/ccd_pallas.py::fused_update_vsweep``, K4). The port's dense backend
+already runs that schedule through the port of K4 on the card
+(solvers/ccd_dense.py), so on the card both backends launch the same
+kernels in the same order and give bit-equal factors. This module keeps
+what differs in the JAX pallas backend and nothing else:
+
+  * the mask is always bfloat16 (the JAX backend ignores
+    ``cfg.mask_dtype``, ccd_pallas.py:82), so ``mask_dtype="nan"`` or
+    "int8" does not change it;
+  * no block padding: the JAX backend pads the residual and the factors to
+    its 256 x 512 TPU blocks (ccd_pallas.py:77-80); the port's kernels mask
+    the ragged edge, and ``dense_state_from_numpy`` trims a padded payload.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+
+from ..core.config import Config
+from ..core.metrics_log import MetricsLog
+from ..data.sparse import RatingMatrix, TestCOO
+from . import ccd_dense
+from .reference import IterStats
+
+
+def _bf16_mask(cfg: Config) -> Config:
+    # the pallas backend ignores the hybrid's panel-kernel flag as well, and
+    # Config refuses that flag beside a bf16 mask
+    return dataclasses.replace(cfg, mask_dtype="bfloat16",
+                               hybrid_panel_kernel=False)
+
+
+def check_supported(cfg: Config) -> None:
+    """The dense backend's knob check, with the pallas backend's bf16
+    mask."""
+    ccd_dense.check_supported(_bf16_mask(cfg))
+
+
+def make_pallas_outer_step(lam: float, maxinneriter: int, *,
+                           nmf: bool = False) -> Callable:
+    """The pallas schedule's outer step: ``ccd_dense.make_outer_step``."""
+    return ccd_dense.make_outer_step(lam, maxinneriter, nmf=nmf)
+
+
+def ccd_pallas_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
+                     T: TestCOO, cfg: Config, *, device="cuda",
+                     callback: Optional[Callable[[IterStats], None]] = None,
+                     resume=None, log: Optional[MetricsLog] = None,
+                     ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
+    """Train CCD++ with the pallas backend on ``device``: the dense backend
+    with a bfloat16 mask. Returns (W, H, stats) in the reference's
+    rank-major layout; ``resume`` may be the JAX pallas backend's padded
+    payload."""
+    return ccd_dense.ccd_dense_train(R, W0, H0, T, _bf16_mask(cfg),
+                                     device=device, callback=callback,
+                                     resume=resume, log=log)

@@ -130,7 +130,8 @@ def test_build_knows_every_source_and_signature():
 def test_one_launch_registry():
     """One registry counts every kernel, and one reset clears them all."""
     assert set(launches.launch_counts()) == {
-        "panel_update_vsweep", "panel_vsweep", "panel_usweep", "gj_solve"}
+        "panel_update_vsweep", "panel_vsweep", "panel_usweep",
+        "fused_update_vsweep", "masked_vsweep", "masked_usweep", "gj_solve"}
     launches.count("gj_solve")
     launches.count("panel_usweep")
     assert launches.launch_counts()["gj_solve"] == 1

@@ -107,9 +107,7 @@ def test_panel_kernels_match_pallas(M, W, bm, bw, name, jdt, tdt):
                            torch.int16 if name == "bfloat16"
                            else torch.int32))
     # CPU tensors take the plain versions: no kernel launched
-    assert launches.launch_counts() == {"panel_update_vsweep": 0,
-                                        "panel_vsweep": 0,
-                                        "panel_usweep": 0, "gj_solve": 0}
+    assert set(launches.launch_counts().values()) == {0}
 
 
 def test_update_rounds_once_to_storage():

@@ -112,12 +112,11 @@ def test_cli_runs_and_matches_train(tmp_path):
 
 UNSUPPORTED = {
     "als": dict(solver="als", als_precision="high"),
-    "auto_dense": dict(backend="auto"),
-    "dense": dict(backend="dense"),
-    "pallas": dict(backend="pallas"),
     "ell": dict(backend="ell"),
-    "bf16_mask": dict(backend="hybrid", mask_dtype="bfloat16"),
-    "no_kernel": dict(backend="hybrid", mask_dtype="nan"),
+    "dense_phase_timing": dict(backend="dense", phase_timing=True),
+    "dense_fp8": dict(backend="dense", residual_dtype="float8_e4m3fn"),
+    "dense_checkpoint": dict(backend="dense", checkpoint_dir="ck"),
+    "pallas_phase_timing": dict(backend="pallas", phase_timing=True),
     "fp8": dict(KERNEL, residual_dtype="float8_e4m3fn"),
     "phase_timing": dict(KERNEL, phase_timing=True),
     "transpose": dict(KERNEL, hybrid_transpose=True),
@@ -132,6 +131,17 @@ def test_unsupported_knobs_raise(tiny, knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train(Config(k=2, maxiter=1, **UNSUPPORTED[knob]), R, T,
               device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["dense", "auto"])
+def test_dense_nan_mask_raises_value_error(tiny, backend):
+    """The dense residual keeps an explicit mask: mask_dtype='nan' is a
+    ValueError on dense (and on AUTO when it picks dense), as in the JAX
+    package."""
+    R, T = tiny
+    with pytest.raises(ValueError, match="explicit mask"):
+        train(Config(k=2, maxiter=1, backend=backend, mask_dtype="nan"), R,
+              T, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
