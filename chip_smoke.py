@@ -24,7 +24,15 @@ PyTorch version on the card. Then it drives the port's two paths:
   run; then one iteration at -T 2), holds the pallas backend bit-equal to
   it, trains the README's k=40 bf16-residual row, times the kernels, trains
   the explicit-mask hybrid at Netflix-100M dims with the JAX ``Config``
-  defaults, and runs the README's CLI command with no backend flag.
+  defaults, and runs the README's CLI command with no backend flag;
+* the measurement layer: checks the probe kernels (the stream controls
+  stream_rmw and stream_read in K1's pattern and in 16-byte vectors, K1's
+  integer-rounding variant, the three gather forms) against their plain
+  versions, runs the port's bench (``python -m
+  cuda_recommender_tpu_torch.bench``) at the headline, then with the auto
+  stair, the auto orientation and the transposed stair, times the probe
+  kernels at the bench's shapes, runs the variant and gather probe scripts
+  and a small ``cli/bench.py`` grid.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -61,6 +69,37 @@ MASKED_KERNELS = {
     "fused_update_vsweep": "cuda_recommender_tpu/ops/ccd_pallas.py:69",
     "masked_usweep": "cuda_recommender_tpu/solvers/ccd_dense.py:69",
     "masked_vsweep": "cuda_recommender_tpu/solvers/ccd_dense.py:69"}
+
+#: the probe kernels -> (source, the Pallas call each replaces)
+PROBES = {
+    "stream_rmw": ("probe_kernels.cu", "scripts/panel_floor.py:86"),
+    "stream_read": ("probe_kernels.cu", "scripts/panel_floor.py:100"),
+    "stream_rmw_vec16": ("probe_kernels.cu", "scripts/panel_floor.py:86"),
+    "stream_read_vec16": ("probe_kernels.cu", "scripts/panel_floor.py:100"),
+    "panel_update_vsweep_irne": ("panel_kernels.cu",
+                                 "scripts/panel_kernel_variants.py:95"),
+    "gather": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
+}
+#: probe checks: small and ragged panels, then the scripts' own shapes (the
+#: headline's two panels; the variant matrix's default)
+PROBE_SMALL = ((50, 70), (1537, 300))
+PROBE_SCRIPT_SHAPES = ((330_128, 17_770), (150_061, 4_096),
+                       (165_376, 18_432))
+#: gather checks: (table rows, index rows): the probe's shape and a ragged
+#: small one
+GATHER_CHECKS = ((8192, 4096), (37, 19))
+#: the bench's run lengths: the headline (>= 5 timed after 2 warm-ups) and
+#: the two A/B runs
+BENCH_ITERS = dict(iters=5, warmup=2)
+BENCH_AB_ITERS = dict(iters=3, warmup=1)
+#: the A/B runs: the auto stair, the auto orientation, the transposed stair
+#: (items as rows; auto keeps users as rows at these dims)
+BENCH_AB = (["--panel-widths", "auto"], ["--transpose", "auto"],
+            ["--transpose", "1"])
+#: the bench's s/iter must lie within this share of phase 4's
+BENCH_S_ITER_TOL = 0.03
+#: no control may read above this share of the card's peak rate
+CONTROL_MAX_SHARE = 1.05
 
 #: the H100 SXM data sheet's peaks (700 W): HBM bytes/s and f32 FLOP/s
 #: outside the tensor cores; a kernel's bound is the larger of its bytes
@@ -1128,6 +1167,294 @@ def run_dense_cli() -> None:
           flush=True)
 
 
+def check_probe_kernels(device) -> dict:
+    """stream_rmw (both tile orders, and 16-byte vectors), stream_read
+    (weighted and NaN-skip, K1's pattern and 16-byte vectors),
+    panel_update_vsweep_irne and the gather forms against their plain
+    versions on the same inputs, at PROBE_SMALL and the scripts' shapes
+    (the 16-byte streams also on a view one row in, whose rows start off a
+    16-byte boundary): rmw, the rounding variant's stored residual and the
+    gathers bit-equal (the variant's also to K1's), sums within RTOL of
+    sum(|terms|). Returns each kernel's largest |kernel - plain|."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+    from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
+        pattern_panel
+    from cuda_recommender_tpu_torch.scripts.probe_gather import \
+        probe_inputs
+
+    worst = {name: 0.0 for name in PROBES}
+    for M, W in PROBE_SMALL + PROBE_SCRIPT_SHAPES:
+        t0 = time.perf_counter()
+        ratios = []
+        R, (u, up, v, vp) = random_panel(M, W, torch.bfloat16, device,
+                                         seed=M + 1)
+        R = torch.nan_to_num(R, nan=0.5)      # the P1 panels are NaN-free
+        small = (M, W) in PROBE_SMALL
+        for pattern in ("cm", "rm", "vec16") + (("vec16 view",) if small
+                                                 else ()):
+            Rk, Rp = R.clone(), R.clone()
+            if pattern == "vec16 view":
+                Rk, Rp = Rk[1:], Rp[1:]
+            pr.stream_rmw(Rk, row_major=pattern == "rm",
+                          vec16=pattern.startswith("vec16"))
+            pr.stream_rmw_plain(Rp)
+            _sync(device)
+            if not torch.equal(_bits(Rk), _bits(Rp)):
+                raise AssertionError(f"stream_rmw {M}x{W} {pattern}: "
+                                     f"{int((_bits(Rk) != _bits(Rp)).sum())}"
+                                     " cells differ")
+            del Rk, Rp
+        for name, vec16 in (("stream_read", False),
+                            ("stream_read_vec16", True)):
+            for X, uu in ((R, u),) + (((R[1:], u[1:].contiguous()),)
+                                     if small and vec16 else ()):
+                g = pr.stream_read(X, uu, vec16=vec16)
+                gp = pr.stream_read_plain(X, uu)
+                sg = pr.stream_read_plain(X.abs(), uu.abs())
+                worst[name] = max(worst[name], _close(f"{name} g", g, gp, sg,
+                                                      ratios))
+                if not torch.equal(g, pr.stream_read(X, uu, vec16=vec16)):
+                    raise AssertionError(f"{name} {M}x{W}: not repeatable")
+        del R
+        # the NaN-skip read and the rounding variant on NaN-sentinel panels:
+        # random (30% observed) and, at the variant matrix's shape, its own
+        # pattern
+        Rn, _ = random_panel(M, W, torch.bfloat16, device, seed=M + 2)
+        if (M, W) == PROBE_SCRIPT_SHAPES[2]:
+            del Rn
+            Rn = pattern_panel(M, W, device)
+        for name, vec16 in (("stream_read", False),
+                            ("stream_read_vec16", True)):
+            g = pr.stream_read(Rn, vec16=vec16)
+            worst[name] = max(worst[name], _close(
+                f"{name} (NaN-skip) g", g, pr.stream_read_plain(Rn),
+                pr.stream_read_plain(Rn.abs()), ratios))
+        Ra, Rp, R1 = Rn.clone(), Rn.clone(), Rn
+        ga, ha = pk.panel_update_vsweep_irne(Ra, u, up, v, vp)
+        gp, hp = pk.panel_update_vsweep_irne_plain(Rp, u, up, v, vp)
+        pk.panel_update_vsweep(R1, u, up, v, vp)
+        _sync(device)
+        for other, what in ((Rp, "its plain version"), (R1, "K1")):
+            if not torch.equal(_bits(Ra), _bits(other)):
+                raise AssertionError(
+                    f"panel_update_vsweep_irne {M}x{W}: stored residual "
+                    f"differs from {what}'s in "
+                    f"{int((_bits(Ra) != _bits(other)).sum())} cells")
+        del Rp, R1
+        sg, _ = pk.panel_vsweep_plain(Ra.abs(), u.abs())
+        worst["panel_update_vsweep_irne"] = max(
+            worst["panel_update_vsweep_irne"],
+            _close("irne g", ga, gp, sg, ratios),
+            _close("irne h", ha, hp, hp, ratios))
+        del Ra, Rn
+        _sync(device)
+        torch.cuda.empty_cache()
+        print(f"[check] probes {M:6d}x{W:<6d} bf16: stream_rmw (both orders"
+              f", 16-byte) and the rounding variant's residual bit-equal "
+              f"(also to "
+              f"K1's); sums' largest error / sum|terms| {max(ratios):.2e} "
+              f"(bar {RTOL}) [{time.perf_counter() - t0:.1f} s]", flush=True)
+    for S, rows in GATHER_CHECKS:
+        tab, idx = probe_inputs(S, rows, device, seed=S)
+        idx["A"][0, :4] = torch.tensor([-1, S, S + 7, 0], dtype=torch.int32)
+        for form in ("A", "B", "C"):
+            got = pr.gather(tab, idx[form], form)
+            want = pr.gather_plain(tab, idx[form], form)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"gather {form} S={S} rows={rows}: "
+                                     "differs from the plain version")
+        print(f"[check] gather A, B, C at table {S} x 128, index {rows} x 128"
+              " (out-of-range indices read 0): bit-equal", flush=True)
+    return worst
+
+
+def run_bench(extra=(), timeout=900) -> dict:
+    """``python -m cuda_recommender_tpu_torch.bench`` with ``extra``
+    arguments; returns its one JSON record after checking it: the device
+    is the card, 0 < vs_baseline <= 1.05, every control at most
+    CONTROL_MAX_SHARE of the peak rate, the training launches exactly
+    want_launches, the test RMSE finite."""
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.bench",
+           *map(str, extra)]
+    print("[bench] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode != 0:
+        print(res.stdout + res.stderr, flush=True)
+        raise AssertionError(f"bench exited {res.returncode}")
+    lines = res.stdout.strip().splitlines()
+    rec = json.loads(lines[-1])
+    d = rec["detail"]
+    if len(lines) != 1 or rec["metric"] != "ccd_netflix_scale_throughput":
+        raise AssertionError(f"bench printed {len(lines)} lines: {lines[:3]}")
+    if d["device"]["platform"] != "gpu":
+        raise AssertionError(f"bench device {d['device']}")
+    if not (0 < rec["vs_baseline"] <= 1.05):
+        raise AssertionError(f"bench vs_baseline {rec['vs_baseline']}")
+    from cuda_recommender_tpu_torch.scripts.panel_floor import CONTROLS
+    shares = [r[m]["share_of_peak"] for r in d["controls"]["panels"]
+              for m in CONTROLS]
+    for g in d["controls"]["gathers"].values():
+        for form in ("A", "B"):     # index read + output written, 8 B each
+            shares.append(8e-3 / g[form]["ns_per_element"] * 1e12
+                          / PEAK_BYTES_S)
+    if not shares or max(shares) > CONTROL_MAX_SHARE:
+        raise AssertionError(f"a control above {CONTROL_MAX_SHARE} of the "
+                             f"peak rate: {shares}")
+    want = want_launches(d["k"], d["iterations_run"], 1, len(d["panels"]))
+    if d["launches"] != want:
+        raise AssertionError(f"bench launches {d['launches']}, want {want}")
+    if not math.isfinite(d["test_rmse"]):
+        raise AssertionError(f"bench RMSE {d['test_rmse']}")
+    print(f"[bench] {rec['value']:.1f} {rec['unit']}, median "
+          f"{d['outer_iter_s']:.4f} s/iter (samples {d['iter_s_samples']}, "
+          f"spread {d['iter_s_spread_pct']:.2f}%), vs_baseline "
+          f"{rec['vs_baseline']:.4f}, achievable "
+          f"{d['vs_baseline_achievable']:.4f}; {d['orientation']}, panels "
+          f"{d['panels']}, tail {100 * d['nnz_light_frac']:.2f}% of nnz; "
+          f"RMSE {d['test_rmse']:.6f} after {d['iterations_run']} "
+          f"iterations; peak {d['peak_device_memory_bytes'] / 2**30:.2f} "
+          f"GiB; host {d['host_s']}; control shares max {max(shares):.3f} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    for r in d["controls"]["panels"]:
+        print("[bench] control " + json.dumps(r), flush=True)
+    for name, g in d["controls"]["gathers"].items():
+        print(f"[bench] gather {name} side " + json.dumps(g), flush=True)
+    print(f"[bench] control launches {d['controls']['launches']}",
+          flush=True)
+    return rec
+
+
+def time_probe_kernels(panel, variant_shape, tail, reps=5) -> dict:
+    """Each probe kernel against its plain version and, where one exists,
+    its PyTorch call, warm, in turns: stream_rmw (tiles down the columns,
+    the Pallas control's order, and 16-byte vectors) and stream_read
+    (weighted; K1's pattern and 16-byte vectors) at the bench's panel 0,
+    the rounding variant at the variant matrix's shape, gather form B at
+    the bench's largest tail side (by graph replays). Returns
+    name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+    from cuda_recommender_tpu_torch.scripts.common import cold_copies, \
+        cycling, device_panel, time_ms
+    from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
+        pattern_panel
+    from cuda_recommender_tpu_torch.scripts.probe_gather import \
+        probe_inputs, tail_shape
+
+    out = {}
+
+    def record(name, fns, nbytes, flops, what):
+        got = _turns(fns, reps)
+        ms = [(a + b) / 2 for a, b in got]
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = dict(ms=ms[-1], plain_ms=ms[0],
+                         library_ms=ms[1] if len(ms) == 3 else None,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"[timing] {name:24s} {what}: kernel {ms[-1]:.3f} ms, plain "
+              f"{ms[0]:.3f} ms, library "
+              f"{'none' if len(ms) < 3 else f'{ms[1]:.3f} ms'}; bound "
+              f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms[-1]:.1f}% of it; "
+              f"kernel {nbytes / 1e6 / ms[-1]:.0f} GB/s", flush=True)
+
+    M, W = panel
+    cells = M * W
+    R = device_panel(M, W, "cuda", seed=3)
+    u = torch.randn(M, device="cuda")
+    record("stream_rmw", [lambda: pr.stream_rmw_plain(R),
+                          lambda: R.add_(1),
+                          lambda: pr.stream_rmw(R, row_major=False)],
+           4 * cells, cells, f"{M}x{W} bf16, column-of-tiles order")
+    ms_rm = _time(lambda: pr.stream_rmw(R, row_major=True), reps)
+    print(f"[timing] stream_rmw row-of-tiles order: {ms_rm:.3f} ms",
+          flush=True)
+    record("stream_rmw_vec16", [lambda: pr.stream_rmw_plain(R),
+                                lambda: R.add_(1),
+                                lambda: pr.stream_rmw(R, vec16=True)],
+           4 * cells, cells, f"{M}x{W} bf16, 16-byte vectors, flat")
+    for name, vec16 in (("stream_read", False), ("stream_read_vec16", True)):
+        record(name, [lambda: pr.stream_read_plain(R, u),
+                      lambda vec16=vec16: pr.stream_read(R, u, vec16=vec16)],
+               2 * cells + 4 * (-(-M // 512) + W), cells,
+               f"{M}x{W} bf16, u-weighted 512-row blocks"
+               + (", 16-byte vectors" if vec16 else ""))
+    del R, u
+    torch.cuda.empty_cache()
+
+    M, W = variant_shape
+    cells = M * W
+    R = pattern_panel(M, W, "cuda")
+    vecs = [0.1 * torch.randn(n, device="cuda") for n in (M, M, W, W)]
+    record("panel_update_vsweep_irne", [
+        lambda: pk.panel_update_vsweep_irne_plain(R, *vecs),
+        lambda: pk.panel_update_vsweep_irne(R, *vecs)],
+        4 * cells + 4 * (2 * M + 4 * W), 7 * cells,
+        f"{M}x{W} bf16, the variant matrix's NaN pattern")
+    k1 = _time(lambda: pk.panel_update_vsweep(R, *vecs), reps)
+    nan_ms = _turns([lambda: pr.stream_read_plain(R),
+                     lambda: torch.nansum(R, 0, dtype=torch.float32),
+                     lambda: pr.stream_read(R)], reps)
+    print(f"[timing] K1 at the same shape: {k1:.3f} ms; stream_read "
+          f"(NaN-skip) kernel {sum(nan_ms[2]) / 2:.3f} ms, plain "
+          f"{sum(nan_ms[0]) / 2:.3f} ms, torch.nansum "
+          f"{sum(nan_ms[1]) / 2:.3f} ms; bound "
+          f"{bound(2 * cells + 4 * W, cells)[0]:.3f} ms", flush=True)
+    out["stream_read"]["nan_skip"] = dict(
+        shape=[M, W], ms=sum(nan_ms[2]) / 2, plain_ms=sum(nan_ms[0]) / 2,
+        library_ms=sum(nan_ms[1]) / 2,
+        bound_ms=bound(2 * cells + 4 * W, cells)[0])
+    out["panel_update_vsweep_irne"]["k1_ms"] = k1
+    del R, vecs
+    torch.cuda.empty_cache()
+
+    # the gather's device time is below the host's cost of a call: graph
+    # replays, the index cold (probe_gather's method), in turns
+    S, rows = tail_shape(tail["lanes"], tail["table_rows"], tail["width"])
+    tab, idx = probe_inputs(S, rows, "cuda", seed=5)
+    ib = cold_copies(idx["B"])
+    ib64 = cold_copies(idx["B"].to(torch.int64))
+    fns = [cycling([(lambda ix=ix: pr.gather_plain(tab, ix, "B"))
+                    for ix in ib]),
+           cycling([(lambda ix=ix: torch.take(tab, ix)) for ix in ib64]),
+           cycling([(lambda ix=ix: pr.gather(tab, ix, "B")) for ix in ib])]
+    dev = torch.device("cuda")
+    first = [time_ms(fn, dev, 100, graph=True) for fn in fns]
+    second = [time_ms(fn, dev, 100, graph=True) for fn in fns[::-1]][::-1]
+    ms = [(a + b) / 2 for a, b in zip(first, second)]
+    n = idx["B"].numel()
+    b_ms, b_by = bound(8 * n + 4 * tab.numel(), 0)
+    out["gather"] = dict(ms=ms[2], plain_ms=ms[0], library_ms=ms[1],
+                         bound_ms=b_ms, bound_by=b_by)
+    print(f"[timing] gather                   form B, table {S}x128, index "
+          f"{rows}x128 (the tail side {tail['lanes']}:{tail['table_rows']}:"
+          f"{tail['width']}), graph replays, index cold: kernel "
+          f"{first[2]:.4f} / {second[2]:.4f} ms, plain {first[0]:.4f} / "
+          f"{second[0]:.4f} ms, torch.take {first[1]:.4f} / {second[1]:.4f} "
+          f"ms; bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms[2]:.1f}% of "
+          f"it", flush=True)
+    del tab, idx, ib, ib64, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_script(args, timeout=600) -> str:
+    """``python -m`` one of the port's modules; its stdout (raises on a
+    non-zero exit)."""
+    cmd = [sys.executable, "-m", *args]
+    print("[script] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout)
+    print(res.stdout + res.stderr, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {res.returncode}")
+    print(f"[script] {args[0]} [{time.perf_counter() - t0:.1f} s]",
+          flush=True)
+    return res.stdout
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1239,6 +1566,58 @@ def main() -> int:
     phase("17 README CLI with golden check (no backend flag: dense)")
     run_dense_cli()
 
+    phase("18 probe kernel checks (stream_rmw, stream_read, the rounding "
+          "variant, gather) at small and the scripts' shapes")
+    probe_worst = check_probe_kernels(dev)
+
+    phase("19 the port's bench at the headline, then the probe kernels "
+          "timed at its shapes")
+    bench = run_bench(["--iters", BENCH_ITERS["iters"], "--warmup",
+                       BENCH_ITERS["warmup"]])
+    bd = bench["detail"]
+    off = abs(bd["outer_iter_s"] - head["s_iter"]) / head["s_iter"]
+    print(f"[bench] median {bd['outer_iter_s']:.4f} s/iter against phase "
+          f"4's {head['s_iter']:.4f}: {100 * off:.2f}% apart (bar "
+          f"{100 * BENCH_S_ITER_TOL:.0f}%)", flush=True)
+    if off > BENCH_S_ITER_TOL:
+        raise AssertionError("the bench's s/iter is off phase 4's")
+    r0, r1, w = bd["panels"][0]
+    tail = max(bd["tail"].values(), key=lambda t: t["lanes"])
+    probe_times = time_probe_kernels((r1 - r0, w), PROBE_SCRIPT_SHAPES[2],
+                                     tail)
+    print(f"[timing] card: {smi}", flush=True)
+
+    phase("20 the bench with the auto stair, the auto orientation and the "
+          "transposed stair")
+    ab = ["--iters", BENCH_AB_ITERS["iters"], "--warmup",
+          BENCH_AB_ITERS["warmup"]]
+    for extra in BENCH_AB:
+        rec = run_bench(ab + extra)
+        want_t = extra == ["--transpose", "1"]
+        if rec["detail"]["orientation"].startswith("transposed") != want_t:
+            raise AssertionError(f"bench {extra}: orientation "
+                                 f"{rec['detail']['orientation']}")
+
+    phase("21 the variant matrix and the gather probe scripts")
+    out = run_script(["cuda_recommender_tpu_torch.scripts."
+                      "panel_kernel_variants"])
+    variants = json.loads(out.strip().splitlines()[-1])
+    if variants["A1_vs_A0"]["bit_mismatches"] != 0:
+        raise AssertionError(f"A1 vs A0: {variants['A1_vs_A0']}")
+    tails = [f"{t['lanes']}:{t['table_rows']}:{t['width']}"
+             for t in bd["tail"].values() if t["lanes"]]
+    run_script(["cuda_recommender_tpu_torch.scripts.probe_gather",
+                *[a for t in tails for a in ("--tail", t)]])
+
+    phase("22 a small cli/bench.py grid (k 10, 40 x ccd, als)")
+    out = run_script(["cuda_recommender_tpu_torch.cli.bench", "--ks",
+                      "10,40", "--solvers", "ccd,als"])
+    recs = [json.loads(x) for x in out.strip().splitlines()]
+    if len(recs) != 4 or not all(
+            math.isfinite(r["final_rmse"]) and r["device"] == "cuda"
+            for r in recs):
+        raise AssertionError(f"cli/bench records {recs}")
+
     print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
           flush=True)
     print(smi, flush=True)
@@ -1265,6 +1644,22 @@ def main() -> int:
                  "bound_by": masked_times["float32"][name][3],
                  "library_ms": None}
                 for name, replaces in MASKED_KERNELS.items()]
+    # the probe kernels: launches from the bench's controls (phase 19: the
+    # gathers' count their graph replays) and the variant matrix (phase 21)
+    probe_launches = dict(bd["controls"]["launches"])
+    probe_launches["panel_update_vsweep_irne"] = variants["launches"][
+        "panel_update_vsweep_irne"]
+    kernels += [{"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+                 "replaces": replaces, "launches": probe_launches[name],
+                 "max_abs_err": probe_worst[name],
+                 **{key: probe_times[name][key] for key in (
+                     "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")}}
+                for name, (src, replaces) in PROBES.items()]
+    for kern in kernels:
+        if kern["launches"] <= 0:
+            raise AssertionError(f"{kern['name']} never launched on its "
+                                 "path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The port of ``cuda_recommender_tpu/cli/train.py`` for the flags of its
 slice: ``-k -l -t -T -ALS`` (reference src/extras.cpp:46-141),
 ``-OMP/--golden`` (also run the NumPy golden solver and cross-validate,
 src/main.cpp:109-144), ``--backend``, ``--dataset
-synthetic:m=...,n=...,nnz=...``, the hybrid panel knobs, the ALS layout
+synthetic:m=...,n=...,nnz=...``, the hybrid panel knobs (with
+``--transpose-stair 0|1|auto``), the ALS layout
 knobs, ``--seed``, ``--metrics-file`` and ``--device``. Knobs outside the
 slice raise ``NotImplementedError`` from the trainer.
 
@@ -75,6 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--panel-kernel", action="store_true", dest="panel_kernel",
                    help="run the hybrid panels through the fused panel "
                         "kernels (requires --mask-dtype nan)")
+    p.add_argument("--transpose-stair", default=None, metavar="0|1|auto",
+                   dest="transpose_stair", choices=["0", "1", "auto"],
+                   help="hybrid stair orientation: 1 plans panels over top-"
+                        "ITEMS x user prefixes (the transposed matrix), "
+                        "'auto' plans both and keeps the smaller uncovered "
+                        "tail")
     p.add_argument("--als-min-width", default=None, metavar="W|auto",
                    dest="als_min_width",
                    help="ALS ELL bucket width floor: integer or 'auto' for "
@@ -108,6 +115,10 @@ def main(argv=None) -> int:
         overrides["hybrid_dense_cells"] = int(args.hybrid_cells)
     if widths is not None:
         overrides["hybrid_panel_widths"] = widths
+    if args.transpose_stair is not None:
+        overrides["hybrid_transpose"] = (
+            "auto" if args.transpose_stair == "auto"
+            else bool(int(args.transpose_stair)))
     if args.als_min_width is not None:
         overrides["als_min_width"] = ("auto" if args.als_min_width == "auto"
                                       else int(args.als_min_width))

@@ -57,8 +57,10 @@ class TrainResult:
     validate_time: float = 0.0
 
 
-def _check_supported(cfg: Config, backend: Backend, mesh,
-                     resume_from_checkpoint: bool) -> None:
+def check_supported(cfg: Config, backend: Backend, mesh=None,
+                    resume_from_checkpoint: bool = False) -> None:
+    """Raise NotImplementedError for a configuration outside the port,
+    naming the ROADMAP.md item that ports it."""
     als = cfg.solver == Solver.ALS
     if als and cfg.phase_timing:
         raise NotImplementedError(
@@ -120,7 +122,8 @@ def _run_reference(cfg: Config, R, W0, H0, T, log):
     return W, H, stats
 
 
-def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device):
+def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
+                  run: dict):
     if backend == Backend.REF:
         return _run_reference(cfg, R, W0, H0, T, log)
 
@@ -141,21 +144,33 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device):
                       st.rank_time, acc["rank"], st.update_time, acc["upd"],
                       rmse_time=getattr(st, "rmse_time", None))
 
+    return solve(cfg, backend, R, W0, H0, T, device=device, callback=cb,
+                 log=log, run=run)
+
+
+def solve(cfg: Config, backend: Backend, R, W0, H0, T, *, device,
+          callback=None, log: Optional[MetricsLog] = None,
+          run: Optional[dict] = None):
+    """Run the compiled solver of (``cfg.solver``, ``backend``) — the path
+    ``train()`` runs — on ``device``; returns (W, H, stats). Prints nothing
+    unless ``log`` is given. The hybrid backend writes its orientation and
+    plan into ``run`` (``ccd_hybrid_train``); the others leave it as it
+    is."""
     if cfg.solver == Solver.ALS:
         from ..solvers.als_ell import als_ell_train
-        return als_ell_train(R, W0, H0, T, cfg, device=device, callback=cb,
-                             log=log)
+        return als_ell_train(R, W0, H0, T, cfg, device=device,
+                             callback=callback, log=log)
     if backend == Backend.PALLAS:
         from ..solvers.ccd_pallas import ccd_pallas_train
-        return ccd_pallas_train(R, W0, H0, T, cfg, device=device, callback=cb,
-                                log=log)
+        return ccd_pallas_train(R, W0, H0, T, cfg, device=device,
+                                callback=callback, log=log)
     if backend == Backend.DENSE:
         from ..solvers.ccd_dense import ccd_dense_train
-        return ccd_dense_train(R, W0, H0, T, cfg, device=device, callback=cb,
-                               log=log)
+        return ccd_dense_train(R, W0, H0, T, cfg, device=device,
+                               callback=callback, log=log)
     from ..solvers.ccd_hybrid import ccd_hybrid_train
-    return ccd_hybrid_train(R, W0, H0, T, cfg, device=device, callback=cb,
-                            log=log)
+    return ccd_hybrid_train(R, W0, H0, T, cfg, device=device,
+                            callback=callback, log=log, run=run)
 
 
 def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
@@ -164,7 +179,7 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     """Full training run on ``device`` ("cuda" or "cpu"; "cuda" without a
     GPU raises) with optional golden validation (cfg.golden)."""
     backend = cfg.resolve_backend(R.rows, R.cols)
-    _check_supported(cfg, backend, mesh, resume_from_checkpoint)
+    check_supported(cfg, backend, mesh, resume_from_checkpoint)
     device = resolve_device(device)
     log = log or MetricsLog(cfg.metrics_file)
     entity_major = cfg.solver == Solver.ALS
@@ -180,8 +195,9 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
 
     log.info(f"[INFO] Computing with {backend.value} backend...")
     t0 = time.perf_counter()
+    run: dict = {}
     W, H, stats = _run_compiled(cfg, backend, R, W0.copy(), H0.copy(), T, log,
-                                device)
+                                device, run)
     train_time = time.perf_counter() - t0
     log.info("[info] %s Training time: %f s." % (backend.value, train_time))
     t0 = time.perf_counter()
@@ -196,7 +212,15 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     if cfg.golden:
         log.info("[INFO] Computing with reference (golden) backend...")
         t0 = time.perf_counter()
-        W_ref, H_ref, ref_stats = _run_reference(cfg, R, W0, H0, T, log)
+        if run.get("transposed"):
+            # the transposed stair solved Rᵀ with the item side seeded: the
+            # golden run is the reference on the SAME transposed problem
+            from ..solvers.ccd_hybrid import transpose_test
+            Wt, Ht, ref_stats = _run_reference(cfg, R.transpose(), H0, W0,
+                                               transpose_test(T), log)
+            W_ref, H_ref = Ht, Wt
+        else:
+            W_ref, H_ref, ref_stats = _run_reference(cfg, R, W0, H0, T, log)
         log.info("[info] ref Training time: %f s." % (time.perf_counter() - t0))
         result.ref_stats = ref_stats
         result.ref_final_rmse = calrmse_np(T, W_ref, H_ref,

@@ -12,7 +12,10 @@
 //                                        fused_update_vsweep (K4)
 // and, with an explicit mask, the XLA sweeps of the dense schedule
 // (solvers/ccd_dense.py::_half_sweep): crtpu_vsweep (masked_vsweep) and
-// crtpu_usweep (masked_usweep).
+// crtpu_usweep (masked_usweep). A fourth entry point,
+// crtpu_update_vsweep_irne, is K1 with its store rounded the other way:
+// the port of the rounding variant of scripts/panel_kernel_variants.py
+// (P2, run_uv_variant with _uv_kernel_astype), a probe, not a training pass.
 //
 // A residual is an (M, W) row-major block, float32 or bfloat16. Its mask is
 // either the NaN sentinel (unobserved cells hold NaN; no mask array) or an
@@ -53,6 +56,14 @@
 // storage type (round-to-nearest-even). NaN passes through the add. The
 // stored residual is therefore bit-equal to the plain PyTorch versions
 // (ops/panel_kernels.py, ops/ccd_kernels.py) on the same card.
+//
+// The rounding is a policy of the update's store: RoundCvt, the hardware
+// conversion __float2bfloat16_rn (K1-K4; the analogue of the TPU's astype),
+// or RoundIntRne, the integer round-to-nearest-even on the f32 bits
+// ((bits + 0x7FFF + lsb) >> 16, the TPU kernel's _round_to_storage,
+// ops/panel_pallas.py:73-90). On the card an arithmetic NaN is 0x7FFFFFFF,
+// which the bias add would carry into -0, so RoundIntRne converts NaN by
+// the hardware conversion: the sentinel stays NaN, with K1's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,22 +104,35 @@ __device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// Rounding policies of the update's store (see the header).
+struct RoundCvt {};
+struct RoundIntRne {};
+
 // Round once to the storage type, store, and return exactly what was stored.
+template <typename Round>
 __device__ __forceinline__ float store_cell(float* p, float x) {
   *p = x;
   return x;
 }
 
+template <typename Round>
 __device__ __forceinline__ float store_cell(__nv_bfloat16* p, float x) {
-  const __nv_bfloat16 b = __float2bfloat16_rn(x);
+  __nv_bfloat16 b = __float2bfloat16_rn(x);
+  if constexpr (std::is_same<Round, RoundIntRne>::value) {
+    const unsigned bits = __float_as_uint(x);
+    if (!isnan(x))
+      b = __ushort_as_bfloat16(static_cast<unsigned short>(
+          (bits + 0x7FFFu + ((bits >> 16) & 1u)) >> 16));
+  }
   *p = b;
   return __bfloat162float(b);
 }
 
 // Column sweep over one strip: rows [blockIdx.y*rows_per_part, +rows_per_part)
 // x columns [blockIdx.x*128, +128). With kUpdate the rank-1 delta is applied
-// and stored first. Writes the strip's per-column partials of g and h.
-template <typename T, typename MaskT, bool kUpdate>
+// and stored first, rounded by the policy Round. Writes the strip's
+// per-column partials of g and h.
+template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt>
 __global__ void __launch_bounds__(kColThreadsX* kColThreadsY)
     col_sweep_kernel(T* R, const MaskT* __restrict__ Mk,
                      const float* __restrict__ uo,
@@ -175,7 +199,7 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY)
             const float d = __fsub_rn(__fmul_rn(a[b], vo_c[q]),
                                       __fmul_rn(ap[b], vp_c[q]));
             xv = __fadd_rn(xv, __fmul_rn(d, mk[b][q]));
-            store_cell(row + c, xv);
+            store_cell<Round>(row + c, xv);
           }
           g[q] += a[b] * xv;
           h[q] += __fmul_rn(a[b], a[b]) * mk[b][q];
@@ -183,7 +207,7 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY)
           if (kUpdate) {  // K1: the sweep reads the stored value
             const float d = __fsub_rn(__fmul_rn(a[b], vo_c[q]),
                                       __fmul_rn(ap[b], vp_c[q]));
-            xv = store_cell(row + c, __fadd_rn(xv, d));
+            xv = store_cell<Round>(row + c, __fadd_rn(xv, d));
           }
           if (!isnan(xv)) {
             g[q] += a[b] * xv;
@@ -296,7 +320,7 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   }
 }
 
-template <typename T, typename MaskT, bool kUpdate>
+template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt>
 void launch_col_sweep(void* R, const void* Mk, const void* uo, const void* up,
                       const void* vo, const void* vp, void* gpart,
                       void* hpart, void* g, void* h, int M, int W,
@@ -304,7 +328,7 @@ void launch_col_sweep(void* R, const void* Mk, const void* uo, const void* up,
   const int nparts = (M + rows_per_part - 1) / rows_per_part;
   const dim3 grid((W + kStripCols - 1) / kStripCols, nparts);
   const dim3 block(kColThreadsX, kColThreadsY);
-  col_sweep_kernel<T, MaskT, kUpdate><<<grid, block, 0, stream>>>(
+  col_sweep_kernel<T, MaskT, kUpdate, Round><<<grid, block, 0, stream>>>(
       static_cast<T*>(R), static_cast<const MaskT*>(Mk),
       static_cast<const float*>(uo), static_cast<const float*>(up),
       static_cast<const float*>(vo), static_cast<const float*>(vp),
@@ -420,6 +444,21 @@ int crtpu_vsweep(const void* R, int dtype, const void* Mk, int mask_dtype,
         rows_per_part, s);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : cudaErrorInvalidValue;
+}
+
+// K1 at a bfloat16 residual with the NaN sentinel, its store rounded by
+// RoundIntRne (the P2 rounding probe); otherwise crtpu_update_vsweep's
+// arguments.
+int crtpu_update_vsweep_irne(void* R, const void* uo, const void* up,
+                             const void* vo, const void* vp, void* gpart,
+                             void* hpart, void* g, void* h, int M, int W,
+                             int rows_per_part, void* stream) {
+  if (bad_args(kBFloat16, M, W) || rows_per_part <= 0)
+    return cudaErrorInvalidValue;
+  launch_col_sweep<__nv_bfloat16, NanMask, true, RoundIntRne>(
+      R, nullptr, uo, up, vo, vp, gpart, hpart, g, h, M, W, rows_per_part,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int crtpu_usweep(const void* R, int dtype, const void* Mk, int mask_dtype,

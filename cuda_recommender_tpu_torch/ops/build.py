@@ -3,8 +3,9 @@
 ``nvcc`` compiles each source of ``csrc/`` for Hopper (``sm_90a``) into a
 shared library of its own with a plain C interface, which ctypes loads:
 ``panel_kernels.cu`` (the CCD++ residual passes: K1-K3 over NaN-sentinel
-panels, K4 and the masked sweeps over explicit-mask residuals) and
-``gj_kernels.cu`` (K5, the ALS batched solve). The build happens at first
+panels, K4 and the masked sweeps over explicit-mask residuals, and K1's
+integer-rounding probe), ``gj_kernels.cu`` (K5, the ALS batched solve) and
+``probe_kernels.cu`` (the stream and gather probes). The build happens at first
 use, into ``cuda_recommender_tpu_torch/_build/`` (listed in .gitignore),
 under a name keyed by the source's and the flags' hash, so an edited source
 rebuilds and an unchanged one loads at once. ``build()`` starts one
@@ -40,10 +41,24 @@ SIGNATURES = {
                                 _p, _i, _i, _i, _p],
         "crtpu_vsweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
         "crtpu_usweep": [_p, _i, _p, _i, _p, _p, _p, _i, _i, _p],
+        # R, vectors, strip partials, g, h, rows, width, rows per strip,
+        # stream (K1 rounded by integer RNE, bf16 only)
+        "crtpu_update_vsweep_irne": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i,
+                                     _i, _i, _p],
     },
     "gj_kernels": {
         # A, A's batch and row strides, b, b's strides, x, S, k, stream
         "crtpu_gj_solve": [_p, _ll, _ll, _p, _ll, _ll, _p, _ll, _i, _p],
+    },
+    "probe_kernels": {
+        # R, rows, width, mode (column-of-tiles, row-of-tiles, 16-byte
+        # vectors), stream
+        "crtpu_stream_rmw": [_p, _i, _i, _i, _p],
+        # R, u (None: NaN-skip), tile partials, g, rows, width, 16-byte
+        # vectors, stream
+        "crtpu_stream_read": [_p, _p, _p, _p, _i, _i, _i, _p],
+        # table, index, out, index rows, lanes, table rows, form, stream
+        "crtpu_gather": [_p, _p, _p, _ll, _i, _ll, _i, _p],
     },
 }
 

@@ -14,7 +14,11 @@ Three kernels, each beside its plain PyTorch version:
     g[i] = Σ_j R[i,j]·v[j]·m, h[i] = Σ_j m·v[j]².
 
 They replace the Pallas kernels of ``cuda_recommender_tpu/ops/
-panel_pallas.py`` (panel_update_vsweep, panel_vsweep, panel_usweep). The
+panel_pallas.py`` (panel_update_vsweep, panel_vsweep, panel_usweep).
+``panel_update_vsweep_irne`` is K1 at a bfloat16 residual with its store
+rounded by integer round-to-nearest-even on the f32 bits instead of the
+hardware conversion: the port of the rounding variant of ``scripts/
+panel_kernel_variants.py`` (P2), a probe that must store the same bits. The
 CUDA C++ source is ``csrc/panel_kernels.cu``; it says what bounds the
 kernels on an H100 and how they are laid out. Panels have their true
 (rows, width) shape: the kernels mask the ragged edge themselves, so the
@@ -155,6 +159,29 @@ def panel_update_vsweep(Rd: torch.Tensor, u_old: torch.Tensor,
                       v_pend)
 
 
+def panel_update_vsweep_irne(Rd: torch.Tensor, u_old: torch.Tensor,
+                             u_pend: torch.Tensor, v_old: torch.Tensor,
+                             v_pend: torch.Tensor):
+    """K1 with the integer-RNE store (P2's rounding variant); Rd (M, W)
+    bfloat16 only. Returns (g, h), each (W,) float32."""
+    _check(Rd, (u_old, u_pend), (v_old, v_pend))
+    if Rd.dtype != torch.bfloat16:
+        raise TypeError(f"the rounding variant takes a bfloat16 panel, got "
+                        f"{Rd.dtype}")
+    if Rd.device.type == "cpu":
+        return panel_update_vsweep_irne_plain(Rd, u_old, u_pend, v_old,
+                                              v_pend)
+    from .build import load
+    rows, width = Rd.shape
+    rpp, g, h, gpart, hpart = _sweep_buffers(Rd)
+    _launch(load("panel_kernels").crtpu_update_vsweep_irne, _ptr(Rd),
+            _ptr(u_old), _ptr(u_pend), _ptr(v_old), _ptr(v_pend),
+            _ptr(gpart), _ptr(hpart), _ptr(g), _ptr(h), rows, width, rpp,
+            _stream(Rd))
+    count("panel_update_vsweep_irne")
+    return g, h
+
+
 def panel_vsweep(Rd: torch.Tensor, u: torch.Tensor):
     """K3: v-sweep partials only (no residual update). Returns (g, h), each
     (W,) float32."""
@@ -187,10 +214,23 @@ def _masked_f32(blk: torch.Tensor):
     return torch.where(m, x, 0.0), m.to(torch.float32)
 
 
-def panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend):
+def round_irne(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> bfloat16 by integer round-to-nearest-even on the bits,
+    (bits + 0x7FFF + lsb) >> 16; NaN by the dtype conversion (the kernel's
+    RoundIntRne)."""
+    b = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16) & 0xFFFF
+    r = torch.where(r >= 0x8000, r - 0x10000, r).to(torch.int16)
+    return torch.where(torch.isnan(x), x.to(torch.bfloat16),
+                       r.view(torch.bfloat16))
+
+
+def panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend, *,
+                              rounding=None):
     """Plain version of K1: the same delta fl(fl(uo·vo) − fl(up·vp)), added
     to the residual in f32 and rounded ONCE to the storage dtype by the
-    in-place copy; the sums read the stored values back."""
+    in-place copy (or by ``rounding``, f32 -> storage dtype); the sums read
+    the stored values back."""
     M, W = Rd.shape
     g = torch.zeros(W, dtype=torch.float32, device=Rd.device)
     h = torch.zeros_like(g)
@@ -199,12 +239,20 @@ def panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend):
         d = torch.outer(u_old[r0:r1], v_old)
         d.sub_(torch.outer(u_pend[r0:r1], v_pend))
         d.add_(blk)
-        blk.copy_(d)
+        blk.copy_(d if rounding is None else rounding(d))
+        del d
         x, m = _masked_f32(blk)
         u = u_old[r0:r1]
         g += torch.mv(x.t(), u)
         h += torch.mv(m.t(), u * u)
     return g, h
+
+
+def panel_update_vsweep_irne_plain(Rd, u_old, u_pend, v_old, v_pend):
+    """Plain version of the rounding variant: K1's plain version with the
+    store rounded by ``round_irne``."""
+    return panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend,
+                                     rounding=round_irne)
 
 
 def panel_vsweep_plain(Rd, u):

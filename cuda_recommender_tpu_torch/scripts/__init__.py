@@ -1,0 +1,13 @@
+"""Measurement scripts of the port: the card's stream and gather controls.
+
+  * ``panel_floor`` — the read-modify-write and read stream controls (P1)
+    beside K1 and K2, at the headline's panel shapes;
+  * ``panel_kernel_variants`` — the variant matrix of K1 (P2): the rmw and
+    read floors, K1, K1 rounded by integer RNE, K2;
+  * ``probe_gather`` — the gather forms A, B, C (P3) against their one
+    PyTorch call, at the probe's shapes and at the ELL tail's.
+
+Each runs as ``python -m cuda_recommender_tpu_torch.scripts.<name>``, on
+the card unless ``--device cpu`` is given; ``common`` holds what they and
+``cuda_recommender_tpu_torch.bench`` share.
+"""

@@ -61,7 +61,7 @@ from ..core.device import resolve_device, synchronize
 from ..core.metrics_log import MetricsLog
 from ..data.ell import EllPair, build_ell_pair
 from ..data.groupsort import key_count, perm_gather, stable_perm
-from ..data.sparse import RatingMatrix, TestCOO, from_coo
+from ..data.sparse import RatingMatrix, TestCOO, from_coo, make_test
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep
 from ..ops.densify import RESIDUAL_DTYPES, densify_coo_mask, densify_coo_nan
@@ -302,6 +302,36 @@ def _auto_stair(rp: np.ndarray, cp: np.ndarray, m: int, n: int,
     return panels
 
 
+def resolve_hybrid_transpose(R: RatingMatrix, cfg: Config) -> bool:
+    """Resolve cfg.hybrid_transpose to a concrete orientation. "auto"
+    geometry-plans BOTH orientations (no dense materialization, no device
+    work) and picks the smaller uncovered tail (min nnz_light at equal
+    budget)."""
+    return plan_oriented(R, cfg)[0]
+
+
+def plan_oriented(R: RatingMatrix, cfg: Config
+                  ) -> tuple[bool, Optional[HybridPlan]]:
+    """(transposed, plan): the orientation ``cfg.hybrid_transpose`` asks for
+    and, where choosing it planned that orientation ("auto" plans both,
+    with ``materialize_dense=False``), its plan, else None."""
+    if not cfg.hybrid_transpose:
+        return False, None
+    if cfg.hybrid_transpose is True:
+        return True, None
+    cfg_nt = dataclasses.replace(cfg, hybrid_transpose=False)
+    plan_n = plan_hybrid(R, cfg_nt, materialize_dense=False)
+    plan_t = plan_hybrid(R.transpose(), cfg_nt, materialize_dense=False)
+    if plan_t.nnz_light < plan_n.nnz_light:
+        return True, plan_t
+    return False, plan_n
+
+
+def transpose_test(T: TestCOO) -> TestCOO:
+    """The held-out ratings of the transposed problem."""
+    return make_test(T.cols, T.rows, T.col_idx, T.row_idx, T.val)
+
+
 def plan_hybrid(R: RatingMatrix, cfg: Config, *,
                 materialize_dense: bool = True,
                 num_shards: int = 1) -> HybridPlan:
@@ -443,9 +473,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.phase_timing:
         todo.append("phase_timing (ROADMAP.md queue 1 item 13: phase "
                     "timing)")
-    if cfg.hybrid_transpose:
-        todo.append("hybrid_transpose (ROADMAP.md queue 1 item 9: bench.py "
-                    "on the port, with the transposed stair)")
     if cfg.hybrid_defer_group > 0:
         todo.append("hybrid_defer_group > 0 (ROADMAP.md 'Not ported')")
     if cfg.checkpoint_dir:
@@ -641,32 +668,56 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
                      callback: Optional[Callable[[IterStats], None]] = None,
                      plan: Optional[HybridPlan] = None,
                      log: Optional[MetricsLog] = None,
+                     run: Optional[dict] = None,
                      ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
     """Train CCD++ on the panel-hybrid backend on ``device``. Returns
     (W, H, stats) in the reference's rank-major ORIGINAL entity order.
     ``H0`` is accepted for the solvers' common signature; CCD++ zeroes H at
     entry (src/CCD.cpp:56-60). With ``log``, the plan and the host set-up
-    times are reported as an info line and a ``hybrid_plan`` event."""
+    times are reported as an info line and a ``hybrid_plan`` event. With
+    ``run`` (a dict), the run's one orientation decision and what it set up
+    are written there for the caller: ``transposed``, ``plan`` (the plan
+    the run used, in that orientation), ``plan_s`` and ``setup_s`` (host
+    seconds to plan, then to set up the device state).
+
+    ``cfg.hybrid_transpose``: True runs the SAME solver on Rᵀ — the stair
+    covers top-items x user prefixes, the item side carries the seeded
+    factors (``H0``) and users are swept first; the factors swap back on
+    return, so the caller's contract is unchanged. "auto" plans both
+    orientations and keeps the smaller tail (``plan_oriented``). The
+    transposed trajectory equals the reference run on the transposed
+    problem, not the untransposed one. A given ``plan`` is taken as planned
+    for ``R`` as it stands (no transpose)."""
     check_supported(cfg)
     dev = resolve_device(device)
     t0 = time.perf_counter()
+    transposed = False
     if plan is None:
-        plan = plan_hybrid(R, cfg, materialize_dense=False)
+        transposed, plan = plan_oriented(R, cfg)
+        if transposed:
+            R, W0, T = R.transpose(), H0, transpose_test(T)
+        if plan is None:
+            plan = plan_hybrid(R, cfg, materialize_dense=False)
     t1 = time.perf_counter()
     dplan = device_plan(plan, dev)
     state = initial_state(plan, W0, RESIDUAL_DTYPES[cfg.residual_dtype], dev,
                           cfg.mask_dtype)
     synchronize(dev)
     t2 = time.perf_counter()
+    if run is not None:
+        run.update(transposed=transposed, plan=plan, plan_s=t1 - t0,
+                   setup_s=t2 - t1)
     if log is not None:
         cells = sum((r1 - r0) * w for r0, r1, w in plan.panels)
         log.info(f"[info] hybrid plan: {len(plan.panels)} panels "
                  f"{list(plan.panels)}, {cells} panel cells, tail nnz "
                  f"{plan.nnz_light} of {R.nnz}; plan {t1 - t0:.3f} s, "
-                 f"device set-up {t2 - t1:.3f} s")
+                 f"device set-up {t2 - t1:.3f} s"
+                 + ("; the transposed matrix" if transposed else ""))
         log.event("hybrid_plan", panels=[list(p) for p in plan.panels],
                   mask_dtype=cfg.mask_dtype, panel_cells=cells, nnz=R.nnz,
-                  nnz_light=plan.nnz_light, plan_s=t1 - t0, setup_s=t2 - t1)
+                  nnz_light=plan.nnz_light, transposed=transposed,
+                  plan_s=t1 - t0, setup_s=t2 - t1)
     step = make_hybrid_outer_step(plan, dplan, cfg.lambda_, cfg.maxinneriter,
                                   nmf=cfg.do_nmf)
 
@@ -687,4 +738,4 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
 
     W = state.W.cpu().numpy()[:, plan.user_pos]      # unsort to orig order
     H = state.H.cpu().numpy()[:, plan.item_pos]
-    return W, H, stats
+    return (H, W, stats) if transposed else (W, H, stats)

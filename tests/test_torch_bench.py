@@ -1,0 +1,264 @@
+"""The port's measurement entry points on the CPU, at a tiny size.
+
+``python -m cuda_recommender_tpu_torch.bench`` must print one parseable JSON
+line whose RMSE equals ``train()``'s on the same configuration (the same
+kernels' plain versions, the same number of outer iterations) and whose
+``vs_baseline`` is null off the card; ``cli/bench.py`` one record per grid
+point; the probe scripts run through. Without ``--device cpu`` and without
+a card, each exits non-zero before it prints a result.
+"""
+
+import io
+import json
+import math
+import os
+import subprocess
+import sys
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+
+from cuda_recommender_tpu_torch import Config, train
+from cuda_recommender_tpu_torch import bench
+from cuda_recommender_tpu_torch.cli import bench as cli_bench
+from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+from cuda_recommender_tpu_torch.data import datasets
+from cuda_recommender_tpu_torch.ops import launches
+from cuda_recommender_tpu_torch.scripts import panel_floor, \
+    panel_kernel_variants, probe_gather
+from cuda_recommender_tpu_torch.solvers import ccd_hybrid as ch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--m", "300", "--n", "120", "--nnz", "6000", "--k", "4", "--budget",
+        "12000", "--iters", "3", "--warmup", "1", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def own_tempdir(tmp_path, monkeypatch):
+    """synthetic_cached writes its cache to the temp directory. The cache
+    is written first, so that the bench and train() both load it: the
+    generating call returns the matrix with its columns' entries in draw
+    order, a load in row order, and a transposed run walks the columns."""
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    datasets.synthetic_cached(300, 120, 6000, seed=1, test_fraction=0.02)
+
+
+def _run(main, argv):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def _bench(extra=()):
+    rc, lines = _run(bench.main, TINY + list(extra))
+    assert rc == 0 and len(lines) == 1
+    return json.loads(lines[0])
+
+
+def _train_rmse(transpose, widths):
+    R, T = datasets.synthetic_cached(300, 120, 6000, seed=1,
+                                     test_fraction=0.02)
+    cfg = Config(k=4, lambda_=0.05, maxiter=4, backend="hybrid",
+                 residual_dtype="bfloat16", mask_dtype="nan",
+                 hybrid_panel_kernel=True, hybrid_dense_cells=12000,
+                 hybrid_panel_widths=widths, hybrid_transpose=transpose)
+    res = train(cfg, R, T, device="cpu", log=MetricsLog(None))
+    return res.stats[-1].rmse, R.nnz, ch.resolve_hybrid_transpose(R, cfg)
+
+
+@pytest.mark.parametrize("widths,transpose", [
+    ("4096,2048", "0"), ("32,16", "0"), ("auto", "0"), ("32,16", "1"),
+    ("32,16", "auto")])
+def test_bench_line_and_rmse_equal_train(widths, transpose):
+    rec = _bench(["--panel-widths", widths, "--transpose", transpose])
+    d = rec["detail"]
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "detail"}
+    assert rec["metric"] == "ccd_netflix_scale_throughput"
+    assert rec["vs_baseline"] is None
+    assert d["vs_baseline_achievable"] is None
+    assert d["device"] == {"platform": "cpu", "name": "cpu"}
+    assert d["iterations_run"] == 4 and len(d["iter_s_samples"]) == 3
+    want_w = ("auto" if widths == "auto"
+              else tuple(int(w) for w in widths.split(",")))
+    want_t = "auto" if transpose == "auto" else bool(int(transpose))
+    rmse, nnz, transposed = _train_rmse(want_t, want_w)
+    assert d["test_rmse"] == rmse
+    assert math.isclose(rec["value"], nnz * 4 / d["outer_iter_s"] / 1e6)
+    assert d["outer_iter_s"] == float(np.median(d["iter_s_samples"]))
+    # CPU: plain versions, no launch, and no control measured
+    assert set(d["launches"].values()) == {0}
+    assert set(d["controls"]["launches"].values()) == {0}
+    for r in d["controls"]["panels"]:
+        assert all(r[m]["ms"] is None for m in panel_floor.CONTROLS)
+    assert (d["orientation"] == "transposed (items as rows)") == transposed
+    assert transposed == (transpose == "1")   # auto keeps users as rows here
+
+
+def test_bench_counts_the_tail_and_the_ideal():
+    rec = _bench(["--panel-widths", "32,16"])
+    d = rec["detail"]
+    R, _ = datasets.synthetic_cached(300, 120, 6000, seed=1,
+                                     test_fraction=0.02)
+    cfg = Config(backend="hybrid", hybrid_dense_cells=12000,
+                 hybrid_panel_widths=(32, 16), mask_dtype="nan")
+    plan = ch.plan_hybrid(R, cfg, materialize_dense=False)
+    assert d["panels"] == [list(p) for p in plan.panels]
+    rows, cols = plan.ell.rows_side, plan.ell.cols_side
+    assert d["tail"]["rows"]["lanes"] == sum(b.idx.size for b in rows.buckets)
+    assert d["tail"]["cols"]["lanes"] == sum(b.idx.size for b in cols.buckets)
+    assert d["tail"]["rows"]["table_rows"] == R.cols + 1
+    tail = sum(s["lanes"] * 16 + s["slots"] * 16
+               + s["table_rows"] * s["width"] * 4
+               for s in d["tail"].values())
+    cells = sum((r1 - r0) * w for r0, r1, w in plan.panels)
+    assert d["panel_cells"] == cells
+    assert math.isclose(d["ideal_s_per_iter"],
+                        4 * (6 * cells + tail) / 3.35e12)
+    assert d["nnz_light_frac"] == plan.nnz_light / R.nnz
+
+
+def test_achievable_from_measured_controls():
+    """The 16-byte controls stand for the card; K1's own pattern (the
+    _cm/_rm controls) is the diagnostic and does not enter."""
+    ctl = {"panels": [{"rmw_cm": {"ms": 3.0}, "rmw_rm": {"ms": 2.0},
+                       "read_cm": {"ms": 1.0}, "rmw_vec16": {"ms": 1.5},
+                       "read_vec16": {"ms": 0.75}},
+                      {"rmw_cm": {"ms": 1.0}, "rmw_rm": {"ms": 0.2},
+                       "read_cm": {"ms": 0.5}, "rmw_vec16": {"ms": 0.5},
+                       "read_vec16": {"ms": 0.25}}],
+           "gathers": {"rows": {"B": {"ns_per_element": 0.01}}}}
+    sides = {"rows": {"lanes": 1_000_000}}
+    # k x ((1.5 + 0.75) + (0.5 + 0.25) + 1e6 lanes x 1e-8 ms) ms
+    assert math.isclose(bench.achievable_s(10, ctl, sides),
+                        10 * (3.0 + 0.01) / 1e3)
+    ctl["panels"][0]["read_vec16"]["ms"] = None
+    assert bench.achievable_s(10, ctl, sides) is None
+
+
+def test_cli_bench_one_record_per_grid_point(tmp_path):
+    out = tmp_path / "grid.jsonl"
+    argv = ["--device", "cpu", "--dataset", "synthetic:m=300,n=120,nnz=6000",
+            "--ks", "3,5", "--inners", "1,2", "--solvers", "ccd,als",
+            "--iters", "3", "-o", str(out)]
+    rc, lines = _run(cli_bench.main, argv)
+    recs = [json.loads(x) for x in lines]
+    assert rc == 0
+    # ccd: 2 k x 2 T; als: 2 k at the first T only (times.sh)
+    assert [(r["solver"], r["k"], r["inner"]) for r in recs] == [
+        ("ccd", 3, 1), ("ccd", 3, 2), ("ccd", 5, 1), ("ccd", 5, 2),
+        ("als", 3, 1), ("als", 5, 1)]
+    assert all(r["device"] == "cpu" and math.isfinite(r["final_rmse"])
+               for r in recs)
+    assert [json.loads(x) for x in out.read_text().splitlines()] == recs
+    # the point (ccd, k=3, T=2) is train()'s run
+    R, T = datasets.synthetic_from_spec("synthetic:m=300,n=120,nnz=6000")
+    res = train(Config(k=3, maxiter=3, maxinneriter=2), R, T, device="cpu",
+                log=MetricsLog(None))
+    assert recs[1]["final_rmse"] == res.stats[-1].rmse
+    assert recs[0]["backend"] == "dense" and recs[4]["backend"] == "ell"
+
+
+def test_cli_bench_hybrid_flags_and_ref():
+    argv = ["--device", "cpu", "--dataset", "synthetic:m=300,n=120,nnz=6000",
+            "--ks", "4", "--solvers", "ccd", "--backend", "hybrid",
+            "--budget", "12000", "--panel-widths", "32,16",
+            "--residual-dtype", "bfloat16", "--mask-dtype", "nan",
+            "--panel-kernel", "--iters", "3", "--repeats", "2"]
+    rc, lines = _run(cli_bench.main, argv)
+    recs = [json.loads(x) for x in lines]
+    assert rc == 0 and len(recs) == 2
+    assert recs[0]["cfg"]["hybrid_panel_widths"] == [32, 16]
+    assert recs[0]["final_rmse"] == recs[1]["final_rmse"]   # fixed seed
+    rc, lines = _run(cli_bench.main, ["--device", "cpu", "--dataset",
+                                      "synthetic:m=60,n=30,nnz=600",
+                                      "--ks", "2", "--solvers", "ccd",
+                                      "--backend", "ref", "--iters", "2"])
+    assert rc == 0 and json.loads(lines[0])["backend"] == "ref"
+
+
+def test_cli_bench_dataset_dir_names_its_roadmap_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli_bench.main(["--device", "cpu", "--dataset", str(tmp_path)])
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("cuda_recommender_tpu_torch.bench", ["--m", "40", "--n", "25",
+                                          "--nnz", "400"]),
+    ("cuda_recommender_tpu_torch.cli.bench",
+     ["--dataset", "synthetic:m=40,n=25,nnz=400", "--ks", "2"])])
+def test_no_card_exits_nonzero(module, argv, tmp_path):
+    """No card and no --device cpu: a non-zero exit and no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", TMPDIR=str(tmp_path))
+    res = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "--device cpu" in res.stderr
+
+
+def test_panel_floor_script_on_cpu():
+    rc, lines = _run(panel_floor.main, ["--device", "cpu", "--shapes",
+                                        "1100x260,600x64"])
+    recs = [json.loads(x) for x in lines]
+    assert rc == 0 and [r["shape"] for r in recs[:2]] == [[1100, 260],
+                                                          [600, 64]]
+    assert set(recs[0]) == {"shape", "rmw_cm", "rmw_rm", "read_cm",
+                            "rmw_vec16", "read_vec16", "uv", "us"}
+    assert recs[2]["implied"]["panel_ms_per_rank"] is None
+    assert math.isclose(recs[2]["implied"]["bound_s_per_iter"],
+                        6 * (1100 * 260 + 600 * 64) * 40 / 3.35e12)
+
+
+def test_variant_matrix_script_on_cpu():
+    rc, lines = _run(panel_kernel_variants.main, ["700", "300", "--device",
+                                                  "cpu"])
+    out = json.loads(lines[-1])
+    assert rc == 0
+    assert out["A1_vs_A0"] == {"bit_mismatches": 0, "cells": 700 * 300,
+                               "max_abs_g_diff": 0.0}
+
+
+def test_variant_pattern_panel():
+    R = panel_kernel_variants.pattern_panel(50, 90, "cpu")
+    r, c = np.meshgrid(np.arange(50), np.arange(90), indexing="ij")
+    obs = (r * 7 + c * 13) % 41 == 0
+    x = R.float().numpy()
+    assert np.array_equal(~np.isnan(x), obs) and np.all(x[obs] == 1.0)
+
+
+def test_gather_script_on_cpu():
+    rc, lines = _run(probe_gather.main, ["--device", "cpu", "--tail",
+                                         "5000:121:3"])
+    recs = [json.loads(x) for x in lines]
+    assert rc == 0 and recs[0]["case"] == "probe"
+    assert recs[1]["table_rows"] == 3 and recs[1]["index_rows"] == 40
+    assert probe_gather.tail_shape(2_969_000, 480_190, 2) == (7503, 23196)
+
+
+def test_bench_reads_the_runs_own_orientation(monkeypatch):
+    """The bench plans through ccd_hybrid_train's own orientation branch,
+    once, and reports the plan that run chose."""
+    calls = []
+    real = ch.plan_oriented
+    monkeypatch.setattr(ch, "plan_oriented",
+                        lambda R, cfg: calls.append(1) or real(R, cfg))
+    rec = _bench(["--panel-widths", "32,16", "--transpose", "1"])
+    d = rec["detail"]
+    assert len(calls) == 1
+    assert d["orientation"] == "transposed (items as rows)"
+    R, _ = datasets.synthetic_cached(300, 120, 6000, seed=1,
+                                     test_fraction=0.02)
+    cfg = Config(backend="hybrid", hybrid_dense_cells=12000,
+                 hybrid_panel_widths=(32, 16), mask_dtype="nan")
+    plan = ch.plan_hybrid(R.transpose(), cfg, materialize_dense=False)
+    assert d["panels"] == [list(p) for p in plan.panels]
+    assert d["tail"]["rows"]["table_rows"] == R.rows + 1   # users' table
+
+
+def test_launches_untouched_on_cpu():
+    launches.reset_launch_counts()
+    _bench()
+    assert set(launches.launch_counts().values()) == {0}

@@ -131,9 +131,15 @@ def test_one_launch_registry():
     """One registry counts every kernel, and one reset clears them all."""
     assert set(launches.launch_counts()) == {
         "panel_update_vsweep", "panel_vsweep", "panel_usweep",
-        "fused_update_vsweep", "masked_vsweep", "masked_usweep", "gj_solve"}
+        "fused_update_vsweep", "masked_vsweep", "masked_usweep", "gj_solve",
+        "panel_update_vsweep_irne", "stream_rmw", "stream_read",
+        "stream_rmw_vec16", "stream_read_vec16", "gather"}
     launches.count("gj_solve")
     launches.count("panel_usweep")
+    assert launches.launch_counts()["gj_solve"] == 1
+    # a graph replay's launches: added per name
+    launches.add_launches({"gather": 200, "gj_solve": 0})
+    assert launches.launch_counts()["gather"] == 200
     assert launches.launch_counts()["gj_solve"] == 1
     launches.reset_launch_counts()
     assert set(launches.launch_counts().values()) == {0}

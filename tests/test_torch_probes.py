@@ -1,0 +1,452 @@
+"""Port probe kernels (P1-P3) against the JAX package's measurement scripts.
+
+The same NumPy-seeded inputs go through the Pallas bodies of
+``scripts/panel_floor.py`` (P1: ``_rmw_kernel``, ``_read_kernel``),
+``scripts/panel_kernel_variants.py`` (P2: ``_rmw_kernel``, ``_read_kernel``,
+``_uv_kernel_astype`` through ``run_uv_variant``) and
+``scripts/probe_vmem_gather.py`` (P3: ``kernel_take``, ``kernel_fancy``,
+``kernel_rowloop``), each in a ``pl.pallas_call`` with the script's
+BlockSpecs and ``interpret=True`` (the scripts' own calls take no
+interpret flag), and through the plain versions of
+``cuda_recommender_tpu_torch/ops/probe_kernels.py`` and
+``ops/panel_kernels.py``, which the CPU wrappers take and which are the CUDA
+kernels' oracle on the card (chip_smoke.py phase 18). Bars: the rmw and the
+gathers bit-equal; the column sums within 1e-5 of Σ|terms| (f32 sums in
+another order); the rounding variant's stored residual bit-equal, g and h
+within 1e-5 of Σ|terms|. The NaN sentinel's bits follow each framework's
+f32 -> bf16 conversion (JAX writes 0x7FC0, this torch's CPU 0xFFFF), so
+against JAX a stored NaN must be NaN at the same cell; against the port's
+own K1 every bit is equal.
+
+Importing the scripts sets three JAX compilation-cache options (and puts
+the repository on sys.path); the fixture restores them.
+"""
+
+import importlib.util
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from cuda_recommender_tpu_torch.ops import build, launches
+from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE_KEYS = ("jax_compilation_cache_dir",
+              "jax_persistent_cache_min_entry_size_bytes",
+              "jax_persistent_cache_min_compile_time_secs")
+BM = pr.BLOCK_ROWS         # the probes' block height (panel_pallas.BM)
+RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def scripts():
+    """The three JAX measurement scripts, loaded from their files with the
+    JAX config and sys.path as they were before."""
+    saved = {key: getattr(jax.config, key) for key in CACHE_KEYS}
+    path = list(sys.path)
+    out = {}
+    try:
+        for name in ("panel_floor", "panel_kernel_variants",
+                     "probe_vmem_gather"):
+            spec = importlib.util.spec_from_file_location(
+                f"_jax_script_{name}", os.path.join(ROOT, "scripts",
+                                                    f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            out[name] = mod
+    finally:
+        for key, val in saved.items():
+            jax.config.update(key, val)
+        sys.path[:] = path
+    return out
+
+
+def test_fixture_restores_jax_config(scripts):
+    """The scripts set these two to -1 and 0 when imported."""
+    assert jax.config.jax_persistent_cache_min_entry_size_bytes != -1
+    assert jax.config.jax_persistent_cache_min_compile_time_secs != 0
+
+
+def _panel(M, W, seed, nan_frac=0.0):
+    rng = np.random.default_rng(seed)
+    R = rng.normal(size=(M, W)).astype(np.float32)
+    if nan_frac:
+        R[rng.random((M, W)) < nan_frac] = np.nan
+    return R
+
+
+def _bf16(x):
+    """(jax bf16 array, torch bf16 tensor) of the same f32 values."""
+    j = jnp.asarray(x).astype(jnp.bfloat16)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+    return j, t
+
+
+def _jbits(x):
+    return np.array(jax.lax.bitcast_convert_type(x, jnp.int16))
+
+
+def _tbits(x):
+    return x.view(torch.int16).numpy()
+
+
+def _close(got, want, scale):
+    got, want, scale = (np.asarray(a, np.float64) for a in (got, want, scale))
+    assert np.all(np.abs(got - want) <= RTOL * scale + 1e-30), \
+        float(np.max(np.abs(got - want) / np.maximum(scale, 1e-30)))
+
+
+# ---------------------------------------------------------------- P1 / P2 rmw
+
+def _rmw_call(kernel, Rd, bm, bw, rowmajor):
+    """panel_floor.rmw_call with the block (bm, bw) and interpret=True."""
+    Mp, Wp = Rd.shape
+    if rowmajor:
+        grid = (Mp // bm, Wp // bw)
+        spec = pl.BlockSpec((bm, bw), lambda im, jw: (im, jw))
+    else:
+        grid = (Wp // bw, Mp // bm)
+        spec = pl.BlockSpec((bm, bw), lambda jw, im: (im, jw))
+    return pl.pallas_call(kernel, grid=grid, in_specs=[spec], out_specs=spec,
+                          out_shape=jax.ShapeDtypeStruct(Rd.shape, Rd.dtype),
+                          input_output_aliases={0: 0}, interpret=True)(Rd)
+
+
+@pytest.mark.parametrize("script", ["panel_floor", "panel_kernel_variants"])
+@pytest.mark.parametrize("rowmajor", [False, True])
+@pytest.mark.parametrize("M,W", [(1024, 256), (512, 384)])
+def test_rmw_matches_pallas(scripts, script, rowmajor, M, W):
+    """Both scripts' rmw bodies, both grid orders: bit-equal."""
+    x = _panel(M, W, seed=M + W) * np.float32(300.0)    # bf16 ties at |x| > 256
+    j, t = _bf16(x)
+    want = _rmw_call(scripts[script]._rmw_kernel, j, BM, 128, rowmajor)
+    launches.reset_launch_counts()
+    got = pr.stream_rmw(t, row_major=rowmajor)
+    assert got is t                                    # in place
+    assert launches.launch_counts()["stream_rmw"] == 0   # CPU: plain
+    np.testing.assert_array_equal(_tbits(got), _jbits(want))
+
+
+def test_rmw_plain_formula_ragged():
+    """Ragged (M, W): each cell becomes bf16(f32(x) + 1), once."""
+    x = _panel(37, 53, seed=1) * np.float32(1000.0)
+    _, t = _bf16(x)
+    want = (t.to(torch.float32) + 1.0).to(torch.bfloat16)
+    np.testing.assert_array_equal(_tbits(pr.stream_rmw(t.clone())),
+                                  _tbits(want))
+
+
+@pytest.mark.parametrize("M,W", [(1024, 256), (37, 53)])
+def test_rmw_vec16_matches_pallas_and_k1_pattern(scripts, M, W):
+    """The 16-byte-vector rmw computes the same cells as K1's pattern and,
+    at a block-multiple shape, the Pallas rmw; also on a view whose first
+    cell is off a 16-byte boundary. On the CPU: the plain version, no
+    launch."""
+    x = _panel(M, W, seed=M + 3) * np.float32(300.0)
+    j, t = _bf16(x)
+    launches.reset_launch_counts()
+    got = pr.stream_rmw(t.clone(), vec16=True)
+    assert set(launches.launch_counts().values()) == {0}
+    np.testing.assert_array_equal(_tbits(got), _tbits(pr.stream_rmw(t.clone())))
+    if M % BM == 0 and W % 128 == 0:
+        want = _rmw_call(scripts["panel_floor"]._rmw_kernel, j, BM, 128, False)
+        np.testing.assert_array_equal(_tbits(got), _jbits(want))
+    view = t.clone()[1:]                              # base 2 W bytes in
+    np.testing.assert_array_equal(_tbits(pr.stream_rmw(view, vec16=True)),
+                                  _tbits(got[1:]))
+
+
+def test_rmw_vec16_has_no_tile_order():
+    with pytest.raises(ValueError, match="no tile order"):
+        pr.stream_rmw(torch.zeros((4, 4), dtype=torch.bfloat16),
+                      row_major=True, vec16=True)
+
+
+# ------------------------------------------------------------------- P1 read
+
+def _read_call(kernel, Rd, u_row, bm, bw):
+    """panel_floor.read_call with the block (bm, bw) and interpret=True."""
+    Mp, Wp = Rd.shape
+    return pl.pallas_call(
+        kernel, grid=(Wp // bw, Mp // bm),
+        in_specs=[pl.BlockSpec((bm, bw), lambda jw, im: (im, jw)),
+                  pl.BlockSpec((1, bm), lambda jw, im: (0, im))],
+        out_specs=pl.BlockSpec((1, bw), lambda jw, im: (0, jw)),
+        out_shape=jax.ShapeDtypeStruct((1, Wp), jnp.float32),
+        interpret=True)(Rd, u_row)
+
+
+@pytest.mark.parametrize("M,W", [(1536, 256), (512, 128), (2048, 384)])
+def test_read_matches_pallas(scripts, M, W):
+    """P1's read: g[j] = Σ_b u[512 b] Σ_{i in b} R[i, j] (the weight is u at
+    the block's first row, not a per-row matvec)."""
+    x = _panel(M, W, seed=M)
+    u = np.random.default_rng(M + 1).normal(size=M).astype(np.float32)
+    j, t = _bf16(x)
+    want = np.asarray(_read_call(scripts["panel_floor"]._read_kernel, j,
+                                 jnp.asarray(u)[None, :], BM, 128))[0]
+    ut = torch.from_numpy(u)
+    got = pr.stream_read(t, ut).numpy()
+    scale = pr.stream_read_plain(t.abs(), ut.abs()).numpy()
+    _close(got, want, scale)
+    # not a matvec: a per-row weighting differs
+    matvec = (t.to(torch.float32).t() @ ut).numpy()
+    assert np.abs(matvec - got).max() > 1e3 * RTOL * scale.max()
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_read_vec16_matches_pallas(scripts, nan):
+    """The 16-byte-vector read computes P1's weighted read (and, without
+    u, P2's NaN-skip read floor) as K1's pattern does: against the Pallas
+    bodies within 1e-5 of Σ|terms|."""
+    M, W = 1536, 256
+    x = _panel(M, W, seed=21, nan_frac=0.4 if nan else 0.0)
+    u = np.random.default_rng(22).normal(size=M).astype(np.float32)
+    j, t = _bf16(x)
+    if nan:
+        want = np.asarray(pl.pallas_call(
+            scripts["panel_kernel_variants"]._read_kernel,
+            grid=(W // 128, M // BM),
+            in_specs=[pl.BlockSpec((BM, 128), lambda jw, im: (im, jw))],
+            out_specs=pl.BlockSpec((1, 128), lambda jw, im: (0, jw)),
+            out_shape=jax.ShapeDtypeStruct((1, W), jnp.float32),
+            interpret=True)(j))[0]
+        got = pr.stream_read(t, vec16=True).numpy()
+        scale = pr.stream_read(t.abs(), vec16=True).numpy()
+    else:
+        ut = torch.from_numpy(u)
+        want = np.asarray(_read_call(scripts["panel_floor"]._read_kernel, j,
+                                     jnp.asarray(u)[None, :], BM, 128))[0]
+        got = pr.stream_read(t, ut, vec16=True).numpy()
+        scale = pr.stream_read_plain(t.abs(), ut.abs()).numpy()
+    _close(got, want, scale)
+
+
+def test_read_plain_formula_ragged():
+    """Ragged rows (the last block short) and width: the block formula."""
+    M, W = 1100, 130
+    x = _panel(M, W, seed=5)
+    u = np.random.default_rng(6).normal(size=M).astype(np.float32)
+    _, t = _bf16(x)
+    xf = t.to(torch.float32).numpy().astype(np.float64)
+    want = sum(xf[b:b + BM].sum(0) * u[b] for b in range(0, M, BM))
+    got = pr.stream_read(t, torch.from_numpy(u)).numpy()
+    scale = sum(np.abs(xf[b:b + BM]).sum(0) * abs(u[b])
+                for b in range(0, M, BM))
+    _close(got, want, scale)
+
+
+# -------------------------------------------------------------- P2 read floor
+
+@pytest.mark.parametrize("M,W", [(1024, 256), (1536, 128)])
+def test_read_floor_matches_pallas(scripts, M, W):
+    """P2's read floor: NaN-skip column sums, NaNs present."""
+    x = _panel(M, W, seed=W, nan_frac=0.4)
+    j, t = _bf16(x)
+    kern = scripts["panel_kernel_variants"]._read_kernel
+    want = np.asarray(pl.pallas_call(
+        kern, grid=(W // 128, M // BM),
+        in_specs=[pl.BlockSpec((BM, 128), lambda jw, im: (im, jw))],
+        out_specs=pl.BlockSpec((1, 128), lambda jw, im: (0, jw)),
+        out_shape=jax.ShapeDtypeStruct((1, W), jnp.float32),
+        interpret=True)(j))[0]
+    got = pr.stream_read(t).numpy()
+    scale = pr.stream_read(t.abs()).numpy()
+    assert np.isfinite(got).all()
+    _close(got, want, scale)
+
+
+def test_read_floor_plain_formula_ragged():
+    x = _panel(700, 77, seed=9, nan_frac=0.5)
+    _, t = _bf16(x)
+    xf = t.to(torch.float32).numpy().astype(np.float64)
+    want = np.nansum(xf, axis=0)
+    _close(pr.stream_read(t).numpy(), want,
+           np.nansum(np.abs(xf), axis=0))
+
+
+# ------------------------------------------------------- P2 rounding variant
+
+def _exact_inputs(M, W, seed):
+    """A NaN-sentinel panel and vectors whose products and differences are
+    exact in f32 (few mantissa bits), so the interpret run's FMA
+    contraction cannot differ from the port's separate roundings: the sums
+    the bf16 store rounds are the same, and ties are frequent."""
+    rng = np.random.default_rng(seed)
+    R = (rng.integers(-64, 64, (M, W)) / 8.0).astype(np.float32)
+    R[rng.random((M, W)) < 0.5] = np.nan
+    vecs = [(rng.integers(-32, 32, n) / 16.0).astype(np.float32)
+            for n in (M, M, W, W)]
+    return R, vecs
+
+
+@pytest.mark.parametrize("M,W,bm,bw", [(1024, 256, 512, 128),
+                                       (512, 512, 256, 256)])
+def test_rounding_variant_matches_pallas_astype(scripts, M, W, bm, bw):
+    """A1: the stored residual is bit-equal to the JAX _uv_kernel_astype
+    run and to K1's plain version; g, h within 1e-5 of Σ|terms|."""
+    pkv = scripts["panel_kernel_variants"]
+    x, (uo, up, vo, vp) = _exact_inputs(M, W, seed=M + bm)
+    j, t = _bf16(x)
+    Rj, gj, hj = pkv.run_uv_variant(pkv._uv_kernel_astype, j,
+                                    *(jnp.asarray(v) for v in (uo, up, vo,
+                                                               vp)),
+                                    bm, bw, True)
+    tv = [torch.from_numpy(v) for v in (uo, up, vo, vp)]
+    t1, tk = t.clone(), t.clone()
+    launches.reset_launch_counts()
+    g, h = pk.panel_update_vsweep_irne(t1, *tv)
+    assert launches.launch_counts()["panel_update_vsweep_irne"] == 0
+    pk.panel_update_vsweep(tk, *tv)
+    nan = np.isnan(np.array(Rj.astype(jnp.float32)))
+    np.testing.assert_array_equal(np.isnan(t1.to(torch.float32).numpy()), nan)
+    np.testing.assert_array_equal(_tbits(t1)[~nan], _jbits(Rj)[~nan])
+    np.testing.assert_array_equal(_tbits(t1), _tbits(tk))
+    assert np.isnan(t1.to(torch.float32).numpy()).sum() == np.isnan(x).sum()
+    sg, _ = pk.panel_vsweep_plain(t1.abs(), tv[0].abs())
+    _close(g.numpy(), np.asarray(gj)[0], sg.numpy())
+    _close(h.numpy(), np.asarray(hj)[0], h.numpy())
+
+
+def test_rounding_variant_equals_k1_on_random_inputs():
+    """On general f32 inputs the integer RNE and the dtype conversion store
+    the same bits (K1's plain version against the variant's), NaN kept."""
+    rng = np.random.default_rng(3)
+    M, W = 300, 170
+    x = _panel(M, W, seed=3, nan_frac=0.3)
+    _, t = _bf16(x)
+    tv = [torch.from_numpy(rng.normal(size=n).astype(np.float32))
+          for n in (M, M, W, W)]
+    a, b = t.clone(), t.clone()
+    ga, ha = pk.panel_update_vsweep_irne(a, *tv)
+    gb, hb = pk.panel_update_vsweep(b, *tv)
+    np.testing.assert_array_equal(_tbits(a), _tbits(b))
+    assert torch.equal(ga, gb) and torch.equal(ha, hb)
+
+
+def test_round_irne_edges():
+    """Ties to even, the largest finite values, infinities, NaN, -0."""
+    vals = np.array([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 3.3895e38,
+                     3.40282e38, -3.40282e38, np.inf, -np.inf, np.nan, -0.0,
+                     1e-40, -1e-40], np.float32)
+    x = torch.from_numpy(vals)
+    got = pk.round_irne(x)
+    np.testing.assert_array_equal(_tbits(got), _tbits(x.to(torch.bfloat16)))
+
+
+def test_rounding_variant_takes_bf16_only():
+    t = torch.zeros((4, 4))
+    v = torch.zeros(4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pk.panel_update_vsweep_irne(t, v, v, v, v)
+
+
+# ------------------------------------------------------------------ P3 gather
+
+def _gather_call(kernel, idx, tab, bm):
+    """probe_vmem_gather.run's pallas_call with interpret=True."""
+    rows, L = idx.shape
+    S = tab.shape[0]
+    return pl.pallas_call(
+        kernel, grid=(rows // bm,),
+        in_specs=[pl.BlockSpec((bm, L), lambda i: (i, 0)),
+                  pl.BlockSpec((S, L), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((bm, L), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((rows, L), jnp.float32),
+        interpret=True)(idx, tab)
+
+
+@pytest.mark.parametrize("form,body", [("A", "kernel_take"),
+                                       ("B", "kernel_fancy"),
+                                       ("C", "kernel_rowloop")])
+def test_gather_matches_pallas(scripts, form, body):
+    S, rows, L = 64, 256, 128
+    rng = np.random.default_rng(11)
+    tab = rng.normal(size=(S, L)).astype(np.float32)
+    hi = S * L if form == "B" else S
+    idx = rng.integers(0, hi, (rows, L)).astype(np.int32)
+    want = np.asarray(_gather_call(getattr(scripts["probe_vmem_gather"],
+                                           body), jnp.asarray(idx),
+                                   jnp.asarray(tab), 128))
+    got = pr.gather(torch.from_numpy(tab), torch.from_numpy(idx), form)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("form", ["A", "B", "C"])
+def test_gather_plain_formula_ragged_and_out_of_range(form):
+    """Ragged (rows, L) and S; an index outside the table reads 0."""
+    S, rows, L = 13, 7, 5
+    rng = np.random.default_rng(12)
+    tab = rng.normal(size=(S, L)).astype(np.float32)
+    n = S * L if form == "B" else S
+    idx = rng.integers(-3, n + 3, (rows, L)).astype(np.int32)
+    got = pr.gather(torch.from_numpy(tab), torch.from_numpy(idx), form)
+    want = np.zeros((rows, L), np.float32)
+    for r in range(rows):
+        for c in range(L):
+            i = idx[r, 0] if form == "C" else idx[r, c]
+            if 0 <= i < n:
+                want[r, c] = (tab.reshape(-1)[i] if form == "B"
+                              else tab[i, c])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------- wrappers, build
+
+@pytest.mark.parametrize("bad", ["dtype", "dims", "stride", "u"])
+def test_stream_wrappers_validate(bad):
+    R = torch.zeros((8, 6), dtype=torch.bfloat16)
+    u = torch.zeros(8)
+    if bad == "dtype":
+        R = R.float()
+    elif bad == "dims":
+        R = R[0]
+    elif bad == "stride":
+        R = torch.zeros((6, 8), dtype=torch.bfloat16).t()
+    if bad == "u":
+        with pytest.raises(ValueError, match="u must be"):
+            pr.stream_read(R, torch.zeros(7))
+        return
+    with pytest.raises((TypeError, ValueError)):
+        pr.stream_rmw(R)
+    with pytest.raises((TypeError, ValueError)):
+        pr.stream_read(R, u)
+
+
+@pytest.mark.parametrize("bad", ["form", "tab_dtype", "idx_dtype", "lanes"])
+def test_gather_wrapper_validates(bad):
+    tab, idx, form = torch.zeros((4, 3)), torch.zeros((2, 3),
+                                                      dtype=torch.int32), "A"
+    if bad == "form":
+        form = "D"
+    elif bad == "tab_dtype":
+        tab = tab.double()
+    elif bad == "idx_dtype":
+        idx = idx.long()
+    else:
+        idx = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        pr.gather(tab, idx, form)
+
+
+def test_build_binds_the_probe_kernels():
+    """The probe library and K1's rounding variant are bound with one
+    argtype per C parameter (test_torch_gj.py checks the parse for every
+    source)."""
+    assert set(build.SIGNATURES["probe_kernels"]) == {
+        "crtpu_stream_rmw", "crtpu_stream_read", "crtpu_gather"}
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_rmw"]) == 5
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_read"]) == 8
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_gather"]) == 8
+    assert len(build.SIGNATURES["panel_kernels"]
+               ["crtpu_update_vsweep_irne"]) == 13
+    assert build.library_path("probe_kernels") != build.library_path(
+        "panel_kernels")

@@ -119,7 +119,6 @@ UNSUPPORTED = {
     "pallas_phase_timing": dict(backend="pallas", phase_timing=True),
     "fp8": dict(KERNEL, residual_dtype="float8_e4m3fn"),
     "phase_timing": dict(KERNEL, phase_timing=True),
-    "transpose": dict(KERNEL, hybrid_transpose=True),
     "defer_group": dict(KERNEL, hybrid_defer_group=2),
     "checkpoint": dict(KERNEL, checkpoint_dir="ck"),
 }
@@ -164,20 +163,33 @@ def test_cuda_without_gpu_raises(tiny, monkeypatch):
                   "--panel-kernel", "-t", "1"])
 
 
+#: the measurement layer's modules, which the walk below must reach
+MEASUREMENT_MODULES = (
+    "cuda_recommender_tpu_torch.bench", "cuda_recommender_tpu_torch.cli.bench",
+    "cuda_recommender_tpu_torch.ops.probe_kernels",
+    "cuda_recommender_tpu_torch.scripts.common",
+    "cuda_recommender_tpu_torch.scripts.panel_floor",
+    "cuda_recommender_tpu_torch.scripts.panel_kernel_variants",
+    "cuda_recommender_tpu_torch.scripts.probe_gather")
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port loads neither jax nor the JAX
-    package (the machine with the GPU has no jax)."""
+    """Importing every module of the port, the measurement layer included,
+    and chip_smoke.py (whose phases import only the port) loads neither jax nor
+    the JAX package (the machine with the GPU has no jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cuda_recommender_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        f"missing = set({MEASUREMENT_MODULES!r}) - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cuda_recommender_tpu'\n"
         "       or m.startswith('cuda_recommender_tpu.')]\n"
-        "print(len(sys.modules), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(len(sys.modules), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
