@@ -22,10 +22,10 @@ along), and the test RMSE is the last iteration's
 
 In the same run, with the run's training state freed, the controls are
 measured on the card: P1's stream controls (``scripts/panel_floor.py``:
-rmw and read in 16-byte vectors, and in K1's tiles and loads, the rmw in
-both tile orders) at each of the run's panel shapes,
-and P3's gathers (``scripts/probe_gather.py``) at each ELL tail side's
-shape. Then
+rmw and read in 16-byte vectors, and in the 2-byte tile pattern (K1's
+former layout), the rmw in both tile orders) at each of the run's panel
+shapes, and P3's gathers (``scripts/probe_gather.py``) at each ELL tail
+side's shape. Then
 
 * ``vs_baseline`` = ideal / measured s/iter, the ideal being k · (panel
   cells · 6 B (K1 reads and writes 2 B a cell, K2 reads 2) + the tail's
@@ -39,7 +39,7 @@ shape. Then
   rmw control's time and the 16-byte read control's time + Σ over tail
   sides of the padded lanes at gather form B's measured time per element)
   / measured s/iter: a diagnostic against what the card's plain streams
-  reach, not a roofline share. The controls in K1's own tiles and loads
+  reach, not a roofline share. The controls in the 2-byte tile pattern
   ride along in ``detail.controls`` as the access-pattern diagnostic.
 
 Without a card the run exits non-zero unless ``--device cpu`` is given;

@@ -35,20 +35,43 @@
 // What bounds them on an H100: memory. Each cell costs a handful of flops
 // and 2 bytes read (+2 written by an update) at bf16, 4 (+4) at f32, plus 2
 // (bf16) or 1 (int8) mask byte(s) read in explicit-mask mode; a 6.5e9-cell
-// bf16 stair is 13 GB per pass. The design streams every cell once,
-// coalesced (a warp reads 32 consecutive cells of one row, and the mask
-// cell beside each residual cell), keeps the factor vectors in registers or
-// the read-only cache, and in NaN mode takes the mask from the sentinel
-// in-register, so no mask array exists.
+// bf16 stair is 13 GB per pass. The design streams every cell once, keeps
+// the factor vectors in registers, and in NaN mode takes the mask from the
+// sentinel in-register, so no mask array exists.
+//
+// The column sweeps (K1, K3, K4, masked_vsweep) move their cells in 16-byte
+// vectors: a block of 32 x 8 threads owns a strip of 256 columns of some
+// rows, each warp one row at a time, each lane 8 consecutive columns of it
+// (16 bytes at bf16, 32 at f32; the mask's 16 or 8), several rows loaded
+// before any store (64 residual bytes a lane). Rows need not start on a
+// 16-byte boundary (W * size is 4 mod 16 at Netflix's 17,770 bf16 columns;
+// an odd W shifts every row; a view may start anywhere), but rows that lie
+// a multiple of 64 rows apart start equally far into their 128-byte lines.
+// So a block takes every 64th row of a band (rows q, q + 64, ...), and
+// shifts its strip left by that many cells onto the rows' 128-byte grid:
+// each warp's row segment then covers whole lines, and each lane's run is
+// one or two aligned vectors, loaded and stored whole, with no shuffle and
+// no realignment (K1 ran a fifth slower with segments on a 16- or 32-byte
+// grid that straddle lines shared with the next strip). Strips meet on line
+// boundaries;
+// only the vector at a row's start and the one at its end hold cells of
+// another row (or lie at the tensor's edge), so they are loaded whole (a
+// vector that holds a byte of the tensor lies inside its allocation) and
+// stored cell by cell, only the row's own cells. Every cell is written by
+// exactly one lane, and no byte outside the tensor's cells is written. The
+// mask starts at another offset than the residual (its cells are 1 or 2
+// bytes): a lane loads the aligned mask vector that holds its first cell,
+// takes the next from its right-hand neighbour by a shuffle (lane 31 loads
+// its own) and shifts its cells into place.
 //
 // The Pallas kernels accumulate g/h across a sequential grid; GPU blocks run
-// in parallel, so the column sums (K1, K3, K4, masked_vsweep) are reduced
-// deterministically in two passes: each block owns a strip of rows x 128
-// columns and writes its per-column partials (fixed order inside the
-// block), then one thread per column adds the strips' partials in strip
-// order. No float atomics: runs repeat bit for bit. The u-sweeps give each
-// row to one warp, which walks the whole row and reduces with a fixed
-// butterfly, so they need no second pass.
+// in parallel, so the column sums are reduced deterministically in two
+// passes: each block writes its rows' per-column partials (each lane sums
+// its rows in order, then the 8 warps' sums are added in order; the strip's
+// shift moves a column to another block, not its order), then one thread
+// per column adds the partials in order. No float atomics: runs repeat bit
+// for bit. The u-sweeps give each row to one warp, which walks the whole
+// row and reduces with a fixed butterfly, so they need no second pass.
 //
 // Rounding: the delta is formed as fl(fl(uo*vo) - fl(up*vp)) (times the mask
 // in explicit mode) and added with explicit _rn intrinsics, so nvcc's FMA
@@ -74,11 +97,16 @@
 
 namespace {
 
-constexpr int kColThreadsX = 32;  // threads across a strip's columns
-constexpr int kColThreadsY = 8;   // threads down a strip's rows
-constexpr int kColsPerThread = 4;
-constexpr int kRowBatch = 4;      // rows loaded per thread before any store
-constexpr int kStripCols = kColThreadsX * kColsPerThread;  // 128
+constexpr int kColThreadsX = 32;  // lanes across a strip's columns
+constexpr int kColThreadsY = 8;   // warps down a strip's rows
+constexpr int kColsPerThread = 8; // consecutive columns a lane owns
+constexpr int kStripCols = kColThreadsX * kColsPerThread;  // 256
+constexpr int kBatchBytes = 64;   // residual bytes a lane loads before a store
+constexpr int kLine = 128;        // bytes: strips start on this grid
+constexpr int kInterleave = 64;   // rows a multiple of kInterleave apart
+                                  // start equally far into their lines
+constexpr int kWarpRowStep = kInterleave * kColThreadsY;  // 512 rows
+constexpr int kMaxShift = kLine / 2 - 1;  // cells a strip shifts by (bf16)
 constexpr int kRowWarps = 8;      // rows (one warp each) per u-sweep block
 constexpr int kRowLoads = 8;      // loads in flight per lane in the u-sweep
 constexpr int kReduceThreads = 256;
@@ -108,15 +136,18 @@ __device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
 struct RoundCvt {};
 struct RoundIntRne {};
 
-// Round once to the storage type, store, and return exactly what was stored.
+// Round once to the storage type: returns the stored bits (in the low bits)
+// and sets ``back`` to exactly the value stored.
 template <typename Round>
-__device__ __forceinline__ float store_cell(float* p, float x) {
-  *p = x;
-  return x;
+__device__ __forceinline__ uint32_t round_bits(float x, float& back,
+                                               float*) {
+  back = x;
+  return __float_as_uint(x);
 }
 
 template <typename Round>
-__device__ __forceinline__ float store_cell(__nv_bfloat16* p, float x) {
+__device__ __forceinline__ uint32_t round_bits(float x, float& back,
+                                               __nv_bfloat16*) {
   __nv_bfloat16 b = __float2bfloat16_rn(x);
   if constexpr (std::is_same<Round, RoundIntRne>::value) {
     const unsigned bits = __float_as_uint(x);
@@ -124,16 +155,199 @@ __device__ __forceinline__ float store_cell(__nv_bfloat16* p, float x) {
       b = __ushort_as_bfloat16(static_cast<unsigned short>(
           (bits + 0x7FFFu + ((bits >> 16) & 1u)) >> 16));
   }
-  *p = b;
-  return __bfloat162float(b);
+  back = __bfloat162float(b);
+  return __bfloat16_as_ushort(b);
 }
 
-// Column sweep over one strip: rows [blockIdx.y*rows_per_part, +rows_per_part)
-// x columns [blockIdx.x*128, +128). With kUpdate the rank-1 delta is applied
-// and stored first, rounded by the policy Round. Writes the strip's
-// per-column partials of g and h.
+// A lane's run of kColsPerThread cells of type E (kBytes bytes), moved as
+// aligned units of kUnit bytes: 16, or 8 for an int8 mask, whose run is 8.
+template <typename E>
+struct Run {
+  static constexpr int kSize = static_cast<int>(sizeof(E));
+  static constexpr int kBytes = kColsPerThread * kSize;  // 8, 16 or 32
+  static constexpr int kUnit = kBytes < 16 ? kBytes : 16;
+  static constexpr int kUnits = kBytes / kUnit;           // 1 or 2 a lane
+  static constexpr int kWords = kBytes / 4;
+  static constexpr int kUnitWords = kUnit / 4;
+  static constexpr int kUnitCells = kUnit / kSize;
+};
+
+// A lane's loaded mask units of one row: its own kUnits, then the next one
+// (its right-hand neighbour's first, or for lane 31 its own load), and the
+// byte offset of its first cell in the first unit (the same in every lane
+// of the warp: a lane's run starts kBytes after its left-hand neighbour's).
+template <typename E>
+struct Loaded {
+  uint32_t w[Run<E>::kWords + Run<E>::kUnitWords];
+  int off;
+};
+
+template <int kUnit>
+__device__ __forceinline__ void load_unit(uintptr_t at, uintptr_t start,
+                                          uintptr_t end, uint32_t* w) {
+  if (at >= end || at + kUnit <= start) {  // no cell of the row: not used
+#pragma unroll
+    for (int i = 0; i < kUnit / 4; ++i) w[i] = 0u;
+  } else if constexpr (kUnit == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(at);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(at);
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+// out = the kOut words that start ``off`` bytes (0 <= off < 16) into w; w
+// is clobbered. Selects and funnel shifts, no dynamic register indexing.
+template <int kIn, int kOut>
+__device__ __forceinline__ void realign(uint32_t (&w)[kIn], int off,
+                                        uint32_t (&out)[kOut]) {
+  static_assert(kOut < kIn, "realign needs a word past the output");
+  if (off & 8) {
+#pragma unroll
+    for (int i = 0; i + 2 < kIn; ++i) w[i] = w[i + 2];
+  }
+  if (off & 4) {
+#pragma unroll
+    for (int i = 0; i + 1 < kIn; ++i) w[i] = w[i + 1];
+  }
+  const unsigned sh = 8u * static_cast<unsigned>(off & 3);
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) out[j] = __funnelshift_r(w[j], w[j + 1], sh);
+}
+
+// The lane's kColsPerThread cells, as floats, from its words (packed as in
+// memory).
+template <typename E>
+__device__ __forceinline__ void cells(const uint32_t (&c)[Run<E>::kWords],
+                                      float (&x)[kColsPerThread]) {
+#pragma unroll
+  for (int e = 0; e < kColsPerThread; ++e) {
+    if constexpr (sizeof(E) == 4) {
+      x[e] = __uint_as_float(c[e]);
+    } else if constexpr (sizeof(E) == 2) {
+      const uint32_t v = c[e / 2];
+      x[e] = __uint_as_float((e & 1) ? (v & 0xFFFF0000u) : (v << 16));
+    } else {
+      x[e] = static_cast<float>(
+          static_cast<int8_t>((c[e / 4] >> (8 * (e & 3))) & 0xFFu));
+    }
+  }
+}
+
+// The mask cells of a lane whose run starts at column c0 of the mask row
+// ``row`` (W cells): the lane's aligned unit(s) and, by a shuffle, its
+// right-hand neighbour's first (lane 31 loads its own), shifted into place.
+// Every lane of the warp must call unpack_mask on what load_mask issued.
+template <typename E>
+__device__ __forceinline__ void load_mask(const E* row, int W, int c0,
+                                          bool last_lane, Loaded<E>& L) {
+  using Rn = Run<E>;
+  const uintptr_t start = reinterpret_cast<uintptr_t>(row);
+  const uintptr_t end = start + static_cast<uintptr_t>(W) * Rn::kSize;
+  const uintptr_t a = start + static_cast<uintptr_t>(static_cast<intptr_t>(
+                                  c0) * Rn::kSize);
+  const uintptr_t al = a & ~static_cast<uintptr_t>(Rn::kUnit - 1);
+  L.off = static_cast<int>(a - al);
+#pragma unroll
+  for (int j = 0; j < Rn::kUnits; ++j)
+    load_unit<Rn::kUnit>(al + j * Rn::kUnit, start, end,
+                         L.w + j * Rn::kUnitWords);
+  if (last_lane)
+    load_unit<Rn::kUnit>(al + Rn::kBytes, start, end, L.w + Rn::kWords);
+}
+
+template <typename E>
+__device__ __forceinline__ void unpack_mask(Loaded<E>& L, int lane,
+                                            float (&x)[kColsPerThread]) {
+  using Rn = Run<E>;
+#pragma unroll
+  for (int i = 0; i < Rn::kUnitWords; ++i) {
+    const uint32_t nb = __shfl_down_sync(0xffffffffu, L.w[i], 1);
+    if (lane != kColThreadsX - 1) L.w[Rn::kWords + i] = nb;
+  }
+  uint32_t c[Rn::kWords];
+  realign(L.w, L.off, c);
+  cells<E>(c, x);
+}
+
+// A residual run on the 16-byte grid: the kUnits units at ``at``, which
+// hold columns [c0, c0 + kColsPerThread) of a row of W cells. A unit that
+// holds a cell of the row is loaded whole (the units at the row's two ends
+// also hold cells of its neighbours, or lie at the tensor's edge: inside
+// its allocation all the same).
+template <typename T>
+__device__ __forceinline__ void load_res(uintptr_t at, int c0, int W,
+                                         uint32_t (&w)[Run<T>::kWords]) {
+  using Rn = Run<T>;
+#pragma unroll
+  for (int j = 0; j < Rn::kUnits; ++j) {
+    const int first = c0 + j * Rn::kUnitCells;
+    if (first + Rn::kUnitCells > 0 && first < W) {
+      const uint4 v = *reinterpret_cast<const uint4*>(at + 16 * j);
+      w[4 * j] = v.x;
+      w[4 * j + 1] = v.y;
+      w[4 * j + 2] = v.z;
+      w[4 * j + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[4 * j + i] = 0u;
+    }
+  }
+}
+
+// Stores a residual run (see load_res): a unit whose cells all lie in the
+// row [0, W) whole, one at the row's start or end cell by cell, only the
+// row's own cells (2- or 4-byte stores).
+template <typename T>
+__device__ __forceinline__ void store_res(uintptr_t at, int c0, int W,
+                                          const uint32_t (&w)[
+                                              Run<T>::kWords]) {
+  using Rn = Run<T>;
+#pragma unroll
+  for (int j = 0; j < Rn::kUnits; ++j) {
+    const int first = c0 + j * Rn::kUnitCells;
+    const uintptr_t u = at + 16 * j;
+    if (first >= 0 && first + Rn::kUnitCells <= W) {
+      *reinterpret_cast<uint4*>(u) =
+          make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < Rn::kUnitCells; ++k) {
+        const int c = first + k;
+        if (c < 0 || c >= W) continue;
+        const uint32_t word = w[4 * j + k * Rn::kSize / 4];
+        if constexpr (Rn::kSize == 4)
+          *reinterpret_cast<uint32_t*>(u + 4 * k) = word;
+        else
+          *reinterpret_cast<unsigned short*>(u + 2 * k) =
+              static_cast<unsigned short>(word >> (16 * (k & 1)));
+      }
+    }
+  }
+}
+
+// Column sweep over one strip of the rows q, q + 64, q + 128, ... of the
+// row band [b*64*rows_per_part, (b+1)*64*rows_per_part), where b =
+// blockIdx.y / 64 and q = blockIdx.y % 64; warp ty takes every eighth of
+// them from q + 64 ty on. Rows a multiple of 64 apart start equally far
+// into their 128-byte lines (64 * W cells are a multiple of 128 bytes), so
+// the block shifts its strip by that many cells, ``shift``, and covers the
+// columns [blockIdx.x * 256 - shift, +256) of each of its rows: every
+// warp's row segment then starts on a line (a segment that straddles lines
+// shared with the next strip costs K1 a fifth of its rate on the card),
+// every lane's run on a 16-byte boundary, and only the units at a row's two
+// ends hold cells of another row. With kUpdate the rank-1 delta is applied
+// and stored first, rounded by the policy Round. Writes the block's
+// per-column partials of g and h into row blockIdx.y of the partials: each
+// column lies in one strip of a row band's residue, and its sum over the
+// block's rows runs in the same order whatever the shift.
 template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt>
-__global__ void __launch_bounds__(kColThreadsX* kColThreadsY)
+__global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
     col_sweep_kernel(T* R, const MaskT* __restrict__ Mk,
                      const float* __restrict__ uo,
                      const float* __restrict__ up,
@@ -141,108 +355,131 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY)
                      const float* __restrict__ vp, float* __restrict__ gpart,
                      float* __restrict__ hpart, int M, int W,
                      int rows_per_part) {
-  const int tx = threadIdx.x;
+  // the mask's element type (unused in NaN mode)
+  using MaskE = std::conditional_t<kExplicit<MaskT>, MaskT, int8_t>;
+  constexpr int kRows = kBatchBytes / Run<T>::kBytes;  // bf16 4, f32 2
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  const int lane = threadIdx.x;
   const int ty = threadIdx.y;
-  const int c_base = blockIdx.x * kStripCols + tx;
-  const int r0 = blockIdx.y * rows_per_part;
-  const int r1 = min(M, r0 + rows_per_part);
+  const int band = kInterleave * rows_per_part;
+  const int r0 = (blockIdx.y / kInterleave) * band;
+  const int r1 = min(M, r0 + band);
+  const int q = r0 + blockIdx.y % kInterleave;  // the block's first row
+  const int shift = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(R) +
+       static_cast<size_t>(q) * static_cast<size_t>(W) * kSize) &
+      (kLine - 1)) / kSize;
+  const int lo = blockIdx.x * kStripCols - shift;
+  const int c0 = lo + lane * kColsPerThread;
+  const bool last_lane = lane == kColThreadsX - 1;
 
   float vo_c[kColsPerThread], vp_c[kColsPerThread];
   float g[kColsPerThread], h[kColsPerThread];
+  bool ok[kColsPerThread];  // the column lies in the row
 #pragma unroll
-  for (int q = 0; q < kColsPerThread; ++q) {
-    const int c = c_base + q * kColThreadsX;
-    vo_c[q] = (kUpdate && c < W) ? vo[c] : 0.f;
-    vp_c[q] = (kUpdate && c < W) ? vp[c] : 0.f;
-    g[q] = 0.f;
-    h[q] = 0.f;
+  for (int e = 0; e < kColsPerThread; ++e) {
+    const int c = c0 + e;
+    ok[e] = c >= 0 && c < W;
+    vo_c[e] = (kUpdate && ok[e]) ? vo[c] : 0.f;
+    vp_c[e] = (kUpdate && ok[e]) ? vp[c] : 0.f;
+    g[e] = 0.f;
+    h[e] = 0.f;
   }
 
-  // Rows go in batches of kRowBatch per thread and all of a batch's loads
-  // (residual and mask cells) are issued before its stores: the compiler
-  // cannot prove that a store to one row misses the next row's cells, so
+  // The warp's rows go kRows at a time, and all of a batch's loads
+  // (residual and mask) go out before its stores: the compiler cannot
+  // prove that a store to one row misses the next row's cells, so
   // row-at-a-time code would wait out each load's latency behind the
-  // previous row's stores. Here kRowBatch * kColsPerThread residual loads
-  // (and as many mask loads) are in flight per thread.
-  for (int rb = r0 + ty; rb < r1; rb += kColThreadsY * kRowBatch) {
-    float x[kRowBatch][kColsPerThread];
-    float mk[kRowBatch][kColsPerThread];
-    float a[kRowBatch], ap[kRowBatch];
+  // previous row's stores. A row is one warp's, so every branch on the row
+  // is uniform across the warp and its shuffles.
+  for (int rb = q + kInterleave * ty; rb < r1; rb += kWarpRowStep * kRows) {
+    uint32_t xs[kRows][Run<T>::kWords];
+    Loaded<MaskE> ms[kRows];
+    float a[kRows], ap[kRows];
 #pragma unroll
-    for (int b = 0; b < kRowBatch; ++b) {
-      const int r = rb + b * kColThreadsY;
-      const bool row_ok = r < r1;
-      a[b] = row_ok ? uo[r] : 0.f;
-      ap[b] = (kUpdate && row_ok) ? up[r] : 0.f;
-      const size_t roff = static_cast<size_t>(row_ok ? r : r0) * W;
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        const int c = c_base + q * kColThreadsX;
-        const bool ok = row_ok && c < W;
-        x[b][q] = ok ? load_cell(R + roff + c) : 0.f;
-        if constexpr (kExplicit<MaskT>)
-          mk[b][q] = ok ? load_mask(Mk + roff + c) : 0.f;
-      }
+    for (int b = 0; b < kRows; ++b) {
+      const int r = rb + b * kWarpRowStep;
+      if (r >= r1) break;
+      a[b] = uo[r];
+      ap[b] = kUpdate ? up[r] : 0.f;
+      const size_t roff = static_cast<size_t>(r) * static_cast<size_t>(W);
+      load_res<T>(reinterpret_cast<uintptr_t>(R + roff + c0), c0, W, xs[b]);
+      if constexpr (kExplicit<MaskT>)
+        load_mask(Mk + roff, W, c0, last_lane, ms[b]);
     }
 #pragma unroll
-    for (int b = 0; b < kRowBatch; ++b) {
-      const int r = rb + b * kColThreadsY;
+    for (int b = 0; b < kRows; ++b) {
+      const int r = rb + b * kWarpRowStep;
       if (r >= r1) break;
-      T* row = R + static_cast<size_t>(r) * static_cast<size_t>(W);
+      float x[kColsPerThread], mk[kColsPerThread];
+      cells<T>(xs[b], x);
+      if constexpr (kExplicit<MaskT>) unpack_mask(ms[b], lane, mk);
+      uint32_t own[Run<T>::kWords];
 #pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        const int c = c_base + q * kColThreadsX;
-        if (c >= W) continue;
-        float xv = x[b][q];
+      for (int i = 0; i < Run<T>::kWords; ++i) own[i] = 0u;
+#pragma unroll
+      for (int e = 0; e < kColsPerThread; ++e) {
+        float xv = x[e];
+        if constexpr (kUpdate) {
+          const float d = __fsub_rn(__fmul_rn(a[b], vo_c[e]),
+                                    __fmul_rn(ap[b], vp_c[e]));
+          float back;
+          uint32_t bits;
+          if constexpr (kExplicit<MaskT>) {
+            // K4: the sweep reads the sum before rounding
+            xv = __fadd_rn(xv, __fmul_rn(d, mk[e]));
+            bits = round_bits<Round>(xv, back, R);
+          } else {
+            // K1: the sweep reads the stored value
+            bits = round_bits<Round>(__fadd_rn(xv, d), back, R);
+            xv = back;
+          }
+          if constexpr (sizeof(T) == 4)
+            own[e] = bits;
+          else
+            own[e / 2] |= bits << (16 * (e & 1));
+        }
+        if (!ok[e]) continue;
         if constexpr (kExplicit<MaskT>) {
-          if (kUpdate) {  // K4: the sweep reads the sum before rounding
-            const float d = __fsub_rn(__fmul_rn(a[b], vo_c[q]),
-                                      __fmul_rn(ap[b], vp_c[q]));
-            xv = __fadd_rn(xv, __fmul_rn(d, mk[b][q]));
-            store_cell<Round>(row + c, xv);
-          }
-          g[q] += a[b] * xv;
-          h[q] += __fmul_rn(a[b], a[b]) * mk[b][q];
+          g[e] += a[b] * xv;
+          h[e] += __fmul_rn(a[b], a[b]) * mk[e];
         } else {
-          if (kUpdate) {  // K1: the sweep reads the stored value
-            const float d = __fsub_rn(__fmul_rn(a[b], vo_c[q]),
-                                      __fmul_rn(ap[b], vp_c[q]));
-            xv = store_cell<Round>(row + c, __fadd_rn(xv, d));
-          }
-          if (!isnan(xv)) {
-            g[q] += a[b] * xv;
-            h[q] += a[b] * a[b];
-          }
+          // an unobserved cell adds +-0, which leaves the sums' bits as
+          // skipping it would: selects, not a branch that diverges on a
+          // random mask
+          const bool obs = !isnan(xv);
+          g[e] += a[b] * (obs ? xv : 0.f);
+          h[e] += obs ? a[b] * a[b] : 0.f;
         }
       }
+      if constexpr (kUpdate)
+        store_res<T>(reinterpret_cast<uintptr_t>(
+                         R + static_cast<size_t>(r) * W + c0),
+                     c0, W, own);
     }
   }
 
   __shared__ float sg[kColThreadsY][kStripCols];
   __shared__ float sh[kColThreadsY][kStripCols];
 #pragma unroll
-  for (int q = 0; q < kColsPerThread; ++q) {
-    sg[ty][tx + q * kColThreadsX] = g[q];
-    sh[ty][tx + q * kColThreadsX] = h[q];
+  for (int e = 0; e < kColsPerThread; ++e) {
+    sg[ty][lane * kColsPerThread + e] = g[e];
+    sh[ty][lane * kColsPerThread + e] = h[e];
   }
   __syncthreads();
-  if (ty == 0) {
+  // one column a thread: the 8 warps' sums in order
+  const int t = ty * kColThreadsX + lane;
+  const int c = lo + t;
+  if (c < 0 || c >= W) return;
+  float gs = 0.f, hs = 0.f;
 #pragma unroll
-    for (int q = 0; q < kColsPerThread; ++q) {
-      const int c = c_base + q * kColThreadsX;
-      if (c < W) {
-        float gs = 0.f, hs = 0.f;
-#pragma unroll
-        for (int y = 0; y < kColThreadsY; ++y) {
-          gs += sg[y][tx + q * kColThreadsX];
-          hs += sh[y][tx + q * kColThreadsX];
-        }
-        const size_t o = static_cast<size_t>(blockIdx.y) * W + c;
-        gpart[o] = gs;
-        hpart[o] = hs;
-      }
-    }
+  for (int y = 0; y < kColThreadsY; ++y) {
+    gs += sg[y][t];
+    hs += sh[y][t];
   }
+  const size_t o = static_cast<size_t>(blockIdx.y) * W + c;
+  gpart[o] = gs;
+  hpart[o] = hs;
 }
 
 // Second pass of the column sums: strip partials added in strip order.
@@ -325,8 +562,11 @@ void launch_col_sweep(void* R, const void* Mk, const void* uo, const void* up,
                       const void* vo, const void* vp, void* gpart,
                       void* hpart, void* g, void* h, int M, int W,
                       int rows_per_part, cudaStream_t stream) {
-  const int nparts = (M + rows_per_part - 1) / rows_per_part;
-  const dim3 grid((W + kStripCols - 1) / kStripCols, nparts);
+  // a strip shifts left by up to kLine / sizeof(T) - 1 cells (the
+  // kernel's ``shift``): one more strip covers the row's end
+  const int band = kInterleave * rows_per_part;
+  const int nparts = kInterleave * ((M + band - 1) / band);
+  const dim3 grid((W + kMaxShift + kStripCols - 1) / kStripCols, nparts);
   const dim3 block(kColThreadsX, kColThreadsY);
   col_sweep_kernel<T, MaskT, kUpdate, Round><<<grid, block, 0, stream>>>(
       static_cast<T*>(R), static_cast<const MaskT*>(Mk),

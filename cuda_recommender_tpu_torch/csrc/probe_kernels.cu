@@ -14,10 +14,11 @@
 //
 // Functions, over an (M, W) row-major bfloat16 panel R:
 //   stream_rmw:  R <- bf16(R + 1) in place: one read and one write a cell,
-//     no other work. In K1's pattern the grid walks the panel's 512-row x
-//     128-column tiles in column-of-tiles order (down each column strip, as
-//     the Pallas control's grid) or row-of-tiles order (along each row band,
-//     the order in which K1's grid runs on the card); in the 16-byte-vector
+//     no other work. In the 2-byte tile pattern the grid walks the panel's
+//     512-row x 128-column tiles in column-of-tiles order (down each column
+//     strip, as the Pallas control's grid) or row-of-tiles order (along each
+//     row band, the order in which a 2-D grid runs on the card); in the
+//     16-byte-vector
 //     pattern it walks the cells flat.
 //   stream_read: g[j] = sum_b w_b * sum_{i in block b} x[i, j] over the
 //     512-row blocks b (the last one ragged). Weighted mode: w_b = u[512 b],
@@ -36,11 +37,12 @@
 // table that the 50 MB L2 holds at the probes' shapes.
 //
 // Each stream comes in two load patterns:
-//   * K1's (panel_kernels.cu): a block of 32 x 8 threads owns a 512-row x
+//   * the 2-byte tile pattern (K1's former layout; panel_kernels.cu now
+//     moves 16-byte vectors): a block of 32 x 8 threads owns a 512-row x
 //     128-column tile, each thread loads 4 rows x 4 columns as 2-byte loads
 //     (a warp reads 32 consecutive cells of one row) before any store, so 16
-//     loads are in flight a thread. These measure K1's access pattern
-//     without its arithmetic: the access-pattern diagnostic.
+//     loads are in flight a thread. These measure that access pattern
+//     without arithmetic: the access-pattern diagnostic.
 //   * 16-byte vectors (``vec16``): the rmw walks the panel flat (its function
 //     is per cell, so rows need no alignment), 4 vectors a thread in flight;
 //     the read gives each thread 8 consecutive cells of a row, 4 rows in
@@ -347,7 +349,8 @@ __global__ void __launch_bounds__(kGatherThreads)
 // a refused launch (bad configuration) never runs and is reported only here.
 extern "C" {
 
-// ``mode`` 0: K1's tiles in column-of-tiles order; 1: row-of-tiles order;
+// ``mode`` 0: the 2-byte tiles in column-of-tiles order; 1: row-of-tiles
+// order;
 // 2: 16-byte vectors over the panel as one flat run.
 int crtpu_stream_rmw(void* R, int M, int W, int mode, void* stream) {
   if (M <= 0 || W <= 0 || mode < 0 || mode > 2) return cudaErrorInvalidValue;
@@ -382,7 +385,8 @@ int crtpu_stream_rmw(void* R, int M, int W, int mode, void* stream) {
 }
 
 // ``u`` null selects the NaN-skip mode (unweighted), else the weighted one;
-// ``vec16`` the 16-byte-vector pattern (256-column tiles), else K1's.
+// ``vec16`` the 16-byte-vector pattern (256-column tiles), else the 2-byte
+// tile pattern.
 int crtpu_stream_read(const void* R, const void* u, void* gpart, void* g,
                       int M, int W, int vec16, void* stream) {
   const int nr = (M + kTileRows - 1) / kTileRows;

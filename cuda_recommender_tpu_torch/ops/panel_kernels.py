@@ -21,8 +21,9 @@ hardware conversion: the port of the rounding variant of ``scripts/
 panel_kernel_variants.py`` (P2), a probe that must store the same bits. The
 CUDA C++ source is ``csrc/panel_kernels.cu``; it says what bounds the
 kernels on an H100 and how they are laid out. Panels have their true
-(rows, width) shape: the kernels mask the ragged edge themselves, so the
-TPU's block padding is gone.
+(rows, width) shape: the kernels mask the ragged edge themselves and move
+16-byte vectors on rows that start anywhere (a contiguous view may start
+off a 16-byte boundary), so the TPU's block padding is gone.
 
 Each wrapper takes the plain version ONLY for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (on the current stream) or raises. It
@@ -47,6 +48,14 @@ _MASK_CODE = {torch.bfloat16: 1, torch.int8: 2}
 #: two-pass reduce); a function of the shape alone, so runs repeat exactly
 _ROWS_PER_PART = 512
 _MAX_PARTS = 65535                   # CUDA grid.y limit
+#: columns per strip: csrc/panel_kernels.cu's kStripCols (32 lanes x 8
+#: consecutive columns, moved in 16-byte vectors); a strip shifts left by
+#: up to _MAX_SHIFT columns onto the rows' 128-byte grid (kMaxShift)
+_STRIP_COLS = 256
+_MAX_SHIFT = 63
+#: row strips interleave in bands of this many: strip 64b + q holds the
+#: rows q, q + 64, ... of band b (csrc/panel_kernels.cu's kInterleave)
+_INTERLEAVE = 64
 
 #: cells per chunk of the plain versions (bounds their f32 temporaries)
 _PLAIN_CHUNK_CELLS = 1 << 26
@@ -76,7 +85,8 @@ def _check(Rd: torch.Tensor, rows_vecs=(), cols_vecs=()) -> tuple[int, int]:
 
 
 def _rows_per_part(M: int) -> int:
-    need = -(-M // _MAX_PARTS)
+    bands = _MAX_PARTS // _INTERLEAVE
+    need = -(-M // (bands * _INTERLEAVE))
     return max(_ROWS_PER_PART, -(-need // 8) * 8)
 
 
@@ -94,12 +104,21 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _sweep_geometry(M: int, W: int) -> tuple[int, int, int]:
+    """(rows per strip, row strips, column strips) of a column sweep over
+    an (M, W) panel: its grid is (column strips, row strips), the row
+    strips _INTERLEAVE to a band of _INTERLEAVE * rows-per-strip rows."""
+    rpp = _rows_per_part(M)
+    band = _INTERLEAVE * rpp
+    return (rpp, _INTERLEAVE * -(-M // band),
+            -(-(W + _MAX_SHIFT) // _STRIP_COLS))
+
+
 def _sweep_buffers(Rd: torch.Tensor):
     """(rows per strip, g, h, gpart, hpart): the outputs and the per-strip
     partials of a column sweep over ``Rd``, f32 on its device."""
     M, W = Rd.shape
-    rpp = _rows_per_part(M)
-    nparts = -(-M // rpp)
+    rpp, nparts, _ = _sweep_geometry(M, W)
     opts = dict(dtype=torch.float32, device=Rd.device)
     return (rpp, torch.empty(W, **opts), torch.empty(W, **opts),
             torch.empty((nparts, W), **opts), torch.empty((nparts, W),

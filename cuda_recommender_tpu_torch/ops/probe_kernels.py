@@ -1,13 +1,14 @@
 """Stream and gather probes: the card's measurement controls.
 
 Three kernels (``csrc/probe_kernels.cu``), each beside its plain PyTorch
-version, the two streams in two load patterns each: K1's tiles and 2-byte
-loads (the access-pattern diagnostic) or, with ``vec16=True``, 16-byte
+version, the two streams in two load patterns each: the 2-byte tile
+pattern (K1's former layout: 512 x 128 tiles and 2-byte loads; the
+access-pattern diagnostic) or, with ``vec16=True``, 16-byte
 vectors (the achievable control; counted apart, as ``stream_rmw_vec16``
 and ``stream_read_vec16``):
 
   * ``stream_rmw`` — ``R <- bf16(R + 1)`` IN PLACE over an (M, W) bfloat16
-    panel: the read-modify-write control, in K1's tiles walked in
+    panel: the read-modify-write control, in the 2-byte tiles walked in
     column-of-tiles (``row_major=False``) or row-of-tiles order, or in
     16-byte vectors over the cells as one flat run. Replaces ``rmw_call``
     of ``scripts/panel_floor.py`` (P1) and the rmw floor of

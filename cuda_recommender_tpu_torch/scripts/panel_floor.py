@@ -8,13 +8,14 @@ Per bfloat16 panel (the headline stair's two panels at their true shapes;
 the port has no block padding), each mode's ms per call, GB/s and share of
 3.35 TB/s:
 
-  rmw_cm     diagnostic: R <- R + 1 in place, K1's tiles and loads, no
-             other work, the tiles walked down each column strip (the
-             Pallas control's grid order);
-  rmw_rm     the same walked along each row band (K1's grid order on the
-             card): isolates the order;
-  read_cm    diagnostic: the tiles' u-weighted column sums, K1's read
-             pattern without the update;
+  rmw_cm     diagnostic: R <- R + 1 in place, in the 2-byte tile pattern
+             (K1's former layout: 512 x 128 tiles, 2-byte loads), no other
+             work, the tiles walked down each column strip (the Pallas
+             control's grid order);
+  rmw_rm     the same walked along each row band (a 2-D grid's order on
+             the card): isolates the order;
+  read_cm    diagnostic: the tiles' u-weighted column sums, the same
+             pattern's reads;
   rmw_vec16  control: the same rmw in 16-byte vectors, the cells walked
              flat: what a read-modify-write stream reaches on the card;
   read_vec16 control: the same read in 16-byte vectors;

@@ -9,8 +9,13 @@ pattern (cell (r, c) observed, value 1, where (7r + 13c) % 41 == 0; NaN
 elsewhere), each run timed by CUDA events over REPS chained launches
 after one warm-up launch:
 
-  rmw_floor  the read-modify-write floor: R <- R + 1, K1's tiles, no sweep
-  read_floor the read floor: g = column sums with NaN read as 0
+  rmw_floor  the read-modify-write floor: R <- R + 1, no sweep, in the
+             2-byte tile pattern (K1's former layout: 512 x 128 tiles,
+             2-byte loads)
+  rmw_floor_vec16   the same in 16-byte vectors (the achievable floor)
+  read_floor the read floor: g = column sums with NaN read as 0, in the
+             2-byte tile pattern
+  read_floor_vec16  the same in 16-byte vectors, rows realigned by shuffles
   A0         K1, panel_update_vsweep (hardware round-to-nearest-even)
   A1         K1 with its store rounded by integer round-to-nearest-even on
              the f32 bits (panel_update_vsweep_irne), from the same
@@ -59,7 +64,7 @@ def pattern_panel(M: int, W: int, device) -> torch.Tensor:
 
 
 def run(M: int, W: int, device, seed: int = 0) -> dict:
-    """The five runs and the A1/A0 comparison; returns the summary."""
+    """The seven runs and the A1/A0 comparison; returns the summary."""
     rng = np.random.default_rng(seed)
     uo, up = (torch.as_tensor(rng.normal(size=M).astype(np.float32),
                               device=device) for _ in range(2))
@@ -72,16 +77,18 @@ def run(M: int, W: int, device, seed: int = 0) -> dict:
     def report(tag, nbytes, ms):
         out[tag] = rate(nbytes, ms)
         gbs = out[tag]["GB_s"]
-        print(f"{tag:11s}: " + ("not measured (cpu)" if ms is None else
+        print(f"{tag:16s}: " + ("not measured (cpu)" if ms is None else
                                 f"{ms:.3f} ms ({gbs:.0f} GB/s)"),
               flush=True)
 
-    R = pattern_panel(M, W, device)
-    report("rmw_floor", 4 * cells, time_ms(
-        lambda: pr.stream_rmw(R, row_major=False), device, REPS, 1))
-    R = pattern_panel(M, W, device)
-    report("read_floor", 2 * cells,
-           time_ms(lambda: pr.stream_read(R), device, REPS, 1))
+    for vec16 in (False, True):
+        tag = "_vec16" if vec16 else ""
+        R = pattern_panel(M, W, device)
+        report("rmw_floor" + tag, 4 * cells, time_ms(
+            lambda: pr.stream_rmw(R, vec16=vec16), device, REPS, 1))
+        R = pattern_panel(M, W, device)
+        report("read_floor" + tag, 2 * cells, time_ms(
+            lambda: pr.stream_read(R, vec16=vec16), device, REPS, 1))
 
     res = {}
     for tag, fn in (("A0", pk.panel_update_vsweep),

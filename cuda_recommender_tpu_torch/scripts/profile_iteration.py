@@ -1,0 +1,151 @@
+"""One steady outer iteration of a CCD++ configuration under torch.profiler:
+device time by kernel name, the device span, busy time and idle share.
+
+    python -m cuda_recommender_tpu_torch.scripts.profile_iteration
+
+Two configurations, in turn: the port's bench headline (``bench.py``:
+Netflix-100M dims, k = 40, bf16 NaN-sentinel panels, hand stair (4096, 2048)
+under 6.5e9 cells; K1, K2 and the ELL tail), then the JAX README's quick
+start (ml10M dims, k = 10, f32 residual, bf16 mask; K4 and masked_usweep).
+Each runs two untraced outer iterations, then one traced. Prints one line
+per kernel name and a JSON summary per configuration as its last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.init import init_factors_np
+from ..data.datasets import synthetic_cached
+from .common import card
+
+#: the README quick start's configuration (ml10M dims)
+DENSE = dict(m=69_878, n=10_677, nnz=10_000_000, k=10, lam=0.05)
+#: bench.py's headline arguments (its defaults)
+HYBRID_ARGS: list = []
+
+
+def hybrid_step(device):
+    """The bench headline's outer step and its state, set up as
+    ``ccd_hybrid_train`` sets them up."""
+    from .. import bench
+    from ..solvers import ccd_hybrid as ch
+
+    args = bench.build_parser().parse_args(HYBRID_ARGS)
+    cfg = bench.config(args)
+    R, _ = synthetic_cached(args.m, args.n, args.nnz, seed=args.seed,
+                            test_fraction=0.02)
+    plan = ch.plan_hybrid(R, cfg, materialize_dense=False)
+    W0, _ = init_factors_np(cfg.k, R.rows, R.cols, seed=cfg.seed)
+    st = ch.initial_state(plan, W0, torch.bfloat16, device, "nan")
+    step = ch.make_hybrid_outer_step(plan, ch.device_plan(plan, device),
+                                     cfg.lambda_, cfg.maxinneriter)
+    return lambda: step(st), f"hybrid {list(plan.panels)}, k={cfg.k}"
+
+
+def dense_step(device, m, n, nnz, k, lam):
+    """The dense backend's outer step at (m, n, nnz), f32 residual and bf16
+    mask, from the trainer's initial state."""
+    from ..solvers import ccd_dense as cd
+
+    R, _ = synthetic_cached(m, n, nnz, seed=1)
+    Rd, mask = cd.device_densify(R, torch.float32, "bfloat16", device)
+    W0, _ = init_factors_np(k, R.rows, R.cols, seed=0)
+    zeros = dict(dtype=torch.float32, device=device)
+    st = cd.DenseState(Rhat=Rd, W=torch.as_tensor(W0, device=device),
+                       H=torch.zeros((k, R.cols), **zeros),
+                       u_pend=torch.zeros(R.rows, **zeros),
+                       v_pend=torch.zeros(R.cols, **zeros))
+    rnz = torch.as_tensor(np.diff(R.csr_ptr).astype(np.float32),
+                          device=device)
+    cnz = torch.as_tensor(np.diff(R.csc_ptr).astype(np.float32),
+                          device=device)
+    step = cd.make_outer_step(lam, 1)
+    return (lambda: step(st, mask, rnz, cnz),
+            f"dense {m}x{n}, k={k}, f32 residual, bf16 mask")
+
+
+def profile_split(step, device, warm: int = 2) -> dict:
+    """``step`` ``warm`` times untraced, then once under torch.profiler:
+    host wall ms, the device span from the first kernel's start to the last
+    one's end, busy ms (the union of kernel intervals), the idle share of
+    the span, and [name, ms, launches] per kernel name by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warm):
+        step()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if device.type == "cuda" else [ProfilerActivity.CPU]
+                 ) as prof:
+        t0 = time.perf_counter()
+        step()
+        sync()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        ms, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    span = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    busy /= 1e3
+    return {"wall_ms": 1e3 * wall, "span_ms": span, "busy_ms": busy,
+            "idle_pct": 100 * (1 - busy / span) if span else None,
+            "kernels": [[name, ms, cnt] for name, (ms, cnt) in
+                        sorted(by_name.items(), key=lambda x: -x[1][0])]}
+
+
+def report(what: str, out: dict) -> None:
+    idle = out["idle_pct"]
+    print(f"[profile] one {what} outer iteration: host wall "
+          f"{out['wall_ms']:.3f} ms; device span {out['span_ms']:.3f} ms, "
+          f"kernels busy {out['busy_ms']:.3f} ms, idle "
+          f"{'not measured' if idle is None else f'{idle:.2f}%'} of the "
+          "span", flush=True)
+    for name, ms, cnt in out["kernels"]:
+        share = 100 * ms / out["busy_ms"] if out["busy_ms"] else 0.0
+        print(f"[profile]   {ms:9.3f} ms {share:5.1f}% {cnt:5d} launches  "
+              f"{name[:90]}", flush=True)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="cuda_recommender_tpu_torch.scripts.profile_iteration",
+        description="one steady CCD++ outer iteration under torch.profiler")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    for which in ("hybrid", "dense"):
+        step, what = (hybrid_step(device) if which == "hybrid"
+                      else dense_step(device, **DENSE))
+        out = profile_split(step, device)
+        del step
+        report(what, out)
+        print(json.dumps({"config": which, "what": what,
+                          "device": card(device), **out}), flush=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

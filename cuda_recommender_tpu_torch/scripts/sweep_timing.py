@@ -1,0 +1,225 @@
+"""Column-sweep timing: K1, K2, K3, K4, the masked sweeps and the rounding
+variant at the main paths' shapes, each against its plain version, for one
+checkout of the port.
+
+    python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
+
+``--root`` imports the package from another checkout (an unpacked copy of
+another commit; default: the checkout that holds this file), so that one
+script times two versions of the kernels on one card. Run it once per
+checkout, in turns (A, B, B, A), each in a fresh process. Each kernel and
+its plain version are timed in turns (plain, kernel, kernel, plain; CUDA
+events over REPS calls each, after one warm-up call) on panels far larger
+than the 50 MB L2. ``chip_smoke.py`` times its phases 6 and 15 through
+``nan_sweeps``, ``masked_sweeps`` and ``time_sweeps``, so that one place
+holds the calls, their bytes and their operations. Prints one line per
+kernel and a JSON summary (ms, plain ms, GB/s and share of the HBM rate of
+the bytes each call must move) as the last line; on the CPU the times are
+null ("not measured").
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+#: K1, K2 and K3 (bf16, NaN sentinel, 30% observed): the hybrid headline's
+#: panel 0 and the transposed stair's panel 0 (an odd width)
+NAN_SHAPES = ((330_128, 17_770), (13_464, 480_189))
+#: K4 and the masked sweeps: the dense quick start's residual (ml10M dims),
+#: f32 and bf16 residual, bf16 and int8 mask
+MASKED_SHAPE = (69_878, 10_677)
+#: the rounding variant: the variant matrix's panel and NaN pattern
+VARIANT_SHAPE = (165_376, 18_432)
+#: timed calls per kernel and turn, after one untimed
+REPS = 10
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _vectors(M, W, device, seed) -> list:
+    """u and v of the current and the previous rank: 1e-3 * N(0, 1)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [1e-3 * torch.randn(n, generator=gen, device=device)
+            for n in (M, M, W, W)]
+
+
+def nan_sweeps(M, W, device, seed) -> dict:
+    """K1, K2 and K3 on an (M, W) bf16 NaN-sentinel panel (30% observed)
+    drawn on the device from ``seed``: name -> (kernel call, plain call,
+    bytes, flops). Bytes: each reads the panel (2 B a cell) and its vectors
+    and writes g and h; K1 also writes the panel back. Flops a cell: 7
+    (K1), 3 (K2, K3)."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    R = torch.randn((M, W), generator=gen, device=device, dtype=torch.bfloat16)
+    R.masked_fill_(torch.rand((M, W), generator=gen, device=device,
+                              dtype=torch.bfloat16) >= 0.3, float("nan"))
+    uo, up, vo, vp = _vectors(M, W, device, seed + 1)
+    cells = M * W
+    return {
+        "panel_update_vsweep": (
+            lambda: pk.panel_update_vsweep(R, uo, up, vo, vp),
+            lambda: pk.panel_update_vsweep_plain(R, uo, up, vo, vp),
+            4 * cells + 4 * (2 * M + 4 * W), 7 * cells),
+        "panel_usweep": (lambda: pk.panel_usweep(R, vo),
+                         lambda: pk.panel_usweep_plain(R, vo),
+                         2 * cells + 4 * (W + 2 * M), 3 * cells),
+        "panel_vsweep": (lambda: pk.panel_vsweep(R, uo),
+                         lambda: pk.panel_vsweep_plain(R, uo),
+                         2 * cells + 4 * (M + 2 * W), 3 * cells)}
+
+
+def masked_sweeps(M, W, dtype, mask_dtype, device, seed) -> dict:
+    """K4 and the masked sweeps on an (M, W) residual of ``dtype`` (30%
+    observed, 0 elsewhere) and its ``mask_dtype`` mask, drawn on the device
+    from ``seed``: name -> (kernel call, plain call, bytes, flops). Bytes:
+    K4 reads and writes the residual and reads the mask, the sweeps read
+    both; each reads its vectors and writes g and h. Flops a cell: 6 (K4,
+    as the Pallas kernel's cost estimate), 4 (the sweeps)."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep = torch.rand((M, W), generator=gen, device=device) < 0.3
+    R = torch.randn((M, W), generator=gen, device=device,
+                    dtype=dtype).masked_fill_(~keep, 0.0)
+    Mk = keep.to(mask_dtype)
+    del keep
+    ua, us, va, vs = _vectors(M, W, device, seed + 1)
+    cells, rb, mb = M * W, R.element_size(), Mk.element_size()
+    return {
+        "fused_update_vsweep": (
+            lambda: ck.fused_update_vsweep(R, Mk, ua, us, va, vs),
+            lambda: ck.fused_update_vsweep_plain(R, Mk, ua, us, va, vs),
+            cells * (2 * rb + mb) + 4 * (2 * M + 4 * W), 6 * cells),
+        "masked_usweep": (lambda: ck.masked_usweep(R, Mk, va),
+                          lambda: ck.masked_usweep_plain(R, Mk, va),
+                          cells * (rb + mb) + 4 * (W + 2 * M), 4 * cells),
+        "masked_vsweep": (lambda: ck.masked_vsweep(R, Mk, ua),
+                          lambda: ck.masked_vsweep_plain(R, Mk, ua),
+                          cells * (rb + mb) + 4 * (M + 2 * W), 4 * cells)}
+
+
+def variant_sweeps(M, W, device, seed) -> dict:
+    """The rounding variant and K1 on the variant matrix's (M, W) panel and
+    NaN pattern, as ``nan_sweeps``."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+    from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
+        pattern_panel
+
+    R = pattern_panel(M, W, device)
+    vecs = _vectors(M, W, device, seed)
+    nbytes, flops = 4 * M * W + 4 * (2 * M + 4 * W), 7 * M * W
+    return {
+        "panel_update_vsweep_irne": (
+            lambda: pk.panel_update_vsweep_irne(R, *vecs),
+            lambda: pk.panel_update_vsweep_irne_plain(R, *vecs),
+            nbytes, flops),
+        "panel_update_vsweep": (
+            lambda: pk.panel_update_vsweep(R, *vecs),
+            lambda: pk.panel_update_vsweep_plain(R, *vecs), nbytes, flops)}
+
+
+def time_turns(fns, device, reps: int) -> list:
+    """Each of ``fns`` warmed up once, then timed in turns forward and back
+    (a, b, ..., b, a), each turn ``common.time_ms`` over ``reps`` calls, so
+    that a drift of the card's clock falls on all alike. Returns each one's
+    two readings (None, None on the CPU). It lives here, not in
+    ``common``, because this file also runs against older checkouts."""
+    import torch
+
+    from cuda_recommender_tpu_torch.scripts.common import time_ms
+
+    for fn in fns:
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    first = [time_ms(fn, device, reps, 0) for fn in fns]
+    second = [time_ms(fn, device, reps, 0) for fn in fns[::-1]][::-1]
+    return list(zip(first, second))
+
+
+def time_sweeps(calls: dict, what: str, device, reps: int = REPS) -> dict:
+    """Each of ``calls`` (name -> (kernel, plain, bytes, flops)) against
+    its plain version, in turns plain, kernel, kernel, plain
+    (``time_turns``); prints a line each. Returns "name what" ->
+    {ms, plain_ms, the two turns' ms of each, bytes, flops, GB_s,
+    share_of_peak}."""
+    from cuda_recommender_tpu_torch.scripts.common import rate
+
+    out = {}
+    for name, (kern, plain, nbytes, flops) in calls.items():
+        (p1, p2), (k1, k2) = time_turns([plain, kern], device, reps)
+        ms = None if k1 is None else (k1 + k2) / 2
+        rec = {**rate(nbytes, ms),
+               "plain_ms": None if p1 is None else (p1 + p2) / 2,
+               "turns": [k1, k2], "plain_turns": [p1, p2],
+               "bytes": nbytes, "flops": flops}
+        out[f"{name} {what}"] = rec
+        print(f"{name + ' ' + what:56s}: " + (
+            "not measured (cpu)" if ms is None else
+            f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; "
+            f"kernel {rec['GB_s']:.0f} GB/s, "
+            f"{100 * rec['share_of_peak']:.1f}% of the HBM rate"), flush=True)
+    return out
+
+
+def run(device) -> dict:
+    """Times every kernel; returns {"kernel shape": rate}."""
+    import torch
+
+    out = {}
+    for M, W in NAN_SHAPES:
+        calls = nan_sweeps(M, W, device, seed=M)
+        out.update(time_sweeps(calls, f"{M}x{W} bf16", device))
+        del calls
+    M, W = MASKED_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        for mdt in (torch.bfloat16, torch.int8):
+            calls = masked_sweeps(M, W, dtype, mdt, device, seed=7)
+            out.update(time_sweeps(
+                calls, f"{M}x{W} {str(dtype)[6:]}, {str(mdt)[6:]} mask",
+                device))
+            del calls
+    M, W = VARIANT_SHAPE
+    calls = variant_sweeps(M, W, device, seed=9)
+    out.update(time_sweeps(calls, f"{M}x{W} bf16, the variant's panel",
+                           device))
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="sweep_timing.py",
+        description="time the column sweeps of one checkout of the port")
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(_HERE)),
+                   help="the checkout to import the package from")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import cuda_recommender_tpu_torch as pkg
+    from cuda_recommender_tpu_torch.core.device import resolve_device
+    from cuda_recommender_tpu_torch.scripts.common import card
+
+    if not os.path.abspath(pkg.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"the package came from {pkg.__file__}, not from "
+                           f"{root}: run each checkout in a fresh process")
+    device = resolve_device(args.device)
+    out = {"root": root, "device": card(device), "reps": REPS,
+           "kernels": run(device)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,7 +26,7 @@ from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
 from cuda_recommender_tpu_torch.data import datasets
 from cuda_recommender_tpu_torch.ops import launches
 from cuda_recommender_tpu_torch.scripts import panel_floor, \
-    panel_kernel_variants, probe_gather
+    panel_kernel_variants, probe_gather, profile_iteration, sweep_timing
 from cuda_recommender_tpu_torch.solvers import ccd_hybrid as ch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,8 +120,8 @@ def test_bench_counts_the_tail_and_the_ideal():
 
 
 def test_achievable_from_measured_controls():
-    """The 16-byte controls stand for the card; K1's own pattern (the
-    _cm/_rm controls) is the diagnostic and does not enter."""
+    """The 16-byte controls stand for the card; the 2-byte tile pattern
+    (the _cm/_rm controls) is the diagnostic and does not enter."""
     ctl = {"panels": [{"rmw_cm": {"ms": 3.0}, "rmw_rm": {"ms": 2.0},
                        "read_cm": {"ms": 1.0}, "rmw_vec16": {"ms": 1.5},
                        "read_vec16": {"ms": 0.75}},
@@ -219,6 +219,67 @@ def test_variant_matrix_script_on_cpu():
     assert rc == 0
     assert out["A1_vs_A0"] == {"bit_mismatches": 0, "cells": 700 * 300,
                                "max_abs_g_diff": 0.0}
+
+
+def test_variant_matrix_reports_16_byte_floors():
+    """The floors come in the 2-byte tile pattern and in 16-byte vectors,
+    each a line of its own and a key of the summary."""
+    rc, lines = _run(panel_kernel_variants.main, ["70", "30", "--device",
+                                                  "cpu"])
+    out = json.loads(lines[-1])
+    assert rc == 0
+    for tag in ("rmw_floor", "read_floor", "rmw_floor_vec16",
+                "read_floor_vec16"):
+        assert tag in out and out[tag]["GB_s"] is None
+        assert any(line.split(":")[0].strip() == tag for line in lines)
+
+
+def test_sweep_timing_script_on_cpu(monkeypatch):
+    """One line per column sweep (each against its plain version) and a
+    JSON summary naming this checkout; on the CPU every time is "not
+    measured"."""
+    monkeypatch.setattr(sweep_timing, "NAN_SHAPES", ((70, 33), (9, 301)))
+    monkeypatch.setattr(sweep_timing, "MASKED_SHAPE", (40, 17))
+    monkeypatch.setattr(sweep_timing, "VARIANT_SHAPE", (50, 90))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    rc, lines = _run(sweep_timing.main, ["--device", "cpu"])
+    out = json.loads(lines[-1])
+    assert rc == 0 and out["root"] == ROOT
+    names = [k.split(" ")[0] for k in out["kernels"]]
+    assert names.count("panel_update_vsweep") == 3
+    assert names.count("panel_usweep") == names.count("panel_vsweep") == 2
+    assert names.count("fused_update_vsweep") == 4
+    assert names.count("masked_usweep") == 4
+    assert names.count("masked_vsweep") == 4
+    assert names.count("panel_update_vsweep_irne") == 1
+    for r in out["kernels"].values():
+        assert r["ms"] is None and r["plain_ms"] is None
+        assert r["bytes"] > 0 and r["flops"] > 0
+    assert len(lines) == 1 + len(out["kernels"])
+
+
+def test_sweep_timing_refuses_a_package_from_elsewhere(monkeypatch,
+                                                       tmp_path):
+    """--root names the checkout to time; a process that already holds the
+    package from another one refuses rather than time the wrong kernels."""
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    with pytest.raises(RuntimeError, match="fresh process"):
+        sweep_timing.main(["--root", str(tmp_path), "--device", "cpu"])
+
+
+def test_profile_iteration_script_on_cpu(monkeypatch):
+    """Both configurations run one traced outer iteration; on the CPU no
+    device kernel is traced and the idle share is not measured."""
+    monkeypatch.setattr(profile_iteration, "DENSE",
+                        dict(m=300, n=120, nnz=6000, k=4, lam=0.1))
+    monkeypatch.setattr(profile_iteration, "HYBRID_ARGS",
+                        TINY[:8] + ["--panel-widths", "32,16"])
+    rc, lines = _run(profile_iteration.main, ["--device", "cpu"])
+    recs = [json.loads(x) for x in lines if x.startswith("{")]
+    assert rc == 0 and [r["config"] for r in recs] == ["hybrid", "dense"]
+    for r in recs:
+        assert r["kernels"] == [] and r["idle_pct"] is None
+        assert r["wall_ms"] > 0 and r["device"]["platform"] == "cpu"
 
 
 def test_variant_pattern_panel():

@@ -148,6 +148,63 @@ def test_fused_update_vsweep_matches_pallas(m, n, name, jdt, tdt, mdt):
 
 @pytest.mark.parametrize("mdt", MASKS)
 @pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+@pytest.mark.parametrize("n", list(range(1, 18)))
+def test_fused_update_vsweep_every_alignment(n, name, jdt, tdt, mdt):
+    """K4's plain version (the card's oracle) against the Pallas kernel at
+    widths of every residue mod 16 (the card's kernel moves 8 cells a lane
+    in 16-byte vectors, the int8 mask in 8-byte ones, so rows start off
+    their vector boundaries in as many ways), n < 8 and n = 1 among them,
+    19 rows."""
+    R, mask, vecs = _inputs(19, n, seed=n)
+    R_j, g_j, h_j = _jax_k4(R, mask, vecs, jdt)
+    Rt = torch.from_numpy(R).to(tdt)
+    Mt = torch.from_numpy(mask).to(mdt)
+    g_t, h_t = ck.fused_update_vsweep(Rt, Mt, *map(torch.from_numpy, vecs))
+    _assert_residual(Rt, R_j, name)
+    _close(g_t, g_j)
+    _close(h_t, h_j)
+    assert not Rt.to(torch.float32)[Mt == 0].any()   # unobserved stay 0
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("mdt", MASKS)
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K4", "masked_vsweep"])
+def test_offset_views_match_aligned_copies(kernel, tdt, mdt, offset):
+    """Residual and mask as contiguous views at odd element offsets (rows
+    off every vector boundary) store the same bits and give the same g and
+    h as aligned copies; the residual's guard cells are untouched. On the
+    CPU this holds the wrappers' plain path (its views and offsets); the
+    card's kernel is held to the same checks by chip_smoke.py's phase 3."""
+    R, mask, (ua, us, va, vs) = _inputs(21, 37, seed=offset)
+    X, Mk = torch.from_numpy(R).to(tdt), torch.from_numpy(mask).to(mdt)
+    n = X.numel()
+    buf = torch.full((n + offset + 19,), 0.3125, dtype=tdt)
+    view = buf[offset:offset + n].view(X.shape)
+    view.copy_(X)
+    mbuf = torch.zeros(n + offset + 2, dtype=mdt)
+    mview = mbuf[offset + 1:offset + 1 + n].view(X.shape)
+    mview.copy_(Mk)
+    guard = buf.clone()
+    vecs = [torch.from_numpy(v) for v in (ua, us, va, vs)]
+    if kernel == "K4":
+        got = ck.fused_update_vsweep(view, mview, *vecs)
+        want = ck.fused_update_vsweep(X, Mk, *vecs)
+    else:
+        got = ck.masked_vsweep(view, mview, vecs[0])
+        want = ck.masked_vsweep(X, Mk, vecs[0])
+    bits = torch.int16 if tdt == torch.bfloat16 else torch.int32
+    assert view.storage_offset() == offset and view.is_contiguous()
+    assert torch.equal(view.view(bits), X.view(bits))
+    assert torch.equal(buf[:offset].view(bits), guard[:offset].view(bits))
+    assert torch.equal(buf[offset + n:].view(bits),
+                       guard[offset + n:].view(bits))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mdt", MASKS)
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
 def test_masked_sweeps_match_half_sweep(name, jdt, tdt, mdt):
     """masked_vsweep / masked_usweep partials, divided by the port's
     _half_sweep, against the JAX package's ``_half_sweep`` (the XLA sweeps

@@ -110,6 +110,114 @@ def test_panel_kernels_match_pallas(M, W, bm, bw, name, jdt, tdt):
     assert set(launches.launch_counts().values()) == {0}
 
 
+#: widths of every residue mod 8 and mod 16 (the card's kernels move 8
+#: cells a lane in 16-byte vectors, so rows start off a 16-byte boundary in
+#: as many ways), W < 8 and W = 1 among them
+ALIGN_WIDTHS = list(range(1, 18))
+
+
+def _jax_padded(R, vecs, jdt, bm=8, bw=128):
+    """NaN-padded panel and zero-padded vectors at the Pallas blocks, so
+    that every width shares one compiled kernel; the pad cells are
+    unobserved and add nothing to g and h."""
+    M, W = R.shape
+    Mp, Wp = -(-M // bm) * bm, -(-W // bw) * bw
+    Rp = np.full((Mp, Wp), np.nan, np.float32)
+    Rp[:M, :W] = R
+    pads = (Mp, Mp, Wp, Wp)
+    return (jnp.asarray(Rp, jdt),
+            [jnp.asarray(np.pad(v, (0, p - v.shape[0]))) for v, p in
+             zip(vecs, pads)])
+
+
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+@pytest.mark.parametrize("W", ALIGN_WIDTHS)
+def test_plain_matches_pallas_every_alignment(W, name, jdt, tdt):
+    """K1's and K3's plain versions (the card's oracles) against the Pallas
+    kernels at every row alignment the card's kernels branch on, 19 rows
+    (not a multiple of the Pallas block)."""
+    M = 19
+    Rd, vecs = _inputs(M, W, seed=W)
+    Rj, (uo, up, vo, vp) = _jax_padded(Rd, vecs, jdt)
+    Rn_j, g_j, h_j = jp.panel_update_vsweep(Rj, uo, up, vo, vp,
+                                            interpret=True, bm=8, bw=128)
+    t = [torch.from_numpy(v) for v in vecs]
+    Rt = _port_panel(Rd, tdt)
+    g_t, h_t = pk.panel_update_vsweep(Rt, *t)
+    R_new = _jax_to_np32(Rn_j)
+    _assert_residual(Rt, R_new[:M, :W], name)
+    for got, want in ((g_t, g_j), (h_t, h_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want)[:W],
+                                   rtol=2e-5, atol=2e-4)
+    g3_j, h3_j = jp.panel_vsweep(jnp.asarray(R_new, jdt), up, interpret=True,
+                                 bm=8, bw=128)
+    g3_t, h3_t = pk.panel_vsweep(_port_panel(R_new[:M, :W], tdt), t[1])
+    for got, want in ((g3_t, g3_j), (h3_t, h3_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want)[:W],
+                                   rtol=2e-5, atol=2e-4)
+
+
+def _guarded_view(X: torch.Tensor, offset: int):
+    """(buffer, view): X copied into a contiguous (M, W) view ``offset``
+    elements into a buffer whose other cells hold a guard pattern."""
+    M, W = X.shape
+    buf = torch.full((M * W + offset + 19,), 0.3125, dtype=X.dtype)
+    view = buf[offset:offset + M * W].view(M, W)
+    view.copy_(X)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return buf, view
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_offset_view_matches_aligned_copy(kernel, tdt, offset):
+    """A contiguous view at an odd element offset (its rows off every
+    16-byte boundary) stores the same bits and gives the same g and h as an
+    aligned copy; the guard cells around it are untouched. On the CPU this
+    holds the wrappers' plain path (its views and offsets); the card's
+    kernel is held to the same checks by chip_smoke.py's phase 3."""
+    Rd, vecs = _inputs(21, 37, seed=offset)
+    t = [torch.from_numpy(v) for v in vecs]
+    X = _port_panel(Rd, tdt)
+    buf, view = _guarded_view(X, offset)
+    guard = buf.clone()
+    if kernel == "K1":
+        got, want = pk.panel_update_vsweep(view, *t), \
+            pk.panel_update_vsweep(X, *t)
+    else:
+        got, want = pk.panel_vsweep(view, t[0]), pk.panel_vsweep(X, t[0])
+    bits = torch.int16 if tdt == torch.bfloat16 else torch.int32
+    assert torch.equal(view.view(bits), X.view(bits))
+    n = X.numel()
+    assert torch.equal(buf[:offset].view(bits), guard[:offset].view(bits))
+    assert torch.equal(buf[offset + n:].view(bits),
+                       guard[offset + n:].view(bits))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,W", [(1, 1), (19, 7), (512, 256), (513, 257),
+                                 (330_128, 17_770), (13_464, 480_189),
+                                 (40_000_000, 3)])
+def test_sweep_geometry(M, W):
+    """The column sweep's grid: 256-column strips covering W when shifted
+    left by up to 63 columns (onto a 128-byte grid), row strips of a
+    multiple of 8 rows, interleaved 64 to a band, the bands covering M
+    within grid.y's limit, and one partial row of g and h per row strip."""
+    rpp, nparts, nstrips = pk._sweep_geometry(M, W)
+    assert pk._STRIP_COLS == 256 and pk._INTERLEAVE == 64
+    assert (nstrips - 1) * 256 < W + 63 <= nstrips * 256
+    assert rpp % 8 == 0 and rpp >= 512 and nparts <= 65_535
+    bands = nparts // 64
+    assert nparts % 64 == 0
+    assert (bands - 1) * 64 * rpp < M <= bands * 64 * rpp
+    if M * W <= 1 << 20:
+        rpp_b, g, h, gpart, hpart = pk._sweep_buffers(torch.empty(M, W))
+        assert rpp_b == rpp and g.shape == h.shape == (W,)
+        assert gpart.shape == hpart.shape == (nparts, W)
+
+
 def test_update_rounds_once_to_storage():
     """bf16 storage: the stored value is round-to-nearest-even of the f32
     sum R + (uo*vo - up*vp), and the sweep reads exactly what is stored."""
@@ -191,12 +299,17 @@ def test_build_requires_nvcc(monkeypatch, tmp_path):
 
 
 def test_rows_per_part_bounds_grid():
-    """The column-sum strips stay within CUDA's grid.y limit and are a
-    function of the row count alone (deterministic reduction order)."""
+    """The column sweep's row strips (its grid.y: 64 interleaved strips a
+    band of 64 x rows-per-strip rows) stay within CUDA's grid.y limit and
+    are a function of the row count alone (deterministic reduction
+    order)."""
     for M in (1, 50, 512, 513, 65_536, 480_189, 40_000_000):
         rpp = pk._rows_per_part(M)
         assert rpp % 8 == 0 and rpp >= 512
-        assert -(-M // rpp) <= 65_535
+        for W in (1, 17_770):
+            assert pk._sweep_geometry(M, W)[:2] == (
+                rpp, 64 * -(-M // (64 * rpp)))
+            assert pk._sweep_geometry(M, W)[1] <= 65_535
 
 
 def test_jax_interpret_backend_is_cpu():

@@ -170,7 +170,9 @@ MEASUREMENT_MODULES = (
     "cuda_recommender_tpu_torch.scripts.common",
     "cuda_recommender_tpu_torch.scripts.panel_floor",
     "cuda_recommender_tpu_torch.scripts.panel_kernel_variants",
-    "cuda_recommender_tpu_torch.scripts.probe_gather")
+    "cuda_recommender_tpu_torch.scripts.probe_gather",
+    "cuda_recommender_tpu_torch.scripts.profile_iteration",
+    "cuda_recommender_tpu_torch.scripts.sweep_timing")
 
 
 def test_port_imports_no_jax():
