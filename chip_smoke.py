@@ -7,7 +7,10 @@ Builds the hand-written kernels from ``cuda_recommender_tpu_torch/csrc``
 PyTorch version on the card; the column sweeps, which move 16-byte vectors,
 also at every row alignment (widths of every residue mod 16, W < 8, views
 one element off a 16-byte boundary between guard cells, and the transposed
-stair's odd-width panel 0). Then it drives the port's two paths:
+stair's odd-width panel 0); K5 bit-equal to its plain version at the edges
+of every width it instantiates, on separate tensors and on views of the
+ALS gram one float off a 16-byte boundary. Then it drives the port's two
+paths:
 
 * CCD++ on the panel-hybrid backend at Netflix-100M dims (k=40, bf16
   NaN-sentinel panels, the panel kernels K1-K3) through ``train()`` --
@@ -18,8 +21,9 @@ stair's odd-width panel 0). Then it drives the port's two paths:
   check;
 * ALS on the ELL backend at ml20M dims (k=40, the batched Gauss-Jordan
   kernel K5) through ``train()`` -- five outer iterations --, holds one
-  outer step against the same step with the plain solve, times K5 against
-  its plain version and ``torch.linalg.solve``, and runs the ``-ALS`` CLI
+  outer step bit-equal to the same step with the plain solve, times K5
+  (k = 10, 40, 128) against its plain version and ``torch.linalg.solve``,
+  and runs the ``-ALS`` CLI
   with the golden check;
 * CCD++ on the dense backend (K4, the fused masked update + v-sweep, and
   the masked sweeps): checks them against their plain versions, trains the
@@ -135,10 +139,14 @@ ODD_PANEL = (13_464, 480_189)
 #: dims, k=40, lambda=0.1, the gj solver, precision "highest"
 ALS_HEADLINE = dict(m=138_493, n=26_744, nnz=20_000_000, k=40, lam=0.1,
                     iters=5)
-#: K5 checks: (k, S) -- ragged S at every k, and the headline's two sides
-GJ_CHECKS = ((1, 1037), (10, 1037), (40, 1037), (128, 1037),
-             (40, 138_493), (40, 26_744))
-GJ_RTOL = 1e-5         # per system, max|x - x_plain| / max|x_plain|
+#: K5 checks: (k, S) -- the edges of every instantiation (widths padded to
+#: multiples of 8 up to 64, then 32-column slots) at a ragged S, and the
+#: headline's two sides
+GJ_CHECKS = tuple((k, 1037) for k in (1, 2, 8, 9, 16, 17, 32, 33, 40, 48, 63,
+                                      64, 65, 128)) + ((40, 138_493),
+                                                       (40, 26_744))
+#: K5 timing (phase 9): k at the ALS headline's rows side
+GJ_TIMED_KS = (10, 40, 128)
 GJ_F64_TOL = 5e-4      # rtol = atol against the f64 solve (test_pallas.py:87)
 GJ_F64_SYSTEMS = 4096  # systems checked against f64 at large S
 
@@ -464,64 +472,64 @@ def run_cli() -> None:
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
-def spd_systems(k, S, seed, device="cuda"):
-    """S seeded SPD systems F Fᵀ + 3I, F (S, k, min(k, 16)) standard normal
-    (the systems of tests/test_pallas.py:79-87), and right-hand sides."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    F = torch.randn((S, k, min(k, 16)), generator=gen, device=device)
-    A = torch.bmm(F, F.transpose(1, 2))
-    A.diagonal(dim1=1, dim2=2).add_(3.0)
-    b = torch.randn((S, k), generator=gen, device=device)
-    return A, b
+def gj_layouts(A, b):
+    """K5's two input layouts: separate A and b, and views of one
+    (S, k+1, k+1) augmented gram as the ALS assembly passes them
+    (solvers/als_ell.py), its base one float off a 16-byte boundary."""
+    S, k = b.shape
+    yield "separate", A, b
+    buf = torch.full((S * (k + 1) ** 2 + 2 * VIEW_OFFSET,), -7.0,
+                     device=A.device)
+    aug = buf[VIEW_OFFSET:VIEW_OFFSET + S * (k + 1) ** 2].view(S, k + 1,
+                                                                k + 1)
+    aug[:, :k, :k], aug[:, :k, k] = A, b
+    aug[:, k, :] = 5.0                  # the gram's last row, never read
+    yield "ALS gram", aug[:, :k, :k], aug[:, :k, k]
 
 
 def check_gj(checks=GJ_CHECKS) -> float:
-    """K5 against its plain version on the same systems: per system
-    max|x - x_plain| <= GJ_RTOL * max|x_plain|, repeat runs bit-identical,
-    both within GJ_F64_TOL of the f64 solve (all systems, or the first
-    GJ_F64_SYSTEMS and the last 37 at large S). Returns the largest
-    |x - x_plain|."""
+    """K5 against its plain version on the same systems, on both layouts
+    (gj_layouts): x bit-equal (0 entries differ, asserted), repeat runs
+    bit-identical, both within GJ_F64_TOL of the f64 solve (all systems,
+    or the first GJ_F64_SYSTEMS and the last 37 at large S). Returns the
+    largest |x - x_plain| (0 when every check passed)."""
     from cuda_recommender_tpu_torch.ops import gj_kernels as gk
+    from cuda_recommender_tpu_torch.scripts.sweep_timing import spd_systems
 
     worst = 0.0
     for k, S in checks:
         t0 = time.perf_counter()
-        A, b = spd_systems(k, S, seed=k * 7919 + S)
-        x = gk.gj_solve(A, b)
-        x2 = gk.gj_solve(A, b)
+        A, b = spd_systems(k, S, "cuda", seed=k * 7919 + S)
         xp = gk.gj_solve_plain(A, b)
-        torch.cuda.synchronize()
-        if not (bool(torch.isfinite(x).all()) and torch.equal(x, x2)):
-            raise AssertionError(f"K5 k={k} S={S}: non-finite or not "
-                                 "repeatable")
-        err = (x - xp).abs().amax(dim=1)
-        bound = GJ_RTOL * xp.abs().amax(dim=1)
-        if bool((err > bound).any()):
-            s = int(torch.argmax(err - bound))
-            raise AssertionError(f"K5 k={k} S={S}: system {s} max|x - "
-                                 f"x_plain| {float(err[s]):.3e} > "
-                                 f"{float(bound[s]):.3e}")
         sub = (torch.arange(S, device=A.device) if S <= GJ_F64_SYSTEMS
                else torch.cat([torch.arange(GJ_F64_SYSTEMS, device=A.device),
                                torch.arange(S - 37, S, device=A.device)]))
         ref = torch.linalg.solve(A[sub].double(), b[sub].double())
         f64 = {}
-        for name, got in (("kernel", x), ("plain", xp)):
-            d = (got[sub].double() - ref).abs()
+        for name, Av, bv in gj_layouts(A, b):
+            x = gk.gj_solve(Av, bv)
+            x2 = gk.gj_solve(Av, bv)
+            torch.cuda.synchronize()
+            n_bits = int((x.view(torch.int32) != xp.view(torch.int32)).sum())
+            worst = max(worst, float((x - xp).abs().max()))
+            if n_bits or not (bool(torch.isfinite(x).all()) and torch.equal(
+                    x.view(torch.int32), x2.view(torch.int32))):
+                raise AssertionError(f"K5 k={k} S={S} {name}: {n_bits} of "
+                                     f"{x.numel()} entries differ in bits "
+                                     f"from the plain version, or x is not "
+                                     f"finite, or a repeat run differs")
+            d = (x[sub].double() - ref).abs()
             if bool((d > GJ_F64_TOL * (1 + ref.abs())).any()):
-                raise AssertionError(f"K5 k={k} S={S}: {name} off the f64 "
+                raise AssertionError(f"K5 k={k} S={S} {name}: off the f64 "
                                      f"solve by {float(d.max()):.3e}")
             f64[name] = float(d.max())
-        n_bits = int((x.view(torch.int32) != xp.view(torch.int32)).sum())
-        worst = max(worst, float(err.max()))
-        print(f"[check] gj_solve k={k:3d} S={S:6d}: max|x - x_plain| "
-              f"{float(err.max()):.3e} (largest / max|x_plain| per system "
-              f"{float((err / xp.abs().amax(dim=1)).max()):.2e}, bar "
-              f"{GJ_RTOL}); {n_bits} of {x.numel()} entries differ in bits; "
-              f"repeatable; max|x - f64| kernel {f64['kernel']:.3e} plain "
-              f"{f64['plain']:.3e} (bar {GJ_F64_TOL}) "
+            del x, x2
+        print(f"[check] gj_solve k={k:3d} S={S:6d}: 0 of {xp.numel()} "
+              f"entries differ in bits from the plain version, separate "
+              f"tensors and ALS gram views; repeatable; max|x - f64| "
+              f"{f64['separate']:.3e} (bar {GJ_F64_TOL}) "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-        del A, b, x, x2, xp
+        del A, b, xp, ref
         torch.cuda.empty_cache()
     return worst
 
@@ -608,13 +616,11 @@ def run_als_headline(device, *, m, n, nnz, k, lam, iters,
         print(f"[als] one outer step, solver {solver}: "
               f"{time.perf_counter() - t1:.4f} s", flush=True)
     for name, a, b in zip("WH", out["gj"], out["gj_xla"]):
-        d = float((a - b).abs().max())
-        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
-            raise AssertionError(f"ALS step {name}: gj vs gj_xla max diff "
-                                 f"{d:.3e}")
-        print(f"[als] step {name}: gj vs gj_xla max|diff| {d:.3e} "
-              f"(bar rtol 1e-4, atol 1e-5); bit-equal "
-              f"{torch.equal(a, b)}", flush=True)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"ALS step {name}: gj vs gj_xla not "
+                                 f"bit-equal, max|diff| "
+                                 f"{float((a - b).abs().max()):.3e}")
+        print(f"[als] step {name}: gj bit-equal to gj_xla", flush=True)
     del R, T, res, out, idx_r, vals_r, idx_c, vals_c
     torch.cuda.empty_cache()
     return dict(s_iter=s_iter, rate=rate, peak=peak, launches=launches,
@@ -625,28 +631,24 @@ def time_gj(k, S=ALS_HEADLINE["m"], reps=5) -> dict:
     """K5 against its plain version and the one PyTorch call that computes
     its function (``torch.linalg.solve``, batched LU; the port never calls
     it) at (k, S), warm, in turns plain, library, kernel, kernel, library,
-    plain. Returns ms, plain_ms, library_ms, bound_ms, bound_by: K5 reads A
-    and b and writes x, and does 2·S·k²·(k+1) flops of elimination."""
-    from cuda_recommender_tpu_torch.ops import gj_kernels as gk
-    from cuda_recommender_tpu_torch.scripts.sweep_timing import time_turns
+    plain (scripts/sweep_timing.py::gj_solves: the calls, their bytes and
+    the elimination's flops). Returns ms, plain_ms, library_ms, bound_ms,
+    bound_by."""
+    from cuda_recommender_tpu_torch.scripts import sweep_timing as st
 
-    A, b = spd_systems(k, S, seed=11)
-    kern, plain = (lambda: gk.gj_solve(A, b)), (lambda: gk.gj_solve_plain(A,
-                                                                         b))
-    lib = (lambda: torch.linalg.solve(A, b))
-    (p1, p2), (l1, l2), (k1, k2) = time_turns([plain, lib, kern],
-                                              torch.device("cuda"), reps)
-    flop = 2 * S * k * k * (k + 1)
-    b_ms, b_by = bound(4 * (A.numel() + 2 * b.numel()), flop)
-    print(f"[timing] gj_solve S={S} k={k}: kernel {k1:.3f} / {k2:.3f} ms, "
-          f"plain {p1:.3f} / {p2:.3f} ms, torch.linalg.solve {l1:.3f} / "
-          f"{l2:.3f} ms; bound {b_ms:.3f} ms ({b_by}); kernel "
-          f"{flop / ((k1 + k2) / 2e3) / 1e12:.2f} TFLOP/s of elimination",
+    calls = st.gj_solves(k, S, torch.device("cuda"), seed=11)
+    rec = st.time_sweeps(calls, f"S={S} k={k}", torch.device("cuda"),
+                         reps)[f"gj_solve S={S} k={k}"]
+    b_ms, b_by = bound(rec["bytes"], rec["flops"])
+    print(f"[timing] gj_solve S={S} k={k}: torch.linalg.solve "
+          f"{rec['library_ms']:.3f} ms; bound {b_ms:.3f} ms ({b_by}), "
+          f"{100 * b_ms / rec['ms']:.1f}% of it; kernel "
+          f"{rec['flops'] / rec['ms'] / 1e9:.2f} TFLOP/s of elimination",
           flush=True)
-    del A, b
+    del calls
     torch.cuda.empty_cache()
-    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                library_ms=(l1 + l2) / 2, bound_ms=b_ms, bound_by=b_by)
+    return dict(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                library_ms=rec["library_ms"], bound_ms=b_ms, bound_by=b_by)
 
 
 #: the ALS CLI run's golden bar: the JAX package's own ALS golden bar
@@ -1557,9 +1559,9 @@ def main() -> int:
         als = run_als_headline(dev, metrics_file=os.path.join(
             tmp, "als.jsonl"), **ALS_HEADLINE)
 
-    phase("9 K5 timing at the ALS headline's rows side (S=138,493), "
-          "against its plain version and torch.linalg.solve")
-    gj_times = {k: time_gj(k) for k in (40, 128)}
+    phase("9 K5 timing at the ALS headline's rows side (S=138,493; k=10, "
+          "40, 128), against its plain version and torch.linalg.solve")
+    gj_times = {k: time_gj(k) for k in GJ_TIMED_KS}
     print(f"[timing] card: {smi}", flush=True)
 
     phase("10 ALS CLI with golden check")

@@ -5,10 +5,20 @@ A (S, k, k) and b (S, k), 1 <= k <= 128: the ALS normal equations
 F_Ω^T F_Ω + λI, SPD with their mass on the diagonal. It replaces the Pallas
 kernel ``cuda_recommender_tpu/ops/gj_pallas.py::gj_solve_pallas_bl``; the
 CUDA C++ source is ``csrc/gj_kernels.cu``, which says what bounds the
-kernel on an H100 and how it is laid out. The JAX kernel's batch-last
-(k, k+1, 128-lane) layout and its identity padding of S were the TPU's;
-here the batch is the leading axis, as the assembly makes it, and the grid
-covers a ragged S exactly.
+kernel on an H100 and how it is laid out. It is bound by instruction issue,
+not memory, so it spends issue only on needed work: step i updates only
+the live columns i+1 .. k (finished columns are never read again for x),
+and up to k = 64 the rows lie across the lanes of one warp with the
+columns in registers, the steps unrolled at compile time, so a row's
+multiplier is a register and no shuffle, select or block barrier is left
+in a step; the width is k padded to a multiple of 8 as identity. Above
+k = 64 a block holds a system, columns across lanes, and skips the column
+slots that are wholly finished. Both keep x bit-equal to the plain
+version (tests/test_torch_gj.py holds the live-column order and the
+identity padding bit-equal on the CPU; chip_smoke.py the kernel on the
+card). The JAX kernel's batch-last (k, k+1, 128-lane) layout and its
+identity padding of S were the TPU's; here the batch is the leading axis,
+as the assembly makes it, and a ragged S needs no padding.
 
 ``gj_solve_plain(A, b)`` is its plain PyTorch version, the port of the JAX
 package's ``gauss_jordan_solve`` (solvers/als_ell.py): the same pivot-free

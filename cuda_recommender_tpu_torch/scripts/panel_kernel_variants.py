@@ -16,13 +16,18 @@ after one warm-up launch:
   read_floor the read floor: g = column sums with NaN read as 0, in the
              2-byte tile pattern
   read_floor_vec16  the same in 16-byte vectors, rows realigned by shuffles
+  rmw_add_   ``R.add_(1)``, the one PyTorch call that does rmw_floor's work
+  read_nansum  ``torch.nansum(R, 0)``, the one PyTorch call that does
+             read_floor's work
   A0         K1, panel_update_vsweep (hardware round-to-nearest-even)
   A1         K1 with its store rounded by integer round-to-nearest-even on
              the f32 bits (panel_update_vsweep_irne), from the same
              initial panel through as many chained launches as A0
   B0         K2, panel_usweep
 
-then A1 against A0: the stored residuals' bit mismatches (0 expected: both
+The floors run in turns with their PyTorch call (2-byte, 16-byte, call,
+call, 16-byte, 2-byte; ``sweep_timing.time_turns``) on one panel each; then
+A1 against A0: the stored residuals' bit mismatches (0 expected: both
 round to nearest even) and max |g diff|. Prints one line per run and a
 JSON summary with the launch counts.
 """
@@ -41,6 +46,7 @@ from ..ops import launches
 from ..ops import panel_kernels as pk
 from ..ops import probe_kernels as pr
 from .common import card, rate, time_ms
+from .sweep_timing import time_turns
 
 DEFAULT_SHAPE = (165_376, 18_432)
 #: timed launches per run, after one untimed
@@ -81,14 +87,18 @@ def run(M: int, W: int, device, seed: int = 0) -> dict:
                                 f"{ms:.3f} ms ({gbs:.0f} GB/s)"),
               flush=True)
 
-    for vec16 in (False, True):
-        tag = "_vec16" if vec16 else ""
-        R = pattern_panel(M, W, device)
-        report("rmw_floor" + tag, 4 * cells, time_ms(
-            lambda: pr.stream_rmw(R, vec16=vec16), device, REPS, 1))
-        R = pattern_panel(M, W, device)
-        report("read_floor" + tag, 2 * cells, time_ms(
-            lambda: pr.stream_read(R, vec16=vec16), device, REPS, 1))
+    R = pattern_panel(M, W, device)
+    for tags, nbytes, fns in (
+            (("rmw_floor", "rmw_floor_vec16", "rmw_add_"), 4 * cells,
+             (lambda: pr.stream_rmw(R), lambda: pr.stream_rmw(R, vec16=True),
+              lambda: R.add_(1))),
+            (("read_floor", "read_floor_vec16", "read_nansum"), 2 * cells,
+             (lambda: pr.stream_read(R),
+              lambda: pr.stream_read(R, vec16=True),
+              lambda: torch.nansum(R, 0, dtype=torch.float32)))):
+        for tag, turns in zip(tags, time_turns(fns, device, REPS)):
+            report(tag, nbytes, None if turns[0] is None else sum(turns) / 2)
+    del R
 
     res = {}
     for tag, fn in (("A0", pk.panel_update_vsweep),

@@ -1,14 +1,18 @@
-"""One steady outer iteration of a CCD++ configuration under torch.profiler:
-device time by kernel name, the device span, busy time and idle share.
+"""One steady outer iteration of a training configuration under
+torch.profiler: device time by kernel name, the device span, busy time and
+idle share.
 
     python -m cuda_recommender_tpu_torch.scripts.profile_iteration
 
-Two configurations, in turn: the port's bench headline (``bench.py``:
+Three configurations, in turn: the port's bench headline (``bench.py``:
 Netflix-100M dims, k = 40, bf16 NaN-sentinel panels, hand stair (4096, 2048)
-under 6.5e9 cells; K1, K2 and the ELL tail), then the JAX README's quick
-start (ml10M dims, k = 10, f32 residual, bf16 mask; K4 and masked_usweep).
-Each runs two untraced outer iterations, then one traced. Prints one line
-per kernel name and a JSON summary per configuration as its last line.
+under 6.5e9 cells; K1, K2 and the ELL tail), the JAX README's quick start
+(ml10M dims, k = 10, f32 residual, bf16 mask; K4 and masked_usweep), and
+the ALS headline (``scripts/bench_als_tpu.py:76-79``: ml20M dims, k = 40,
+λ = 0.1; the gathers, the gram ``bmm`` and K5; the step alone, without the
+trainer's RMSE). Each runs two untraced outer iterations, then one traced.
+Prints one line per kernel name and a JSON summary per configuration as its
+last line.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from .common import card
 DENSE = dict(m=69_878, n=10_677, nnz=10_000_000, k=10, lam=0.05)
 #: bench.py's headline arguments (its defaults)
 HYBRID_ARGS: list = []
+#: the JAX package's ALS headline (scripts/bench_als_tpu.py:76-79)
+ALS = dict(m=138_493, n=26_744, nnz=20_000_000, k=40, lam=0.1)
 
 
 def hybrid_step(device):
@@ -70,6 +76,29 @@ def dense_step(device, m, n, nnz, k, lam):
     step = cd.make_outer_step(lam, 1)
     return (lambda: step(st, mask, rnz, cnz),
             f"dense {m}x{n}, k={k}, f32 residual, bf16 mask")
+
+
+def als_step(device, m, n, nnz, k, lam):
+    """The ALS headline's outer step (solver gj: K5) from the trainer's
+    initial state, set up as ``als_ell_train`` sets it up."""
+    from ..core.config import Config
+    from ..data.ell import build_ell_pair
+    from ..solvers import als_ell
+    from ..solvers.als_state import als_state_from_numpy, slot_payload
+
+    cfg = Config(solver="als", k=k, lambda_=lam, als_solver="gj")
+    R, _ = synthetic_cached(m, n, nnz, seed=1, test_fraction=0.02)
+    W0, H0 = init_factors_np(k, R.rows, R.cols, seed=cfg.seed,
+                             entity_major=True)
+    ell = build_ell_pair(R, min_width=cfg.als_min_width)
+    idx_r, vals_r = als_ell.side_tensors(ell.rows_side, device)
+    idx_c, vals_c = als_ell.side_tensors(ell.cols_side, device)
+    nnz_r = torch.as_tensor(ell.rows_side.slot_nnz, device=device)
+    nnz_c = torch.as_tensor(ell.cols_side.slot_nnz, device=device)
+    W, H = als_state_from_numpy(slot_payload(ell, W0, H0), ell, device)
+    step = als_ell.make_als_outer_step(ell, lam, solver="gj")
+    return (lambda: step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c),
+            f"als {m}x{n}, nnz {nnz}, k={k}, solver gj")
 
 
 def profile_split(step, device, warm: int = 2) -> dict:
@@ -130,13 +159,14 @@ def report(what: str, out: dict) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="cuda_recommender_tpu_torch.scripts.profile_iteration",
-        description="one steady CCD++ outer iteration under torch.profiler")
+        description="one steady outer iteration under torch.profiler")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    for which in ("hybrid", "dense"):
+    for which in ("hybrid", "dense", "als"):
         step, what = (hybrid_step(device) if which == "hybrid"
-                      else dense_step(device, **DENSE))
+                      else dense_step(device, **DENSE) if which == "dense"
+                      else als_step(device, **ALS))
         out = profile_split(step, device)
         del step
         report(what, out)

@@ -1,6 +1,7 @@
-"""Column-sweep timing: K1, K2, K3, K4, the masked sweeps and the rounding
-variant at the main paths' shapes, each against its plain version, for one
-checkout of the port.
+"""Kernel timing: K1, K2, K3, K4, the masked sweeps, the rounding variant
+and K5 at the main paths' shapes, each against its plain version (K5 also
+against ``torch.linalg.solve``, the one PyTorch call that computes its
+function), for one checkout of the port.
 
     python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
 
@@ -10,9 +11,13 @@ script times two versions of the kernels on one card. Run it once per
 checkout, in turns (A, B, B, A), each in a fresh process. Each kernel and
 its plain version are timed in turns (plain, kernel, kernel, plain; CUDA
 events over REPS calls each, after one warm-up call) on panels far larger
-than the 50 MB L2. ``chip_smoke.py`` times its phases 6 and 15 through
-``nan_sweeps``, ``masked_sweeps`` and ``time_sweeps``, so that one place
-holds the calls, their bytes and their operations. Prints one line per
+than the 50 MB L2; K5 in turns plain, library, kernel, kernel, library,
+plain on the ALS headline's rows side (S = 138,493 systems, views of one
+augmented gram as the ALS assembly passes them) at each of GJ_KS.
+``chip_smoke.py`` times its phases 6, 9 and 15 through ``nan_sweeps``,
+``gj_solves``, ``masked_sweeps`` and ``time_sweeps``, and checks K5 on
+``spd_systems``, so that one place holds the calls, their bytes and their
+operations. Prints one line per
 kernel and a JSON summary (ms, plain ms, GB/s and share of the HBM rate of
 the bytes each call must move) as the last line; on the CPU the times are
 null ("not measured").
@@ -33,8 +38,14 @@ NAN_SHAPES = ((330_128, 17_770), (13_464, 480_189))
 MASKED_SHAPE = (69_878, 10_677)
 #: the rounding variant: the variant matrix's panel and NaN pattern
 VARIANT_SHAPE = (165_376, 18_432)
+#: K5: the ALS headline's rows side (ml20M's users) at k = 10, 40 (the
+#: headline) and 128 (the kernel's widest)
+GJ_S = 138_493
+GJ_KS = (10, 40, 128)
 #: timed calls per kernel and turn, after one untimed
 REPS = 10
+#: the same for K5 (its plain version takes about 2 s a call at k = 128)
+GJ_REPS = 5
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -129,6 +140,41 @@ def variant_sweeps(M, W, device, seed) -> dict:
             lambda: pk.panel_update_vsweep_plain(R, *vecs), nbytes, flops)}
 
 
+def spd_systems(k, S, device, seed):
+    """S seeded SPD systems F Fᵀ + 3I, F (S, k, min(k, 16)) standard normal
+    (the systems of tests/test_pallas.py:79-87), and right-hand sides."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    F = torch.randn((S, k, min(k, 16)), generator=gen, device=device)
+    A = torch.bmm(F, F.transpose(1, 2))
+    A.diagonal(dim1=1, dim2=2).add_(3.0)
+    b = torch.randn((S, k), generator=gen, device=device)
+    return A, b
+
+
+def gj_solves(k, S, device, seed) -> dict:
+    """K5 on S seeded SPD systems of size k, laid out as the ALS assembly
+    passes them (solvers/als_ell.py): A and b are views of one
+    (S, k+1, k+1) augmented gram. {"gj_solve": (kernel call, plain call,
+    bytes, flops, library call)}. Bytes: A and b read, x written. Flops:
+    the elimination's live columns, a multiply and a subtract for each of
+    k rows × (k - i) columns at step i, S·k²·(k+1) in all (a full sweep of
+    every column would be twice that)."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import gj_kernels as gk
+
+    A, b = spd_systems(k, S, device, seed)
+    aug = torch.zeros((S, k + 1, k + 1), device=device)
+    aug[:, :k, :k], aug[:, :k, k] = A, b
+    A, b = aug[:, :k, :k], aug[:, :k, k]
+    return {"gj_solve": (lambda: gk.gj_solve(A, b),
+                         lambda: gk.gj_solve_plain(A, b),
+                         4 * (A.numel() + 2 * b.numel()), S * k * k * (k + 1),
+                         lambda: torch.linalg.solve(A, b))}
+
+
 def time_turns(fns, device, reps: int) -> list:
     """Each of ``fns`` warmed up once, then timed in turns forward and back
     (a, b, ..., b, a), each turn ``common.time_ms`` over ``reps`` calls, so
@@ -149,26 +195,32 @@ def time_turns(fns, device, reps: int) -> list:
 
 
 def time_sweeps(calls: dict, what: str, device, reps: int = REPS) -> dict:
-    """Each of ``calls`` (name -> (kernel, plain, bytes, flops)) against
-    its plain version, in turns plain, kernel, kernel, plain
-    (``time_turns``); prints a line each. Returns "name what" ->
-    {ms, plain_ms, the two turns' ms of each, bytes, flops, GB_s,
-    share_of_peak}."""
+    """Each of ``calls`` (name -> (kernel, plain, bytes, flops[, library
+    call])) against its plain version, in turns plain, [library,] kernel,
+    kernel, [library,] plain (``time_turns``); prints a line each. Returns
+    "name what" -> {ms, plain_ms, library_ms (None without one), the two
+    turns' ms of each, bytes, flops, GB_s, share_of_peak}."""
     from cuda_recommender_tpu_torch.scripts.common import rate
 
+    def mean(turns):
+        return None if turns[0] is None else sum(turns) / 2
+
     out = {}
-    for name, (kern, plain, nbytes, flops) in calls.items():
-        (p1, p2), (k1, k2) = time_turns([plain, kern], device, reps)
-        ms = None if k1 is None else (k1 + k2) / 2
-        rec = {**rate(nbytes, ms),
-               "plain_ms": None if p1 is None else (p1 + p2) / 2,
+    for name, (kern, plain, nbytes, flops, *lib) in calls.items():
+        got = time_turns([plain, *lib, kern], device, reps)
+        (p1, p2), (k1, k2) = got[0], got[-1]
+        ms = mean(got[-1])
+        rec = {**rate(nbytes, ms), "plain_ms": mean(got[0]),
+               "library_ms": mean(got[1]) if lib else None,
                "turns": [k1, k2], "plain_turns": [p1, p2],
+               "library_turns": list(got[1]) if lib else None,
                "bytes": nbytes, "flops": flops}
         out[f"{name} {what}"] = rec
         print(f"{name + ' ' + what:56s}: " + (
             "not measured (cpu)" if ms is None else
-            f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; "
-            f"kernel {rec['GB_s']:.0f} GB/s, "
+            f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms"
+            + (f", library {got[1][0]:.3f} / {got[1][1]:.3f} ms" if lib
+               else "") + f"; kernel {rec['GB_s']:.0f} GB/s, "
             f"{100 * rec['share_of_peak']:.1f}% of the HBM rate"), flush=True)
     return out
 
@@ -194,6 +246,11 @@ def run(device) -> dict:
     calls = variant_sweeps(M, W, device, seed=9)
     out.update(time_sweeps(calls, f"{M}x{W} bf16, the variant's panel",
                            device))
+    del calls
+    for k in GJ_KS:
+        calls = gj_solves(k, GJ_S, device, seed=11)
+        out.update(time_sweeps(calls, f"S={GJ_S} k={k}", device, GJ_REPS))
+        del calls
     return out
 
 

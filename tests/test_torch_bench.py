@@ -223,24 +223,26 @@ def test_variant_matrix_script_on_cpu():
 
 def test_variant_matrix_reports_16_byte_floors():
     """The floors come in the 2-byte tile pattern and in 16-byte vectors,
-    each a line of its own and a key of the summary."""
+    beside the PyTorch call that does the same work, each a line of its own
+    and a key of the summary."""
     rc, lines = _run(panel_kernel_variants.main, ["70", "30", "--device",
                                                   "cpu"])
     out = json.loads(lines[-1])
     assert rc == 0
     for tag in ("rmw_floor", "read_floor", "rmw_floor_vec16",
-                "read_floor_vec16"):
+                "read_floor_vec16", "rmw_add_", "read_nansum"):
         assert tag in out and out[tag]["GB_s"] is None
         assert any(line.split(":")[0].strip() == tag for line in lines)
 
 
 def test_sweep_timing_script_on_cpu(monkeypatch):
-    """One line per column sweep (each against its plain version) and a
-    JSON summary naming this checkout; on the CPU every time is "not
-    measured"."""
+    """One line per column sweep and K5 width (each against its plain
+    version; K5 also against torch.linalg.solve) and a JSON summary naming
+    this checkout; on the CPU every time is "not measured"."""
     monkeypatch.setattr(sweep_timing, "NAN_SHAPES", ((70, 33), (9, 301)))
     monkeypatch.setattr(sweep_timing, "MASKED_SHAPE", (40, 17))
     monkeypatch.setattr(sweep_timing, "VARIANT_SHAPE", (50, 90))
+    monkeypatch.setattr(sweep_timing, "GJ_S", 37)
     monkeypatch.setattr(sys, "path", list(sys.path))
     rc, lines = _run(sweep_timing.main, ["--device", "cpu"])
     out = json.loads(lines[-1])
@@ -252,9 +254,15 @@ def test_sweep_timing_script_on_cpu(monkeypatch):
     assert names.count("masked_usweep") == 4
     assert names.count("masked_vsweep") == 4
     assert names.count("panel_update_vsweep_irne") == 1
+    assert [k for k in out["kernels"] if k.startswith("gj_solve")] == [
+        f"gj_solve S=37 k={k}" for k in sweep_timing.GJ_KS]
     for r in out["kernels"].values():
         assert r["ms"] is None and r["plain_ms"] is None
+        assert r["library_ms"] is None
         assert r["bytes"] > 0 and r["flops"] > 0
+    gj = out["kernels"]["gj_solve S=37 k=40"]
+    assert gj["bytes"] == 4 * 37 * (40 * 40 + 2 * 40)
+    assert gj["flops"] == 37 * 40 * 40 * 41
     assert len(lines) == 1 + len(out["kernels"])
 
 
@@ -268,15 +276,18 @@ def test_sweep_timing_refuses_a_package_from_elsewhere(monkeypatch,
 
 
 def test_profile_iteration_script_on_cpu(monkeypatch):
-    """Both configurations run one traced outer iteration; on the CPU no
+    """Every configuration runs one traced outer iteration; on the CPU no
     device kernel is traced and the idle share is not measured."""
     monkeypatch.setattr(profile_iteration, "DENSE",
                         dict(m=300, n=120, nnz=6000, k=4, lam=0.1))
+    monkeypatch.setattr(profile_iteration, "ALS",
+                        dict(m=300, n=120, nnz=6000, k=6, lam=0.1))
     monkeypatch.setattr(profile_iteration, "HYBRID_ARGS",
                         TINY[:8] + ["--panel-widths", "32,16"])
     rc, lines = _run(profile_iteration.main, ["--device", "cpu"])
     recs = [json.loads(x) for x in lines if x.startswith("{")]
-    assert rc == 0 and [r["config"] for r in recs] == ["hybrid", "dense"]
+    assert rc == 0 and [r["config"] for r in recs] == ["hybrid", "dense",
+                                                       "als"]
     for r in recs:
         assert r["kernels"] == [] and r["idle_pct"] is None
         assert r["wall_ms"] > 0 and r["device"]["platform"] == "cpu"

@@ -95,6 +95,52 @@ def test_wrapper_validates_inputs(bad):
         gk.gj_solve(A, b)
 
 
+def _live_column_gj(A, b, width=None):
+    """The elimination as csrc/gj_kernels.cu orders it, on the CPU: step i
+    updates only the live columns i+1 .. k and the rhs (columns <= i are
+    finished and never read again for x), with the plain version's
+    roundings. With ``width`` the system is first padded to width × width
+    as identity (zero extra rows and columns, a unit diagonal, a zero rhs)
+    and all ``width`` steps run."""
+    S, k = b.shape
+    n = k if width is None else width
+    M = torch.zeros((S, n, n + 1))
+    M[:, :k, :k], M[:, :k, n] = A, b
+    M[:, range(k, n), range(k, n)] = 1.0
+    for i in range(n):
+        prow = M[:, i, i + 1:] / M[:, i, i:i + 1]
+        M[:, :, i + 1:] -= M[:, :, i:i + 1] * prow.unsqueeze(1)
+        M[:, i, i + 1:] = prow
+    return M[:, :k, n].contiguous()
+
+
+@pytest.mark.parametrize("singular", [False, True])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 8, 16, 17, 31, 32, 33, 40, 63, 64, 65,
+                               128])
+def test_live_columns_and_identity_padding_keep_the_bits(k, padded, singular):
+    """The kernel's two invariants, bitwise against gj_solve_plain on ragged
+    batches: updating only the live columns, and padding a system to a
+    wider width (the next multiple of 8, or 8 more where k is one) as
+    identity. A singular λ = 0 system (a zero gram) gives non-finite x in
+    the same entries."""
+    S = 29 + k % 7
+    A, b = _systems(k, S, seed=k * 100 + S)
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    if singular:
+        At[::3] = 0.0
+    want = gk.gj_solve_plain(At, bt)
+    width = (k + 7) // 8 * 8 if k % 8 else k + 8
+    got = _live_column_gj(At, bt, width if padded else None)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert bool(finite.all()) != singular
+    if singular:
+        assert not bool(finite[::3].any())
+    assert torch.equal(got[finite].view(torch.int32),
+                       want[finite].view(torch.int32))
+
+
 def test_plain_is_pivot_free_gauss_jordan():
     """The plain version is the JAX package's elimination step for step:
     on a 2x2 system its arithmetic can be written out."""
