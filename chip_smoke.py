@@ -39,7 +39,16 @@ paths:
   cuda_recommender_tpu_torch.bench``) at the headline, then with the auto
   stair, the auto orientation and the transposed stair, times the probe
   kernels at the bench's shapes, runs the variant and gather probe scripts
-  and a small ``cli/bench.py`` grid.
+  and a small ``cli/bench.py`` grid;
+* serving (``serve/``, ``models/``, ``data/binfmt.py`` and the file and
+  serving CLIs): writes and reads back the headline run's factors in the
+  reference's model format, retrieves top-10 items over its 17,770-item
+  catalog and over a 1M-item catalog tiled from it (f32 and int8 item
+  tables, each batch path held against the brute force on the card),
+  reports QPS, recall@10, the engine's p50/p99 latency and each batch's
+  time split, runs ``cli/bench_serve.py`` (ALS training with K5, then
+  serving) with its defaults and ``--latency``, and runs convert -> train
+  -> predict at ml1m dims. Serving itself launches no hand kernel.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -301,8 +310,11 @@ def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
     """train() at bench.py's headline configuration (-T 1, ``iters`` outer
     iterations), then one outer iteration at -T 2 on the same data. The
     launch counts are set to 0 once, just before the first run, and read
-    after each run; returns the numbers of both."""
+    after each run; returns the numbers of both, the first run's factors
+    (rank-major, as CCD++ trains them) and the data's recall sample
+    (cli/bench_serve.py's recall_sample), which the serving phases use."""
     from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.cli.bench_serve import recall_sample
     from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
     from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
     from cuda_recommender_tpu_torch.ops import launches as lc
@@ -368,10 +380,12 @@ def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
             raise AssertionError(f"-T {inner}: launches {got}, want {want} "
                                  f"(k={k}, {n_it} iterations, {P} panels)")
     print(f"[headline] launches in all {total}", flush=True)
+    W, H = res.W, res.H
     del res, res2
     torch.cuda.empty_cache()
     return dict(panels=plan_ev["panels"], s_iter=s_iter, rate=rate,
-                peak=peak, launches=total, rmse=rmse)
+                peak=peak, launches=total, rmse=rmse, W=W, H=H,
+                recall=recall_sample(R, T, threshold=4.0))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1492,6 +1506,352 @@ def run_script(args, timeout=600) -> str:
     return res.stdout
 
 
+#: the serving phases (cli/bench_serve.py's defaults): top-10 of batches of
+#: 1024 queries, 8,192 queries a timed run, item chunks of 2048
+SERVE = dict(topk=10, batch=1024, queries=8192, chunk=2048)
+#: sequential single queries through RetrievalEngine
+ENGINE_QUERIES = 1000
+#: scripts/serve_from_trained.py's large catalog: the trained item table
+#: tiled 57 times with 0.05-sigma Gaussian jitter, cut at 1M items
+CATALOG_1M = dict(items=1_000_000, reps=57, sigma=0.05)
+SERVE_SEED = 0
+#: a batch's top-k scores against the brute force's: relative to the
+#: batch's largest |score| (chunked and whole products, gemv and gemm need
+#: not round alike)
+SERVE_RTOL = 1e-5
+#: the CLI chain's ratings file: ml1m dims from the synthetic generator
+ML1M = dict(m=6040, n=3706, nnz=900_000, seed=5)
+
+
+def serve_tables(H_em, device) -> dict:
+    """name -> (run one batch: U -> (scores, ids), brute force: U -> all
+    scores) for the f32 and the int8 item table on the card."""
+    from cuda_recommender_tpu_torch.serve.retrieval import (
+        quantize_item_table, topk_mips_device, topk_mips_device_int8)
+
+    Hd = torch.from_numpy(H_em).to(device)
+    Hq, scale = quantize_item_table(H_em)
+    Hqd, scd = torch.from_numpy(Hq).to(device), torch.from_numpy(scale).to(
+        device)
+    kw = dict(topk=SERVE["topk"], chunk=SERVE["chunk"])
+    return {
+        "f32": (lambda U: topk_mips_device(U, Hd, **kw),
+                lambda U: U @ Hd.T),
+        "int8": (lambda U: topk_mips_device_int8(U, Hqd, scd, **kw),
+                 lambda U: (U @ Hqd.to(torch.float32).T) * scd)}
+
+
+def serve_qps(run_batch, Wd, users_d) -> float:
+    """Queries per second of the batch path as bench_serve times it: one
+    untimed batch, then every batch of ``users_d`` between two
+    synchronize()s, the last batch read back."""
+    B = SERVE["batch"]
+    s, _ = run_batch(Wd[users_d[:B]])
+    s.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, users_d.shape[0], B):
+        s, _ = run_batch(Wd[users_d[lo:lo + B]])
+    s.cpu()
+    torch.cuda.synchronize()
+    return users_d.shape[0] / (time.perf_counter() - t0)
+
+
+def check_topk(what, s, i, full, want_s) -> tuple:
+    """Hold one batch's top-k (scores ``s``, ids ``i`` on the card) against
+    the brute force: ``full`` every item's score, ``want_s`` the scores of
+    torch.topk over it. Scores agree within SERVE_RTOL; the brute-force
+    score of each returned id equals its slot's (so ids agree wherever
+    scores differ, and within a tie any tied item may stand); ids are
+    int32, real and distinct in each row. Returns (max |score diff|, share
+    of slots whose id equals the brute force's)."""
+    tol = SERVE_RTOL * max(1.0, want_s.abs().max().item())
+    d_s = (s - want_s).abs().max().item()
+    d_own = (full.gather(1, i.long()) - want_s).abs().max().item()
+    srt = i.sort(dim=1).values
+    ok = (i.dtype == torch.int32 and bool((i >= 0).all())
+          and bool((srt[:, 1:] != srt[:, :-1]).all()))
+    same = (i.long() == torch.topk(full, s.shape[1], dim=1).indices)
+    if not ok or d_s > tol or d_own > tol:
+        raise AssertionError(f"{what}: top-k off the brute force (score "
+                             f"diff {d_s:.3e}, own-score diff {d_own:.3e}, "
+                             f"tol {tol:.3e}, ids ok {ok})")
+    return d_s, same.float().mean().item()
+
+
+#: torch.profiler kernel names -> the part of a batch they belong to
+_MATMUL = ("gemm", "cutlass", "xmma", "gemv", "dot_kernel")
+_MERGE = ("topk", "sort", "radix", "bitonic", "cat", "gather", "scan",
+          "compute", "fill")
+
+
+def batch_split(run_batch, U, device) -> dict:
+    """One batch under torch.profiler (scripts/profile_iteration.py's
+    profile_split): device ms of the products, of the top-k merge (top-k,
+    sort, concatenation, gather) and of the rest (casts, scales, index
+    ranges), the kernels' busy ms, and the host's share: wall ms less busy
+    ms."""
+    from cuda_recommender_tpu_torch.scripts.profile_iteration import (
+        profile_split)
+
+    out = profile_split(lambda: run_batch(U), device, warm=1)
+    split = {"matmul_ms": 0.0, "merge_ms": 0.0, "other_ms": 0.0}
+    for name, ms, _ in out["kernels"]:
+        low = name.lower()
+        key = ("matmul_ms" if any(x in low for x in _MATMUL) else
+               "merge_ms" if any(x in low for x in _MERGE) else "other_ms")
+        split[key] += ms
+    split.update(wall_ms=out["wall_ms"], busy_ms=out["busy_ms"],
+                 span_ms=out["span_ms"], idle_pct=out["idle_pct"],
+                 host_ms=out["wall_ms"] - out["busy_ms"],
+                 kernels=out["kernels"][:8])
+    return split
+
+
+def serve_catalog(what, We, H_em, device) -> dict:
+    """f32 and int8 batch retrieval over ``H_em`` for SERVE's queries:
+    QPS, one batch held against the brute force on the card, one batch's
+    time split (batch_split)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    users = rng.integers(0, We.shape[0], SERVE["queries"])
+    Wd = torch.from_numpy(We).to(device)
+    users_d = torch.from_numpy(users).to(device)
+    U0 = Wd[users_d[:SERVE["batch"]]]
+    out = {}
+    for name, (run_batch, brute) in serve_tables(H_em, device).items():
+        qps = serve_qps(run_batch, Wd, users_d)
+        s, i = run_batch(U0)
+        full = brute(U0)
+        want_s = torch.topk(full, SERVE["topk"], dim=1).values
+        d_s, same = check_topk(f"{what} {name}", s, i, full, want_s)
+        del full
+        split = batch_split(run_batch, U0, device)
+        batch_ms = 1e3 * SERVE["batch"] / qps
+        out[name] = dict(qps=qps, batch_ms=batch_ms, max_score_diff=d_s,
+                         same_id_share=same, split=split)
+        print(f"[serve] {what} {name}: {qps:.1f} queries/s, {batch_ms:.3f} "
+              f"ms a batch (batch {SERVE['batch']}, {SERVE['queries']} "
+              f"queries, top-{SERVE['topk']}, chunk {SERVE['chunk']}); one "
+              f"batch against the brute force: scores within {d_s:.3e}, "
+              f"{100 * same:.2f}% of ids in the same slot; one batch under "
+              f"the profiler: wall {split['wall_ms']:.3f} ms, device matmul "
+              f"{split['matmul_ms']:.3f}, merge {split['merge_ms']:.3f}, "
+              f"other {split['other_ms']:.3f} (busy {split['busy_ms']:.3f}), "
+              f"host (wall less busy) {split['host_ms']:.3f}, idle "
+              f"{split['idle_pct']:.2f}% of the span", flush=True)
+        print(f"[serve]   kernels {json.dumps(split['kernels'])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_serving(device, W, H, recall) -> dict:
+    """Serving of phase 4's trained factors (rank-major, k=40 over the
+    17,770-item catalog): the model file's round trip, batch retrieval
+    (serve_catalog), recall@10 f32 and int8 on the recall sample, and the
+    engine's sequential queries, held against the batch path. The launch
+    counts are set to 0 before and read after: serving launches no hand
+    kernel (its products and top-k are torch.matmul and torch.topk)."""
+    from cuda_recommender_tpu_torch.data.binfmt import load_model, save_model
+    from cuda_recommender_tpu_torch.eval.ranking import recall_at_k
+    from cuda_recommender_tpu_torch.ops import launches as lc
+    from cuda_recommender_tpu_torch.serve.engine import RetrievalEngine
+    from cuda_recommender_tpu_torch.serve.retrieval import topk_mips
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model")
+        save_model(path, W, H, entity_major=False)
+        size = os.path.getsize(path)
+        Wr, Hr = load_model(path, entity_major=False)
+        We, He = load_model(path, entity_major=True)
+    if not (np.array_equal(Wr, W) and np.array_equal(Hr, H)
+            and np.array_equal(We, W.T) and np.array_equal(He, H.T)):
+        raise AssertionError("the model file does not read back bit-equal")
+    print(f"[serve] save_model/load_model: {size} bytes, W {We.shape}, H "
+          f"{He.shape}, bit-equal in both layouts "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    out = serve_catalog(f"{He.shape[0]} items", We, He, device)
+    sample, relevant, exclude = recall
+    for name in ("f32", "int8"):
+        _, items = topk_mips(We, He, sample, topk=SERVE["topk"],
+                             chunk=SERVE["chunk"], exclude=exclude,
+                             int8=name == "int8", device=device)
+        out[name]["recall"] = recall_at_k(items, relevant)
+        print(f"[serve] recall@{SERVE['topk']} {name}: "
+              f"{out[name]['recall']:.4f} ({len(sample)} users, held-out "
+              f"ratings >= 4.0, train items excluded)", flush=True)
+
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    users = rng.integers(0, We.shape[0], ENGINE_QUERIES)
+    Ud = torch.from_numpy(We[users]).to(device)
+    for name, (run_batch, brute) in serve_tables(He, device).items():
+        eng = RetrievalEngine(We, He, int8=name == "int8", device=device)
+        eng.warmup(topk=SERVE["topk"])
+        lat, got_s, got_i = [], [], []
+        for uid in users:
+            t = time.perf_counter()
+            s, i = eng.query(user=int(uid), topk=SERVE["topk"])
+            lat.append(time.perf_counter() - t)
+            got_s.append(s)
+            got_i.append(i)
+        p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+        bs, _ = run_batch(Ud)
+        d_s, same = check_topk(
+            f"engine {name}", torch.from_numpy(np.stack(got_s)).to(device),
+            torch.from_numpy(np.stack(got_i)).to(device), brute(Ud), bs)
+        out[name].update(p50_ms=p50, p99_ms=p99)
+        print(f"[serve] engine {name}: {ENGINE_QUERIES} sequential queries, "
+              f"p50 {p50:.4f} ms, p99 {p99:.4f} ms, mean "
+              f"{1e3 * np.mean(lat):.4f} ms; against the batch path: scores "
+              f"within {d_s:.3e}, {100 * same:.2f}% of ids in the brute "
+              "force's slot", flush=True)
+        del eng
+    out["peak"] = torch.cuda.max_memory_allocated()
+    launches = lc.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"serving launched hand kernels: {launches}")
+    print(f"[serve] peak device memory {out['peak'] / 2**30:.3f} GiB; hand "
+          "kernel launches 0 (torch.matmul and torch.topk only)",
+          flush=True)
+    out["factors"] = (We, He)
+    return out
+
+
+def run_catalog_1m(device, We, He) -> dict:
+    """The trained item table tiled to 1M items with jitter (CATALOG_1M,
+    from a seeded generator), then serve_catalog over it."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    H1m = np.concatenate([
+        He + rng.normal(0, CATALOG_1M["sigma"], He.shape).astype(np.float32)
+        for _ in range(CATALOG_1M["reps"])])[:CATALOG_1M["items"]]
+    print(f"[serve] catalog {H1m.shape} built in "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+    return serve_catalog(f"{H1m.shape[0]} items", We, H1m, device)
+
+
+def run_bench_serve(extra=()) -> dict:
+    """``python -m cuda_recommender_tpu_torch.cli.bench_serve`` with
+    ``extra``: its one JSON line, checked (the card, a positive value, the
+    default ALS training's K5 launched)."""
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.cli.bench_serve",
+           *extra]
+    print("[bench_serve] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        print(res.stdout + res.stderr, flush=True)
+        raise AssertionError(f"bench_serve exited {res.returncode}")
+    lines = res.stdout.strip().splitlines()
+    rec = json.loads(lines[-1])
+    d = rec["detail"]
+    print(res.stdout.strip(), flush=True)
+    if (len(lines) != 1 or d["device"]["platform"] != "gpu"
+            or not rec["value"] > 0 or d["launches"]["gj_solve"] <= 0):
+        raise AssertionError(f"bench_serve {extra}: {lines}")
+    if "--latency" in extra:
+        if not d["p99_ms"] >= rec["value"]:
+            raise AssertionError(f"bench_serve latency {d}")
+    elif not 0 < d["recall_at_k"] <= 1:
+        raise AssertionError(f"bench_serve recall {d['recall_at_k']}")
+    print(f"[bench_serve] {rec['value']} {rec['unit']}; K5 launches "
+          f"{d['launches']['gj_solve']} [{time.perf_counter() - t0:.1f} s]",
+          flush=True)
+    return rec
+
+
+def _main_out(fn, argv) -> str:
+    """One CLI's ``main(argv)`` in this process; its standard output
+    (printed too). Raises on a non-zero return."""
+    import contextlib
+    import io
+
+    print("[cli] " + fn.__module__ + " " + " ".join(argv), flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{fn.__module__} returned {rc}")
+    return buf.getvalue()
+
+
+def run_serving_cli(device) -> None:
+    """The file and serving CLIs in sequence at ml1m dims: a text ratings
+    file from the synthetic generator through cli.convert, cli.train -ALS
+    <dir> --save-model (K5), cli.predict score and topk, and cli.train
+    <dir> -p 1 (AUTO -> dense: K4 and the masked sweeps) in a temporary
+    working directory. Each CLI runs through its main() in this process;
+    the launch counts are set to 0 before each training and read after."""
+    from cuda_recommender_tpu_torch.cli import convert, predict
+    from cuda_recommender_tpu_torch.cli import train as cli_train
+    from cuda_recommender_tpu_torch.data import binfmt
+    from cuda_recommender_tpu_torch.data.datasets import synthetic
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    R, T = synthetic(**ML1M)
+    rows = [np.concatenate(x) for x in zip(R.to_coo(), (T.row_idx, T.col_idx,
+                                                       T.val))]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        txt, ds, model = (os.path.join(tmp, x) for x in ("ratings.txt", "ds",
+                                                         "model"))
+        np.savetxt(txt, np.stack([rows[0] + 1, rows[1] + 1, rows[2]], 1),
+                   fmt="%d %d %.6f")
+        print(f"[cli] {len(rows[0])} ratings written at {R.rows} x {R.cols} "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+        _main_out(convert.main, [txt, ds, "--test-fraction", "0.1"])
+        R2, T2 = binfmt.load_binary_dataset(ds)
+        lc.reset_launch_counts()
+        out = _main_out(cli_train.main, [ds, "-ALS", "-k", "10", "-t", "3",
+                                         "-l", "0.05", "--save-model",
+                                         model])
+        if lc.launch_counts()["gj_solve"] <= 0 or "RMSE=nan" in out:
+            raise AssertionError("train -ALS <dir>: no K5 launch or a NaN")
+        W, H = binfmt.load_model(model)
+        test_txt = os.path.join(tmp, "test.txt")
+        np.savetxt(test_txt, np.stack([T2.row_idx + 1, T2.col_idx + 1,
+                                       T2.val], 1), fmt="%d %d %.6f")
+        pred_out = os.path.join(tmp, "pred")
+        out = _main_out(predict.main, ["score", model, test_txt, "-o",
+                                       pred_out])
+        pred = np.loadtxt(pred_out)
+        want = np.einsum("ek,ek->e", W[T2.row_idx], H[T2.col_idx])
+        rmse = float(re.search(r"Test RMSE = (\S+)\.", out).group(1))
+        if (pred.shape != (T2.nnz,) or np.abs(pred - want).max() > 1e-4
+                or not math.isfinite(rmse)):
+            raise AssertionError(f"predict score: {pred.shape}, RMSE {rmse}")
+        out = _main_out(predict.main, ["topk", model, "0,1,2", "-k", "10"])
+        top0 = [int(x.split(":")[0]) for x in
+                out.splitlines()[0].split(": ", 1)[1].split(", ")]
+        s0 = H @ W[0]
+        if len(out.splitlines()) != 3 or np.abs(
+                np.sort(s0)[::-1][:10] - s0[top0]).max() > 1e-4:
+            raise AssertionError(f"predict topk: {out}")
+        os.chdir(tmp)
+        try:
+            lc.reset_launch_counts()
+            _main_out(cli_train.main, [ds, "-p", "1"])
+            launches = lc.launch_counts()
+            n_out = len(open("output").read().splitlines())
+            ok = os.path.exists("model") and n_out == T2.nnz
+        finally:
+            os.chdir(cwd)
+        if not ok or launches["fused_update_vsweep"] <= 0:
+            raise AssertionError(f"train <dir> -p 1: {n_out} lines, "
+                                 f"launches {launches}")
+    print(f"[cli] convert -> train -ALS --save-model -> predict score, "
+          f"topk -> train -p 1: done; predict RMSE {rmse:.6f}, {T2.nnz} "
+          f"lines", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1664,6 +2024,46 @@ def main() -> int:
             math.isfinite(r["final_rmse"]) and r["device"] == "cuda"
             for r in recs):
         raise AssertionError(f"cli/bench records {recs}")
+
+    phase("23 serving the trained headline factors (17,770 items, k=40): "
+          "the model file, batch top-10 f32 and int8 against the brute "
+          "force, recall@10, the engine's sequential queries")
+    t0 = time.perf_counter()
+    serve = run_serving(dev, head.pop("W"), head.pop("H"),
+                        head.pop("recall"))
+    print(f"[serve] phase 23: {time.perf_counter() - t0:.1f} s; card: {smi}",
+          flush=True)
+
+    phase("24 serving a 1M-item catalog (the trained table tiled 57x with "
+          "jitter): f32 and int8 against the brute force")
+    t0 = time.perf_counter()
+    serve_1m = run_catalog_1m(dev, *serve.pop("factors"))
+    print(f"[serve] phase 24: {time.perf_counter() - t0:.1f} s; card: {smi}",
+          flush=True)
+
+    phase("25 cli/bench_serve.py: the default (ALS training with K5, then "
+          "batch QPS and recall@10) and --latency")
+    t0 = time.perf_counter()
+    bs_rec = [run_bench_serve(), run_bench_serve(["--latency"])]
+    print(f"[bench_serve] phase 25: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    phase("26 the file and serving CLIs at ml1m dims: convert, train -ALS "
+          "<dir> --save-model, predict score and topk, train <dir> -p 1")
+    t0 = time.perf_counter()
+    run_serving_cli(dev)
+    print(f"[cli] phase 26: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[serve] summary " + json.dumps({
+        "catalog_17770": {name: {key: serve[name][key] for key in (
+            "qps", "batch_ms", "recall", "p50_ms", "p99_ms")}
+            for name in ("f32", "int8")},
+        "peak_bytes": serve["peak"],
+        "catalog_1m": {name: serve_1m[name]["qps"] for name in serve_1m},
+        "bench_serve": {"qps": bs_rec[0]["value"],
+                        "recall": bs_rec[0]["detail"]["recall_at_k"],
+                        "p50_ms": bs_rec[1]["value"],
+                        "p99_ms": bs_rec[1]["detail"]["p99_ms"]},
+        "card": smi}), flush=True)
 
     print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
           flush=True)

@@ -8,8 +8,8 @@ per-iteration timing and the final RMSE: the port of
         --solvers ccd,als [--device cuda]
 
 Each point runs the path ``train()`` runs (``core/trainer.py::solve``) on
-the device, or the NumPy reference for ``--backend ref``. Only synthetic
-datasets: the port has no binary loader yet.
+the device, or the NumPy reference for ``--backend ref``. ``--dataset`` is
+a synthetic spec or a ``meta_modified_all`` dataset directory.
 """
 
 from __future__ import annotations
@@ -129,11 +129,11 @@ def main(argv=None) -> int:
     if args.panel_kernel:
         cfg_extra["hybrid_panel_kernel"] = True
 
-    if not args.dataset.startswith("synthetic:"):
-        raise NotImplementedError(
-            f"dataset {args.dataset!r}: the port reads synthetic specs only "
-            "(ROADMAP.md queue 1 item 18: dataset loaders)")
-    R, T = datasets.synthetic_from_spec(args.dataset)
+    if args.dataset.startswith("synthetic:"):
+        R, T = datasets.synthetic_from_spec(args.dataset)
+    else:
+        from ..data import binfmt
+        R, T = binfmt.load_binary_dataset(args.dataset)
 
     sink = open(args.output, "a") if args.output else None
     try:

@@ -179,8 +179,20 @@ def test_cli_bench_hybrid_flags_and_ref():
 
 
 def test_cli_bench_dataset_dir_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """A dataset directory raised ROADMAP.md queue 1 item 18 (dataset
+    loaders) until that item was ported; it now loads as the JAX CLI loads
+    it (``binfmt.load_binary_dataset``), and a directory without a
+    manifest is an error."""
+    from cuda_recommender_tpu_torch.data import binfmt
+    with pytest.raises(FileNotFoundError, match="meta_modified_all"):
         cli_bench.main(["--device", "cpu", "--dataset", str(tmp_path)])
+    R, T = datasets.synthetic(m=60, n=30, nnz=600, seed=2)
+    binfmt.write_binary_dataset(str(tmp_path), R, T)
+    rc, lines = _run(cli_bench.main, ["--device", "cpu", "--dataset",
+                                      str(tmp_path), "--ks", "2",
+                                      "--solvers", "ccd", "--iters", "2"])
+    rec = json.loads(lines[0])
+    assert rc == 0 and len(lines) == 1 and math.isfinite(rec["final_rmse"])
 
 
 @pytest.mark.parametrize("module,argv", [

@@ -173,12 +173,24 @@ MEASUREMENT_MODULES = (
     "cuda_recommender_tpu_torch.scripts.probe_gather",
     "cuda_recommender_tpu_torch.scripts.profile_iteration",
     "cuda_recommender_tpu_torch.scripts.sweep_timing")
+#: the file layer and serving modules, which the walk below must reach too
+SERVING_MODULES = (
+    "cuda_recommender_tpu_torch.data.binfmt",
+    "cuda_recommender_tpu_torch.eval.ranking",
+    "cuda_recommender_tpu_torch.serve.scoring",
+    "cuda_recommender_tpu_torch.serve.retrieval",
+    "cuda_recommender_tpu_torch.serve.engine",
+    "cuda_recommender_tpu_torch.models.mf",
+    "cuda_recommender_tpu_torch.cli.convert",
+    "cuda_recommender_tpu_torch.cli.predict",
+    "cuda_recommender_tpu_torch.cli.bench_serve")
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the measurement layer included,
-    and chip_smoke.py (whose phases import only the port) loads neither jax nor
-    the JAX package (the machine with the GPU has no jax)."""
+    """Importing every module of the port, the measurement layer and the
+    serving modules included, and chip_smoke.py (whose phases import only
+    the port) loads neither jax nor the JAX package (the machine with the
+    GPU has no jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cuda_recommender_tpu_torch as p\n"
@@ -186,7 +198,8 @@ def test_port_imports_no_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        f"missing = set({MEASUREMENT_MODULES!r}) - set(sys.modules)\n"
+        f"missing = set({MEASUREMENT_MODULES + SERVING_MODULES!r})"
+        " - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cuda_recommender_tpu'\n"
         "       or m.startswith('cuda_recommender_tpu.')]\n"
