@@ -9,7 +9,7 @@ also at every row alignment (widths of every residue mod 16, W < 8, views
 one element off a 16-byte boundary between guard cells, and the transposed
 stair's odd-width panel 0); K5 bit-equal to its plain version at the edges
 of every width it instantiates, on separate tensors and on views of the
-ALS gram one float off a 16-byte boundary. Then it drives the port's two
+ALS gram one float off a 16-byte boundary. Then it drives the port's
 paths:
 
 * CCD++ on the panel-hybrid backend at Netflix-100M dims (k=40, bf16
@@ -48,9 +48,20 @@ paths:
   reports QPS, recall@10, the engine's p50/p99 latency and each batch's
   time split, runs ``cli/bench_serve.py`` (ALS training with K5, then
   serving) with its defaults and ``--latency``, and runs convert -> train
-  -> predict at ml1m dims. Serving itself launches no hand kernel.
+  -> predict at ml1m dims. Serving itself launches no hand kernel;
+* the rest of single-device training: checkpoint/resume through
+  ``train()`` (ALS at ml20M dims with K5, the dense quick start with K4
+  and the masked sweeps, the bf16 NaN-panel hybrid at ml10M dims with K1
+  and K2): a run of 2 iterations, a checkpoint and a resume to 4 against 4
+  straight, bit for bit, the snapshot's bytes and save and load seconds,
+  the hybrid's panels in the JAX package's block-padded shapes; phase
+  timing at the headline (K3 and K2 in the sweeps, the rank/update split,
+  the RMSE on the fused run's trajectory) and through the CLI with ``-q 1``
+  (a rank line per rank); the pure-ELL backend through the CLI with the
+  golden check, and 2 + 1 iterations resumed bit-equal to the CLI's 3.
 
-Any failure raises and exits non-zero; nothing falls back to the CPU.
+Each phase prints its wall seconds. Any failure raises and exits non-zero;
+nothing falls back to the CPU.
 
 The last two lines of standard output are one JSON object of per-kernel
 results (``{"kernels": [...]}``) and one of the device
@@ -160,10 +171,11 @@ GJ_F64_TOL = 5e-4      # rtol = atol against the f64 solve (test_pallas.py:87)
 GJ_F64_SYSTEMS = 4096  # systems checked against f64 at large S
 
 #: the JAX README's quick start (README.md:22-31): ml10M dims, k=10,
-#: lambda=0.05, 5 iterations, golden dual run, every other knob default
-#: (AUTO -> dense, f32 residual, bf16 mask); nothing cut
+#: lambda=0.05, golden dual run, every other knob default (AUTO -> dense,
+#: f32 residual, bf16 mask); 3 of its 5 iterations (the NumPy golden run
+#: takes most of the phase, and the smoke has a time limit)
 DENSE_HEADLINE = dict(m=69_878, n=10_677, nnz=10_000_000, k=10, lam=0.05,
-                      iters=5)
+                      iters=3)
 MASKED_CHECK_SHAPES = ((50, 70), (69_878, 10_677))
 #: the README's k=40 dense row (README.md:91): bf16 residual
 DENSE_K40 = dict(k=40, iters=3)
@@ -178,8 +190,19 @@ GOLDEN_MISS_REF = 1e-3
 GOLDEN_MISS_DIFF = 1e-4
 
 
-def phase(name: str) -> None:
-    print(f"\n=== {name} ===", flush=True)
+_PHASE = {"name": None, "t": 0.0}
+
+
+def phase(name) -> None:
+    """Start phase ``name`` (None: end the last); prints the last phase's
+    wall seconds."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"[time] phase {_PHASE['name'].split(' ')[0]}: "
+              f"{now - _PHASE['t']:.1f} s", flush=True)
+    _PHASE.update(name=name, t=now)
+    if name is not None:
+        print(f"\n=== {name} ===", flush=True)
 
 
 def random_panel(M, W, dtype, device, seed):
@@ -385,7 +408,7 @@ def run_headline(device, *, m, n, nnz, k, lam, iters, budget, widths,
     torch.cuda.empty_cache()
     return dict(panels=plan_ev["panels"], s_iter=s_iter, rate=rate,
                 peak=peak, launches=total, rmse=rmse, W=W, H=H,
-                recall=recall_sample(R, T, threshold=4.0))
+                recall=recall_sample(R, T, threshold=4.0), data=(R, T))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1128,22 +1151,19 @@ def time_masked_kernels(m, n, reps=5) -> dict:
     return out
 
 
-def run_mask_hybrid(device, *, k, lam, iters, metrics_file) -> dict:
-    """CCD++ at Netflix-100M dims with the JAX Config defaults: AUTO must
-    pick hybrid, and its explicit bf16-mask panels run K4 and the masked
-    sweeps (the launch counts are set to 0 just before the run and read
-    just after)."""
+def run_mask_hybrid(device, data, *, k, lam, iters, metrics_file) -> dict:
+    """CCD++ at Netflix-100M dims with the JAX Config defaults, on phase
+    4's ``data``: AUTO must pick hybrid, and its explicit bf16-mask panels
+    run K4 and the masked sweeps (the launch counts are set to 0 just
+    before the run and read just after)."""
     from cuda_recommender_tpu_torch import Config, train
     from cuda_recommender_tpu_torch.core.config import Backend
     from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
-    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
     from cuda_recommender_tpu_torch.ops import launches as lc
 
-    t0 = time.perf_counter()
-    R, T = synthetic_cached(HEADLINE["m"], HEADLINE["n"], HEADLINE["nnz"],
-                            seed=1, test_fraction=0.02)
-    print(f"[mask-hybrid] data {R.rows} x {R.cols}, train nnz {R.nnz}: "
-          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+    R, T = data
+    print(f"[mask-hybrid] data {R.rows} x {R.cols}, train nnz {R.nnz} "
+          "(phase 4's)", flush=True)
     cfg = Config(k=k, maxiter=iters, lambda_=lam, metrics_file=metrics_file)
     if cfg.resolve_backend(R.rows, R.cols) != Backend.HYBRID:
         raise AssertionError("AUTO does not pick hybrid at Netflix dims")
@@ -1318,23 +1338,33 @@ def check_probe_kernels(device) -> dict:
     return worst
 
 
-def run_bench(extra=(), timeout=900) -> dict:
+def run_bench(extra=(), timeout=900, data=None) -> dict:
     """``python -m cuda_recommender_tpu_torch.bench`` with ``extra``
-    arguments; returns its one JSON record after checking it: the device
-    is the card, 0 < vs_baseline <= 1.05, every control at most
-    CONTROL_MAX_SHARE of the peak rate, the training launches exactly
-    want_launches, the test RMSE finite."""
-    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.bench",
-           *map(str, extra)]
-    print("[bench] " + " ".join(cmd[1:]), flush=True)
+    arguments, or with ``data`` (the headline's (R, T), already loaded)
+    its ``run()`` in this process; returns its one JSON record after
+    checking it: the device is the card, 0 < vs_baseline <= 1.05, every
+    control at most CONTROL_MAX_SHARE of the peak rate, the training
+    launches exactly want_launches, the test RMSE finite."""
+    from cuda_recommender_tpu_torch import bench as port_bench
+
+    args = [str(x) for x in extra]
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.bench", *args]
+    print("[bench] " + " ".join(cmd[1:])
+          + (" (in this process, the data shared)" if data else ""),
+          flush=True)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=timeout)
-    if res.returncode != 0:
-        print(res.stdout + res.stderr, flush=True)
-        raise AssertionError(f"bench exited {res.returncode}")
-    lines = res.stdout.strip().splitlines()
-    rec = json.loads(lines[-1])
+    if data is not None:
+        rec = port_bench.run(port_bench.build_parser().parse_args(args),
+                             data=data)
+        lines = [json.dumps(rec)]
+    else:
+        res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                             timeout=timeout)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, flush=True)
+            raise AssertionError(f"bench exited {res.returncode}")
+        lines = res.stdout.strip().splitlines()
+        rec = json.loads(lines[-1])
     d = rec["detail"]
     if len(lines) != 1 or rec["metric"] != "ccd_netflix_scale_throughput":
         raise AssertionError(f"bench printed {len(lines)} lines: {lines[:3]}")
@@ -1852,6 +1882,317 @@ def run_serving_cli(device) -> None:
           f"lines", flush=True)
 
 
+#: phases 27-29: checkpoint/resume runs — (iterations straight, iterations
+#: before the checkpoint); the resumed run goes on to the first number
+RESUME_ITERS = (4, 2)
+#: phase 29: the hybrid at ml10M dims, bf16 NaN panels with the panel
+#: kernels, the headline's hand stair under a 3e8-cell budget (two panels
+#: or more, an ELL tail)
+RESUME_HYBRID = dict(k=40, lambda_=0.05, backend="hybrid",
+                     residual_dtype="bfloat16", mask_dtype="nan",
+                     hybrid_panel_kernel=True,
+                     hybrid_dense_cells=300_000_000,
+                     hybrid_panel_widths=HEADLINE["widths"])
+#: phases 30-31: phase timing; the RMSE bar against the fused run at the
+#: same iteration (set from the measured gap on an H100, 3.3e-7, with room
+#: for the two schedules' bf16 roundings) and the rank-RMSE bar of the CLI
+PHASE_ITERS = 2
+PHASE_RMSE_TOL = 1e-4
+RANK_RMSE_TOL = 1e-5
+#: phases 31-32 read phase 12's cached ml10M data through the CLI's spec
+ML10M_SPEC = "synthetic:m=69878,n=10677,nnz=10000000,seed=1,cache=1"
+#: phase 32: pure-ELL iterations, and those before its checkpoint
+ELL_ITERS = (3, 2)
+
+
+def _count(launches, total) -> None:
+    """Add one path's launch counts to ``total``."""
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def run_resume(what, device, R, T, cfg_kw, *, iters, split,
+               want_kernels) -> dict:
+    """train() ``iters`` outer iterations straight, then ``split`` with a
+    checkpoint after each, then resumed from the last to ``iters``: W and H
+    bit-equal, the resumed run's iterations split+1..iters. The launch
+    counts are set to 0 just before the straight run and read just after;
+    each of ``want_kernels`` must have launched. Returns the launches, the
+    snapshot bytes, the save and load seconds (the trainer's ``checkpoint``
+    and ``resume`` events), the plan event (if any), the last snapshot's
+    array shapes, the runs' s/iter and RMSE."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mf, ck = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "ck")
+        log = MetricsLog(mf)
+        torch.cuda.empty_cache()
+        lc.reset_launch_counts()
+        try:
+            full = train(Config(maxiter=iters, **cfg_kw), R, T,
+                         device=device, log=log)
+            launches = lc.launch_counts()
+            train(Config(maxiter=split, checkpoint_dir=ck,
+                         checkpoint_every=1, **cfg_kw), R, T, device=device,
+                  log=log)
+            res = train(Config(maxiter=iters, checkpoint_dir=ck, **cfg_kw),
+                        R, T, device=device, log=log,
+                        resume_from_checkpoint=True)
+        finally:
+            log.close()
+        saves, loads = _events(mf, "checkpoint"), _events(mf, "resume")
+        plans = _events(mf, "hybrid_plan")
+        with np.load(os.path.join(ck, f"ckpt_{split:06d}.npz")) as z:
+            shapes = {key: z[key].shape for key in z.files}
+    for name in "WH":
+        a, b = getattr(full, name), getattr(res, name)
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"{what}: resumed {name} not bit-equal, "
+                                 f"max|diff| {float(np.abs(a - b).max())}")
+    if [st.oiter for st in res.stats] != list(range(split + 1, iters + 1)):
+        raise AssertionError(f"{what}: resumed iterations "
+                             f"{[st.oiter for st in res.stats]}")
+    if [e["oiter"] for e in saves] != list(range(1, split + 1)) or \
+            [e["oiter"] for e in loads] != [split]:
+        raise AssertionError(f"{what}: checkpoints {saves}, resume {loads}")
+    missing = [k for k in want_kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched: {launches}")
+    _check_rmse(what, [st.rmse for st in full.stats], iters)
+    out = dict(launches=launches, bytes=saves[-1]["bytes"],
+               save_s=[e["save_s"] for e in saves], load_s=loads[0]["load_s"],
+               plan=plans[0] if plans else None, shapes=shapes,
+               s_iter=_steady(full.stats),
+               rmse=[st.rmse for st in full.stats])
+    print(f"[resume] {what}: W, H bit-equal after {split} + "
+          f"{iters - split} iterations to {iters} straight; resumed "
+          f"iterations {[st.oiter for st in res.stats]}; snapshot "
+          f"{out['bytes']} bytes ({out['bytes'] / 1e9:.3f} GB), save "
+          f"{[round(x, 3) for x in out['save_s']]} s, load "
+          f"{out['load_s']:.3f} s; s/iter {out['s_iter']:.4f}; RMSE "
+          f"{out['rmse']}; launches {launches}", flush=True)
+    del full, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_hybrid_resume(device, R, T) -> dict:
+    """Phase 29: the bf16 NaN-panel hybrid with the panel kernels at ml10M
+    dims; the plan has >= 2 panels and an ELL tail; each snapshot panel
+    has the JAX panel-kernel path's block-padded shape."""
+    from cuda_recommender_tpu_torch.solvers.hybrid_state import (
+        padded_panel_shape)
+
+    out = run_resume("hybrid ml10M k=40 bf16 NaN panels", device, R, T,
+                     RESUME_HYBRID, iters=RESUME_ITERS[0],
+                     split=RESUME_ITERS[1],
+                     want_kernels=("panel_update_vsweep", "panel_usweep"))
+    plan = out["plan"]
+    panels = [tuple(p) for p in plan["panels"]]
+    print(f"[resume] hybrid plan: {len(panels)} panels {panels}, "
+          f"{plan['panel_cells']} cells, tail nnz {plan['nnz_light']} "
+          f"({100.0 * plan['nnz_light'] / plan['nnz']:.2f}% of nnz)",
+          flush=True)
+    if len(panels) < 2 or plan["nnz_light"] <= 0:
+        raise AssertionError(f"hybrid resume plan {panels}, tail "
+                             f"{plan['nnz_light']}")
+    for i, (r0, r1, w) in enumerate(panels):
+        want = padded_panel_shape(r1 - r0, w)
+        got = out["shapes"][f"extra_Rd_{i}"]
+        if got != want:
+            raise AssertionError(f"snapshot Rd_{i} {got}, JAX's padded "
+                                 f"shape {want}")
+    print(f"[resume] snapshot panels have the JAX padded shapes "
+          f"{[out['shapes'][f'extra_Rd_{i}'] for i in range(len(panels))]}",
+          flush=True)
+    return out
+
+
+def run_phase_headline(device, R, T, head) -> dict:
+    """Phase 30: train() with phase timing at the headline configuration,
+    PHASE_ITERS iterations (the launch counts set to 0 just before and read
+    just after): K3 and K2 per rank and panel, no K1; rank_time > 0 every
+    iteration and update_time > 0 from iteration 2; the RMSE within
+    PHASE_RMSE_TOL of phase 4's at each iteration. Then one phase-mode
+    update of a panel of panel 0's shape under torch.profiler
+    (``update_split``)."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    cfg = Config(k=HEADLINE["k"], lambda_=HEADLINE["lam"],
+                 maxiter=PHASE_ITERS, backend="hybrid",
+                 residual_dtype="bfloat16", mask_dtype="nan",
+                 hybrid_panel_kernel=True,
+                 hybrid_dense_cells=HEADLINE["budget"],
+                 hybrid_panel_widths=HEADLINE["widths"], phase_timing=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    res = train(cfg, R, T, device=device, log=MetricsLog(None))
+    launches = lc.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    P = len(head["panels"])
+    per = HEADLINE["k"] * PHASE_ITERS * P
+    want = {name: 0 for name in launches}
+    want.update(panel_vsweep=per, panel_usweep=per)
+    if launches != want:
+        raise AssertionError(f"phase-timed launches {launches}, want {want}")
+    split = [dict(oiter=st.oiter, rank_s=st.rank_time,
+                  update_s=st.update_time, rmse_s=st.rmse_time,
+                  s_iter=st.rank_time + st.update_time + st.rmse_time,
+                  rmse=st.rmse) for st in res.stats]
+    for row, fused in zip(split, head["rmse"]):
+        if not row["rank_s"] > 0 or (row["oiter"] > 1
+                                     and not row["update_s"] > 0):
+            raise AssertionError(f"phase split {row}")
+        if abs(row["rmse"] - fused) > PHASE_RMSE_TOL:
+            raise AssertionError(f"phase-timed RMSE {row['rmse']} vs fused "
+                                 f"{fused} at iteration {row['oiter']}")
+    print(f"[phase] headline phase split {json.dumps(split)}", flush=True)
+    print(f"[phase] s/iter {split[-1]['s_iter']:.4f} at iteration "
+          f"{split[-1]['oiter']} (rank {split[-1]['rank_s']:.4f}, update "
+          f"{split[-1]['update_s']:.4f}, rmse {split[-1]['rmse_s']:.4f}) "
+          f"beside the fused {head['s_iter']:.4f} (phase 4); RMSE "
+          f"{[r['rmse'] for r in split]} vs fused {head['rmse'][:PHASE_ITERS]}"
+          f"; peak device memory {peak / 2**30:.2f} GiB; launches "
+          f"{launches}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return dict(split=split, launches=launches, peak=peak,
+                update=update_split(device, head["panels"][0]))
+
+
+def update_split(device, panel) -> dict:
+    """One phase-mode update (``rank1_update``, the plain-torch add-back)
+    of a bf16 NaN panel of ``panel``'s shape, after one untraced, under
+    torch.profiler: device ms per kernel, busy ms, and the ms of a bf16
+    read-modify-write of the panel at the card's memory rate (4 B a
+    cell), the least any update could take."""
+    from cuda_recommender_tpu_torch.scripts.profile_iteration import (
+        profile_split)
+    from cuda_recommender_tpu_torch.solvers.ccd_dense import rank1_update
+
+    r0, r1, w = panel
+    Rd = torch.full((r1 - r0, w), 0.5, dtype=torch.bfloat16, device=device)
+    Rd[::7, ::5] = float("nan")
+    u = torch.rand(r1 - r0, device=device)
+    v = torch.rand(w, device=device)
+    out = profile_split(lambda: rank1_update(Rd, None, u, v, 1.0), device,
+                        warm=1)
+    out["rmw_bound_ms"] = 1e3 * 4 * Rd.numel() / PEAK_BYTES_S
+    print(f"[phase] one phase-mode update of a {r1 - r0}x{w} bf16 panel "
+          f"(panel 0's shape): wall {out['wall_ms']:.3f} ms, kernels busy "
+          f"{out['busy_ms']:.3f} ms, a bf16 RMW at the memory rate "
+          f"{out['rmw_bound_ms']:.3f} ms; kernels "
+          f"{json.dumps(out['kernels'][:6])}", flush=True)
+    del Rd
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cli(args, timeout=900) -> str:
+    """``python -m cuda_recommender_tpu_torch.cli.train`` with ``args`` on
+    the card; its standard output (printed). Raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", "cuda_recommender_tpu_torch.cli.train",
+           *args, "--device", "cuda"]
+    print("[cli] " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout)
+    print(res.stdout + res.stderr, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"cli exited {res.returncode}")
+    print(f"[cli] {time.perf_counter() - t0:.1f} s", flush=True)
+    return res.stdout
+
+
+def _cli_launches(stdout) -> dict:
+    found = re.search(r"^\[info\] kernel launches: (\{.*\})$", stdout,
+                      re.M)
+    return json.loads(found.group(1))
+
+
+def run_phase_cli() -> dict:
+    """Phase 31: the CLI with --phase-timing -q 1 on the dense quick start
+    (ml10M dims, k = 10): a rank line per rank, the last rank's RMSE equal
+    to its iteration's within RANK_RMSE_TOL, update_time > 0; the masked
+    sweeps launched, K4 not (phase mode updates in plain torch)."""
+    k = DENSE_HEADLINE["k"]
+    out = _cli(["--dataset", ML10M_SPEC, "-k", str(k), "-t",
+                str(PHASE_ITERS), "-l", str(DENSE_HEADLINE["lam"]),
+                "--phase-timing", "-q", "1"])
+    if not re.search(r"^\[info\] Backend = dense \|", out, re.M):
+        raise AssertionError("the phase-timed CLI did not run dense")
+    ranks = re.findall(r"^iter (\d+) rank (\d+) time \S+ rmse (\S+)$", out,
+                       re.M)
+    iters = re.findall(r"^\[-INFO-\] iteration num (\d+) .*update_time "
+                       r"(\S+)\|.*RMSE=(\S+)", out, re.M)
+    if len(ranks) != k * PHASE_ITERS or len(iters) != PHASE_ITERS:
+        raise AssertionError(f"{len(ranks)} rank lines, {len(iters)} "
+                             "iteration lines")
+    for it, upd, rmse in iters:
+        last = [float(r) for o, t, r in ranks if o == it][-1]
+        if abs(last - float(rmse)) > RANK_RMSE_TOL or not float(upd) > 0:
+            raise AssertionError(f"iteration {it}: last rank RMSE {last}, "
+                                 f"iteration RMSE {rmse}, update {upd}")
+    launches = _cli_launches(out)
+    per = k * PHASE_ITERS
+    if launches["fused_update_vsweep"] != 0 or launches[
+            "masked_vsweep"] != per or launches["masked_usweep"] != per:
+        raise AssertionError(f"phase-timed CLI launches {launches}")
+    print(f"[phase] CLI: {len(ranks)} rank lines; last rank RMSE = "
+          f"iteration RMSE within {RANK_RMSE_TOL}; launches {launches}",
+          flush=True)
+    return dict(launches=launches)
+
+
+def run_ell(device) -> dict:
+    """Phase 32: the CLI on the pure-ELL backend with the golden check
+    (_check_golden) and --save-model; then in this process 2 iterations
+    with a checkpoint, resumed to 3: W and H bit-equal to the CLI's saved
+    model."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.data.binfmt import load_model
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_from_spec
+
+    iters, split = ELL_ITERS
+    kw = dict(k=DENSE_HEADLINE["k"], lambda_=DENSE_HEADLINE["lam"],
+              backend="ell")
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "model")
+        out = _cli(["--dataset", ML10M_SPEC, "-k", str(kw["k"]), "-t",
+                    str(iters), "-l", str(kw["lambda_"]), "--backend", "ell",
+                    "--golden", "--save-model", model])
+        if not re.search(r"^\[info\] Backend = ell \|", out, re.M):
+            raise AssertionError("the CLI did not run the ell backend")
+        checks = _check_golden("pure-ELL CLI", out)
+        rank_s = [float(x) for x in re.findall(
+            r"^\[-INFO-\] iteration num \d+ \trank_time ([0-9.]+)\|", out,
+            re.M)][:iters]
+        s_iter = sum(rank_s[1:]) / len(rank_s[1:])
+        W_cli, H_cli = load_model(model, entity_major=False)
+        R, T = synthetic_from_spec(ML10M_SPEC)
+        ck = os.path.join(tmp, "ck")
+        log = MetricsLog(None)
+        train(Config(maxiter=split, checkpoint_dir=ck,
+                     checkpoint_every=split, **kw), R, T, device=device,
+              log=log)
+        res = train(Config(maxiter=iters, checkpoint_dir=ck, **kw), R, T,
+                    device=device, log=log, resume_from_checkpoint=True)
+    for name, a, b in (("W", res.W, W_cli), ("H", res.H, H_cli)):
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"pure ELL resumed {name} not bit-equal "
+                                 f"to the CLI's {iters} iterations")
+    print(f"[ell] golden {checks}; s/iter (iterations 2-{iters}) "
+          f"{s_iter:.4f} ({rank_s}); resumed {split} + {iters - split} "
+          f"bit-equal to the CLI's {iters} iterations", flush=True)
+    return dict(s_iter=s_iter, checks=checks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1959,8 +2300,9 @@ def main() -> int:
           "defaults: auto stair, 2e9 cells, f32 residual, bf16 mask, k=40), "
           "then the masked kernel checks at its panel shapes")
     with tempfile.TemporaryDirectory() as tmp:
-        mask_hybrid = run_mask_hybrid(dev, metrics_file=os.path.join(
-            tmp, "mh.jsonl"), **MASK_HYBRID)
+        mask_hybrid = run_mask_hybrid(
+            dev, head["data"], metrics_file=os.path.join(tmp, "mh.jsonl"),
+            **MASK_HYBRID)
     # K4 and the masked sweeps at every panel shape that run gave them (f32
     # residual, bf16 mask): the full-width panel 0 down to the narrowest
     masked_worst = check_masked_kernels(
@@ -1995,11 +2337,11 @@ def main() -> int:
     print(f"[timing] card: {smi}", flush=True)
 
     phase("20 the bench with the auto stair, the auto orientation and the "
-          "transposed stair")
+          "transposed stair (in this process, on phase 4's data)")
     ab = ["--iters", BENCH_AB_ITERS["iters"], "--warmup",
           BENCH_AB_ITERS["warmup"]]
     for extra in BENCH_AB:
-        rec = run_bench(ab + extra)
+        rec = run_bench(ab + extra, data=head["data"])
         want_t = extra == ["--transpose", "1"]
         if rec["detail"]["orientation"].startswith("transposed") != want_t:
             raise AssertionError(f"bench {extra}: orientation "
@@ -2065,12 +2407,75 @@ def main() -> int:
                         "p99_ms": bs_rec[1]["detail"]["p99_ms"]},
         "card": smi}), flush=True)
 
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    # each path's launches (counts set to 0 just before it, read just
+    # after): the kernels line reports their sums
+    paths = {}
+    _count(head["launches"], paths)
+    _count(als["launches"], paths)
+    _count(dense["launches"], paths)
+
+    phase("27 ALS headline checkpoint/resume (ml20M dims, k=40, gj: 4 "
+          "iterations straight against 2 + checkpoint + resume to 4, "
+          "bit-equal)")
+    R, T = synthetic_cached(ALS_HEADLINE["m"], ALS_HEADLINE["n"],
+                            ALS_HEADLINE["nnz"], seed=1, test_fraction=0.02)
+    als_ck = run_resume(
+        "ALS ml20M k=40", dev, R, T,
+        dict(solver="als", k=ALS_HEADLINE["k"], lambda_=ALS_HEADLINE["lam"],
+             als_solver="gj", als_precision="highest"),
+        iters=RESUME_ITERS[0], split=RESUME_ITERS[1],
+        want_kernels=("gj_solve",))
+    _count(als_ck["launches"], paths)
+    del R, T
+
+    phase("28 dense quick start checkpoint/resume (ml10M dims, k=10, K4 "
+          "and the masked sweeps, bit-equal)")
+    R, T = synthetic_cached(**ml10m, seed=1)
+    dense_ck = run_resume(
+        "dense ml10M k=10", dev, R, T, dict(k=k10["k"], lambda_=k10["lam"]),
+        iters=RESUME_ITERS[0], split=RESUME_ITERS[1],
+        want_kernels=("fused_update_vsweep", "masked_usweep"))
+    _count(dense_ck["launches"], paths)
+
+    phase("29 hybrid checkpoint/resume (ml10M dims, k=40, bf16 NaN panels, "
+          "panel kernels, 3e8 cells: K1, K2; bit-equal; JAX's padded panel "
+          "shapes)")
+    hyb_ck = run_hybrid_resume(dev, R, T)
+    _count(hyb_ck["launches"], paths)
+    del R, T
+
+    phase("30 phase timing at the Netflix-100M headline (2 iterations: K3, "
+          "K2; rank/update split)")
+    phased = run_phase_headline(dev, *head.pop("data"), head)
+    _count(phased["launches"], paths)
+
+    phase("31 phase timing through the CLI (--phase-timing -q 1, the dense "
+          "quick start at ml10M dims)")
+    phase_cli = run_phase_cli()
+    _count(phase_cli["launches"], paths)
+
+    phase("32 pure ELL through the CLI (--backend ell --golden, ml10M dims, "
+          "k=10), then 2 + 1 iterations resumed, bit-equal")
+    ell = run_ell(dev)
+    phase(None)
+    print("[resume] summary " + json.dumps({
+        name: {key: rec[key] for key in ("bytes", "save_s", "load_s",
+                                         "s_iter")}
+        for name, rec in (("als_ml20m", als_ck), ("dense_ml10m", dense_ck),
+                          ("hybrid_ml10m", hyb_ck))}), flush=True)
+    print("[phase] summary " + json.dumps({
+        "headline_split": phased["split"], "fused_s_iter": head["s_iter"],
+        "update_busy_ms": phased["update"]["busy_ms"],
+        "update_rmw_bound_ms": phased["update"]["rmw_bound_ms"],
+        "ell_s_iter": ell["s_iter"], "card": smi}), flush=True)
+
     print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
           flush=True)
     print(smi, flush=True)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,
-                "launches": head["launches"][name],
+                "launches": paths[name],
                 "max_abs_err": worst[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": times[name][2],
                 "bound_by": times[name][3], "library_ms": None}
@@ -2078,12 +2483,12 @@ def main() -> int:
     kernels.append({"name": "gj_solve", "route": "cuda",
                     "source": f"{CSRC}/gj_kernels.cu",
                     "replaces": GJ_REPLACES,
-                    "launches": als["launches"]["gj_solve"],
+                    "launches": paths["gj_solve"],
                     "max_abs_err": gj_worst, **gj_times[40]})
     # K4 and the masked sweeps: the dense headline's f32 residual
     kernels += [{"name": name, "route": "cuda",
                  "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,
-                 "launches": dense["launches"][name],
+                 "launches": paths[name],
                  "max_abs_err": masked_worst[name],
                  "ms": masked_times["float32"][name][0],
                  "plain_ms": masked_times["float32"][name][1],

@@ -204,12 +204,16 @@ def achievable_s(k: int, ctl: dict, sides: dict) -> float | None:
     return k * ms / 1e3
 
 
-def run(args) -> dict:
+def run(args, data=None) -> dict:
+    """The benchmark record of ``args``. ``data``: the (R, T) of
+    ``synthetic_cached(args.m, args.n, args.nnz, seed=args.seed,
+    test_fraction=0.02)`` when the caller has it loaded already (several
+    runs in one process share one load; ``host_s.data`` is then 0)."""
     dev = resolve_device(args.device)
     cfg = config(args)
     t0 = time.perf_counter()
-    R, T = synthetic_cached(args.m, args.n, args.nnz, seed=args.seed,
-                            test_fraction=0.02)
+    R, T = data or synthetic_cached(args.m, args.n, args.nnz, seed=args.seed,
+                                    test_fraction=0.02)
     data_s = time.perf_counter() - t0
     res = train_and_time(R, T, cfg, dev, args.warmup)
     plan, samples = res["plan"], res["samples"]

@@ -9,10 +9,11 @@ scripts and set nothing (the compiled backend runs by default, and each
 kernel picks its own launch geometry). Then ``--backend``, the hybrid panel
 knobs (with ``--transpose-stair 0|1|auto``), the ALS layout knobs,
 ``--fused-iters``, ``--early-stop``, ``--seed``, ``--metrics-file``,
-``--save-model`` and ``--device``. ``--checkpoint-dir``/``--resume``
-(ROADMAP.md queue 1 item 7), ``--phase-timing`` (item 13) and
-``--mesh``/``--mesh2d`` (item 15) are parsed, and the trainer raises
-``NotImplementedError`` naming their item.
+``--save-model``, ``--device``, checkpoints (``--checkpoint-dir``,
+``--checkpoint-every``, ``--resume``) and ``--phase-timing`` (fenced
+per-phase rank/update times; with ``-q 1`` a line per rank).
+``--mesh``/``--mesh2d`` (ROADMAP.md queue 1 item 15) are parsed, and the
+trainer raises ``NotImplementedError`` naming their item.
 
 Data: a ``data_dir`` holding ``meta_modified_all`` (the reference's packed
 binary, src/tools.cpp:3-85) or ``meta`` (legacy text, src/extras.cpp:24-44),
@@ -28,6 +29,9 @@ to ``./output``.
         --backend hybrid --mask-dtype nan --panel-kernel --golden
     python -m cuda_recommender_tpu_torch.cli.train ds_dir -k 10 -t 3 -ALS \\
         --save-model model
+    python -m cuda_recommender_tpu_torch.cli.train \\
+        --dataset synthetic:m=6040,n=3706,nnz=900000 -k 10 -t 4 \\
+        --backend ell --checkpoint-dir ck --checkpoint-every 2 [--resume]
 
 On a CUDA device the run ends with one line of kernel launch counts
 (``[info] kernel launches: {...}``).
@@ -90,9 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[b.value for b in Backend],
                    help="CCD++: 'dense' (AUTO's choice for m*n <= "
                         "Config.dense_max_cells), 'pallas' (dense with a "
-                        "bf16 mask), 'hybrid' (AUTO's choice above) or "
-                        "'ref'; 'ell' is not in the port yet. ALS: 'ell' "
-                        "(any request but 'ref' resolves to it) or 'ref'")
+                        "bf16 mask), 'hybrid' (AUTO's choice above), 'ell' "
+                        "(AUTO's choice where no panel row fits the cell "
+                        "budget) or 'ref'. ALS: 'ell' (any request but "
+                        "'ref' resolves to it) or 'ref'")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="shard over an N-device mesh (not in the port yet: "
                         "ROADMAP.md queue 1 item 15)")
@@ -102,8 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="outer iterations enqueued before the loop waits "
                         "for their RMSE readbacks")
     p.add_argument("--phase-timing", action="store_true", dest="phase_timing",
-                   help="fenced per-phase timing (not in the port yet: "
-                        "ROADMAP.md queue 1 item 13)")
+                   help="CCD++ only: fence and time each rank's "
+                        "add-back, sweeps and subtract apart (rank_time / "
+                        "update_time split; slower than the default)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--residual-dtype", default="float32",
                    choices=["float32", "bfloat16", "float8_e4m3fn"])
@@ -149,10 +155,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-model", default=None, metavar="PATH",
                    help="write trained factors (reference save_mat_t format)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not in the port yet (ROADMAP.md queue 1 item 7)")
-    p.add_argument("--checkpoint-every", type=int, default=0)
+                   help="write checkpoints (npz + manifest.json) here")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="checkpoint every N outer iterations (0: never)")
     p.add_argument("--resume", action="store_true",
-                   help="not in the port yet (ROADMAP.md queue 1 item 7)")
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics sink")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
@@ -217,13 +225,14 @@ def main(argv=None) -> int:
     print(f"[info] loaded {R.rows} x {R.cols}, nnz={R.nnz}, "
           f"test nnz={T.nnz}", flush=True)
 
-    # the port has no mesh and no resume yet: the trainer's check raises
-    # NotImplementedError naming their ROADMAP.md items
+    # the port has no mesh yet: the trainer's check raises
+    # NotImplementedError naming its ROADMAP.md item
     check_supported(cfg, cfg.resolve_backend(R.rows, R.cols),
-                    args.mesh2d or args.mesh or None, args.resume)
+                    args.mesh2d or args.mesh or None)
     log = MetricsLog(cfg.metrics_file)
     try:
-        result = train(cfg, R, T, device=args.device, log=log)
+        result = train(cfg, R, T, device=args.device, log=log,
+                       resume_from_checkpoint=args.resume)
         if args.save_model or cfg.do_predict:
             path = args.save_model or "model"
             binfmt.save_model(path, result.W, result.H,

@@ -6,11 +6,13 @@ packages. It carries the semantic knob set of the reference's ``parameter``
 class (reference src/pmf.h:8-43) and its CLI (reference
 src/extras.cpp:68-141).
 
-The port runs a slice of these knobs: CCD++ on the ``dense``, ``pallas``
-and ``hybrid`` backends (explicit bfloat16/int8 masks or NaN-sentinel
-panels, the hand-written kernels), ALS on ``ell``, and the NumPy ``ref``
-backend. ``core/trainer.py`` raises ``NotImplementedError`` for the rest,
-naming the ROADMAP.md item that ports it.
+The port runs every knob of a single-device run: CCD++ on the ``dense``,
+``pallas``, ``hybrid`` (explicit bfloat16/int8 masks or NaN-sentinel
+panels, the hand-written kernels) and ``ell`` backends, ALS on ``ell``, the
+NumPy ``ref`` backend, checkpoints and phase timing. ``core/trainer.py``
+raises ``NotImplementedError`` for the rest (a mesh, ALS precisions other
+than "highest", the fp8 residual, ``hybrid_defer_group``), naming the
+ROADMAP.md item that ports it.
 
 Reference quirks preserved deliberately:
   * ``maxinneriter`` defaults to 1 (the code default at src/pmf.h:31, not the

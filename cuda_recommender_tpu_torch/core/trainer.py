@@ -8,16 +8,20 @@ reference's CUDA role) on ``device`` and optionally the NumPy golden backend
 (calculate_rmse_directly, src/extras.cpp:182-216), then cross-validate with
 golden_compare (src/main.cpp:133-144).
 
-The port runs CCD++ on the ``dense``, ``pallas`` and ``hybrid`` backends
-(so AUTO's every CCD++ choice but pure ELL), ALS on the ``ell`` backend
-(ALS's one compiled path: any backend request but ``ref`` resolves to it),
-and both on the ``ref`` backend; everything else raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The port runs CCD++ on the ``dense``, ``pallas``, ``hybrid`` and ``ell``
+backends (so every AUTO choice), ALS on the ``ell`` backend (ALS's one
+compiled path: any backend request but ``ref`` resolves to it), and both on
+the ``ref`` backend, each with checkpoint/resume (``cfg.checkpoint_dir``,
+``resume_from_checkpoint``; core/checkpoint.py) and CCD++ with phase timing
+on dense, hybrid and ell (solvers/phase_loop.py). A mesh and the knobs
+ROADMAP.md lists as not ported raise ``NotImplementedError`` naming their
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -26,19 +30,16 @@ import numpy as np
 from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import (GoldenResult, calrmse_np, golden_compare,
                             strict_misses)
+from .checkpoint import Checkpointer
 from .config import Backend, Config, Solver
 from .device import resolve_device
 from .init import init_factors_np
 from .metrics_log import MetricsLog
 
-#: ROADMAP.md queue-1 items that port the backends outside the slice
-_BACKEND_ITEMS = {Backend.ELL: "item 12: pure ELL"}
 #: the compiled-backend tests' golden atol (tests/test_compiled_solvers.py:
 #: 38-40): reported beside the reference's strict check when that fails, to
 #: tell rounding-level misses on near-zero entries from real ones
 GOLDEN_ATOL = 1e-3
-#: the compiled CCD++ backends of the port
-_CCD_BACKENDS = (Backend.DENSE, Backend.PALLAS, Backend.HYBRID)
 
 
 @dataclasses.dataclass
@@ -57,31 +58,26 @@ class TrainResult:
     validate_time: float = 0.0
 
 
-def check_supported(cfg: Config, backend: Backend, mesh=None,
-                    resume_from_checkpoint: bool = False) -> None:
-    """Raise NotImplementedError for a configuration outside the port,
-    naming the ROADMAP.md item that ports it."""
+def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
+    """Raise for a configuration the port does not run:
+    NotImplementedError naming the ROADMAP.md item that ports it, or, for
+    phase timing on pallas and ALS, the JAX package's own refusal."""
     als = cfg.solver == Solver.ALS
-    if als and cfg.phase_timing:
+    if als and cfg.phase_timing and backend != Backend.REF:
         raise NotImplementedError(
             "phase_timing is a CCD telemetry mode (the reference splits CCD "
             "iterations into rank/update phases, src/CCD.cpp:76-139; its ALS "
             "prints one per-iteration time, which the normal loop already "
             "measures)")
-    if backend not in ((Backend.ELL, Backend.REF) if als
-                       else (*_CCD_BACKENDS, Backend.REF)):
-        raise NotImplementedError(
-            f"backend {backend.value!r} is not in the port yet (ROADMAP.md "
-            f"queue 1 {_BACKEND_ITEMS[backend]}); use 'dense', 'pallas', "
-            "'hybrid' or 'ref'")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not in the port yet "
                                   "(ROADMAP.md queue 1 item 15: "
                                   "multi-device)")
-    if cfg.checkpoint_dir or resume_from_checkpoint:
-        raise NotImplementedError("checkpoints are not in the port yet "
-                                  "(ROADMAP.md queue 1 item 7: "
-                                  "checkpoint/resume)")
+    if cfg.phase_timing and backend == Backend.PALLAS:
+        raise NotImplementedError(
+            "phase_timing is not implemented for the pallas backend; "
+            "use dense (same dense-residual schedule) — hybrid, dense "
+            "and ell all support it")
     if backend == Backend.HYBRID:
         from ..solvers.ccd_hybrid import check_supported
         check_supported(cfg)
@@ -94,6 +90,67 @@ def check_supported(cfg: Config, backend: Backend, mesh=None,
     if als and backend == Backend.ELL:
         from ..solvers.als_ell import check_supported
         check_supported(cfg)
+
+
+def checkpoint_meta(cfg: Config, backend: Backend) -> dict:
+    """Layout-determining knobs stamped into the checkpoint manifest, per
+    backend, with the JAX package's keys and values (its trainer.py::
+    checkpoint_meta; one device, so ``num_shards`` 1): ELL and hybrid
+    payloads are slot- or panel-space, so resuming under a different k,
+    bucket width or panel plan would map them onto a different layout — a
+    shape error at best, silently wrong factors when shapes coincide. Only
+    knobs the backend's payload depends on are stamped."""
+    meta: dict = {
+        # slot-layout algorithm version: 2 = data-driven width ladder
+        # (data/ell.py _choose_widths)
+        "ell_layout": 2,
+        "k": cfg.k,
+        "num_shards": 1,
+    }
+    if cfg.solver == Solver.ALS:
+        meta["min_width"] = cfg.als_min_width
+    elif backend in (Backend.ELL, Backend.HYBRID):
+        meta["min_width"] = cfg.ell_min_width
+    if backend == Backend.HYBRID:
+        meta["hybrid_dense_cells"] = cfg.hybrid_dense_cells
+        meta["hybrid_panel_widths"] = list(cfg.hybrid_panel_widths)
+        # the panel kernel block-pads the panel payloads (solvers/
+        # hybrid_state.py), so it is layout-bearing
+        meta["hybrid_panel_kernel"] = cfg.hybrid_panel_kernel
+    return meta
+
+
+def load_resume(cfg: Config, backend: Backend,
+                ckpt: Optional[Checkpointer]) -> Optional[dict]:
+    """The latest checkpoint of ``ckpt`` as a solver's ``resume`` payload
+    ({"oiter", "W", "H", extras...}), or None when there is none. Raises
+    ValueError, with the JAX package's texts, when there is no
+    checkpoint_dir or the checkpoint was written by another solver,
+    backend or layout."""
+    if ckpt is None:
+        raise ValueError("resume requested but no checkpoint_dir set")
+    latest = ckpt.latest()
+    if latest is None:
+        return None
+    if (latest.get("solver") and latest["solver"] != cfg.solver.value) \
+            or (latest.get("backend") and latest["backend"] != backend.value):
+        raise ValueError(
+            f"checkpoint was written by solver={latest.get('solver')} "
+            f"backend={latest.get('backend')} but this run is "
+            f"solver={cfg.solver.value} backend={backend.value} — payloads "
+            "are incompatible")
+    want = checkpoint_meta(cfg, backend)
+    have = latest.get("meta") or {}
+    bad = {key: (have[key], want[key]) for key in want
+           if key in have and have[key] != want[key]}
+    if bad:
+        raise ValueError(
+            "checkpoint layout mismatch (slot-space payloads are only "
+            "valid under the writing run's layout knobs): "
+            + ", ".join(f"{key}: checkpoint={a} run={b}"
+                        for key, (a, b) in bad.items()))
+    return {"oiter": latest["oiter"], "W": latest["W"], "H": latest["H"],
+            **latest["extra"]}
 
 
 def _run_reference(cfg: Config, R, W0, H0, T, log):
@@ -123,7 +180,7 @@ def _run_reference(cfg: Config, R, W0, H0, T, log):
 
 
 def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
-                  run: dict):
+                  run: dict, ckpt=None, resume=None):
     if backend == Backend.REF:
         return _run_reference(cfg, R, W0, H0, T, log)
 
@@ -144,42 +201,67 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
                       st.rank_time, acc["rank"], st.update_time, acc["upd"],
                       rmse_time=getattr(st, "rmse_time", None))
 
+    kw: dict = {}
+    if cfg.phase_timing and cfg.verbose:
+        kw["rank_callback"] = (
+            lambda oiter, t, dt, rmse: log.rank(
+                cfg.solver.value, backend.value, oiter, t, dt, rmse))
+    if ckpt is not None:
+        meta = checkpoint_meta(cfg, backend)
+
+        def save(oiter, payload):
+            t0 = time.perf_counter()
+            path = ckpt.save(oiter, W=payload.pop("W"), H=payload.pop("H"),
+                             solver=cfg.solver.value, backend=backend.value,
+                             extra=payload, meta=meta)
+            log.event("checkpoint", oiter=oiter, bytes=os.path.getsize(path),
+                      save_s=time.perf_counter() - t0)
+
+        kw.update(ckpt_every=cfg.checkpoint_every, ckpt_fn=save)
+    if resume is not None:
+        kw["resume"] = resume
     return solve(cfg, backend, R, W0, H0, T, device=device, callback=cb,
-                 log=log, run=run)
+                 log=log, run=run, **kw)
 
 
 def solve(cfg: Config, backend: Backend, R, W0, H0, T, *, device,
           callback=None, log: Optional[MetricsLog] = None,
-          run: Optional[dict] = None):
+          run: Optional[dict] = None, **kw):
     """Run the compiled solver of (``cfg.solver``, ``backend``) — the path
     ``train()`` runs — on ``device``; returns (W, H, stats). Prints nothing
     unless ``log`` is given. The hybrid backend writes its orientation and
     plan into ``run`` (``ccd_hybrid_train``); the others leave it as it
-    is."""
+    is. ``kw``: the solvers' checkpoint and phase-timing hooks
+    (``ckpt_every``, ``ckpt_fn``, ``resume``, ``rank_callback``)."""
     if cfg.solver == Solver.ALS:
         from ..solvers.als_ell import als_ell_train
         return als_ell_train(R, W0, H0, T, cfg, device=device,
-                             callback=callback, log=log)
+                             callback=callback, log=log, **kw)
     if backend == Backend.PALLAS:
         from ..solvers.ccd_pallas import ccd_pallas_train
         return ccd_pallas_train(R, W0, H0, T, cfg, device=device,
-                                callback=callback, log=log)
+                                callback=callback, log=log, **kw)
     if backend == Backend.DENSE:
         from ..solvers.ccd_dense import ccd_dense_train
         return ccd_dense_train(R, W0, H0, T, cfg, device=device,
-                               callback=callback, log=log)
+                               callback=callback, log=log, **kw)
+    if backend == Backend.ELL:
+        from ..solvers.ccd_ell import ccd_ell_train
+        return ccd_ell_train(R, W0, H0, T, cfg, device=device,
+                             callback=callback, log=log, **kw)
     from ..solvers.ccd_hybrid import ccd_hybrid_train
     return ccd_hybrid_train(R, W0, H0, T, cfg, device=device,
-                            callback=callback, log=log, run=run)
+                            callback=callback, log=log, run=run, **kw)
 
 
 def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
           mesh=None, log: Optional[MetricsLog] = None,
           resume_from_checkpoint: bool = False) -> TrainResult:
     """Full training run on ``device`` ("cuda" or "cpu"; "cuda" without a
-    GPU raises) with optional golden validation (cfg.golden)."""
+    GPU raises) with optional golden validation (cfg.golden) and
+    checkpoint/resume (cfg.checkpoint_dir / resume_from_checkpoint)."""
     backend = cfg.resolve_backend(R.rows, R.cols)
-    check_supported(cfg, backend, mesh, resume_from_checkpoint)
+    check_supported(cfg, backend, mesh)
     device = resolve_device(device)
     log = log or MetricsLog(cfg.metrics_file)
     entity_major = cfg.solver == Solver.ALS
@@ -193,11 +275,22 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     W0, H0 = init_factors_np(cfg.k, R.rows, R.cols, seed=cfg.seed,
                              entity_major=entity_major)
 
+    ckpt = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    resume = None
+    if resume_from_checkpoint:
+        t0 = time.perf_counter()
+        resume = load_resume(cfg, backend, ckpt)
+        if resume is not None:
+            log.info(f"[info] resuming from checkpoint oiter="
+                     f"{resume['oiter']}")
+            log.event("resume", oiter=resume["oiter"],
+                      load_s=time.perf_counter() - t0)
+
     log.info(f"[INFO] Computing with {backend.value} backend...")
     t0 = time.perf_counter()
     run: dict = {}
     W, H, stats = _run_compiled(cfg, backend, R, W0.copy(), H0.copy(), T, log,
-                                device, run)
+                                device, run, ckpt=ckpt, resume=resume)
     train_time = time.perf_counter() - t0
     log.info("[info] %s Training time: %f s." % (backend.value, train_time))
     t0 = time.perf_counter()

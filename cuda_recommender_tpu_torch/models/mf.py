@@ -83,8 +83,8 @@ def get_train_fn(solver: Solver, backend: Backend, *,
     """Registry lookup: (solver, backend, sharded) -> the port's train
     callable with the common signature (R, W0, H0, T, cfg, ...) -> (W, H,
     stats), as in the JAX package (``ccd_reference`` keeps its keyword
-    signature there too). Sharded trainers and pure-ELL CCD++ raise
-    NotImplementedError naming their ROADMAP.md item."""
+    signature there too). Sharded trainers raise NotImplementedError
+    naming their ROADMAP.md item."""
     solver, backend = Solver(solver), Backend(backend)
     if solver == Solver.ALS:
         if sharded:
@@ -105,6 +105,5 @@ def get_train_fn(solver: Solver, backend: Backend, *,
     if backend == Backend.HYBRID:
         from ..solvers.ccd_hybrid import ccd_hybrid_train
         return ccd_hybrid_train
-    raise NotImplementedError("CCD++ on the pure ELL backend is not in the "
-                              "port yet (ROADMAP.md queue 1 item 12: pure "
-                              "ELL)")
+    from ..solvers.ccd_ell import ccd_ell_train
+    return ccd_ell_train

@@ -43,7 +43,7 @@ from ..data.ell import build_ell_pair
 from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.gj_kernels import gj_solve, gj_solve_plain
-from .als_state import als_state_from_numpy, slot_payload
+from .als_state import als_state_from_numpy, als_state_to_numpy, slot_payload
 from .pipeline import pipelined_loop
 from .reference import IterStats
 
@@ -196,13 +196,16 @@ def _untiled_note(ell: EllPair, k: int, tile_mb: float) -> Optional[str]:
 def als_ell_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
                   T: TestCOO, cfg: Config, *, device="cuda",
                   callback: Optional[Callable[[IterStats], None]] = None,
-                  log: Optional[MetricsLog] = None, resume=None,
+                  log: Optional[MetricsLog] = None,
+                  ckpt_every: int = 0, ckpt_fn=None, resume=None,
                   ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
     """Train ALS on the ELL backend on ``device``. W0 (m, k), H0 (n, k)
-    entity-major; returns factors in the same layout and order.
-    ``resume={"oiter", "W", "H"}`` (a slot-space payload after outer
-    iteration ``oiter``) continues from it. With ``log``, the layout and the
-    set-up times are reported as an info line and an ``als_plan`` event."""
+    entity-major; returns factors in the same layout and order. Every
+    ``ckpt_every`` outer iterations ``ckpt_fn(oiter, {"W", "H"})`` gets the
+    slot-space factors (solvers/als_state.py);
+    ``resume={"oiter", "W", "H"}`` (such a payload after outer iteration
+    ``oiter``) continues from it. With ``log``, the layout and the set-up
+    times are reported as an info line and an ``als_plan`` event."""
     check_supported(cfg)
     dev = resolve_device(device)
     k = W0.shape[1]
@@ -266,7 +269,8 @@ def als_ell_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
         fuse=cfg.fused_outer_iters, do_step=do_step,
         do_rmse=lambda: calrmse_device(ti, tj, tv, *box["WH"],
                                        entity_major=True, chunk=chunk),
-        callback=callback,
+        callback=callback, ckpt_every=ckpt_every, ckpt_fn=ckpt_fn,
+        get_payload=lambda: als_state_to_numpy(*box["WH"]),
         early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
 
     W, H = box["WH"]

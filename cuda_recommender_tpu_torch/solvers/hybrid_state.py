@@ -10,22 +10,39 @@ holds the masks, which are read-only and rebuilt from the plan.
 ``hybrid_state_from_numpy`` / ``hybrid_state_to_numpy`` convert it to and
 from the JAX package's checkpoint payload (keys ``W``, ``H``, ``u_pend``,
 ``v_pend``, ``Rd_i``, ``vals_r_i``, ``vals_c_i``;
-``cuda_recommender_tpu/solvers/ccd_hybrid.py::ccd_hybrid_train``), so both
-packages can start from one state. The JAX package's panel-kernel path
-stores each panel padded to its TPU block shape with NaN; the port's panels
-have their true ``(r1 - r0, w)`` shape. The JAX payload has no masks
-(``ccd_hybrid.py:1026-1047`` rebuilds them from the plan), so neither does
-the port's.
+``cuda_recommender_tpu/solvers/ccd_hybrid.py::ccd_hybrid_train``), so a
+checkpoint of either package resumes in the other. The JAX package's
+panel-kernel path stores each panel padded with NaN to its TPU block shape
+(``padded_panel_shape``, copied here) and reads its payload back with no
+reshape, so the port writes that shape for such a run; the port's panels
+have their true ``(r1 - r0, w)`` shape, and the reader trims. The JAX
+payload has no masks (``ccd_hybrid.py:1026-1047`` rebuilds them from the
+plan), so neither does the port's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from ..ops.densify import densify_coo_mask
+
+
+#: the JAX panel kernels' block shape (rows x cols), read from the same
+#: environment variables as its ops/panel_pallas.py BM, BW
+BM = int(os.environ.get("CRTPU_PANEL_BM", "512"))
+BW = int(os.environ.get("CRTPU_PANEL_BW", "2048"))
+
+
+def padded_panel_shape(M: int, W: int) -> tuple[int, int]:
+    """The JAX panel-kernel path's allocation shape of an (M, W) panel
+    (its ops/panel_pallas.py::padded_panel_shape, one device): each dim
+    rounded up to a multiple of its block, the block clamped to the dim."""
+    bm_, bw_ = min(BM, M), min(BW, W)
+    return (-(-M // bm_) * bm_, -(-W // bw_) * bw_)
 
 
 @dataclasses.dataclass
@@ -53,13 +70,16 @@ def _to_torch(x: np.ndarray, device) -> torch.Tensor:
 
 
 def hybrid_state_from_numpy(payload: dict, plan, device,
-                            mask_dtype: str = "nan") -> HybridState:
+                            mask_dtype: str = "nan",
+                            dtype=None) -> HybridState:
     """The JAX package's hybrid state (numpy arrays under its checkpoint
     payload keys) as a port ``HybridState`` on ``device``. Panels are
-    trimmed to their true (r1 - r0, w) shape; raises ValueError if a
-    trimmed cell is not NaN, or not 0 with an explicit mask (i.e. was an
-    observed rating). With ``mask_dtype`` "bfloat16" or "int8" the masks
-    are rebuilt from the plan's panel COO (``materialize_dense=False``)."""
+    trimmed to their true (r1 - r0, w) shape and cast to ``dtype`` when
+    given (a checkpoint stores a bf16 panel widened to f32: exact both
+    ways); raises ValueError if a trimmed cell is not NaN, or not 0 with
+    an explicit mask (i.e. was an observed rating). With ``mask_dtype``
+    "bfloat16" or "int8" the masks are rebuilt from the plan's panel COO
+    (``materialize_dense=False``)."""
     nan = mask_dtype == "nan"
     Rds, masks = [], []
     for i, (r0, r1, w) in enumerate(plan.panels):
@@ -73,7 +93,8 @@ def hybrid_state_from_numpy(payload: dict, plan, device,
         if not (np.isnan(pad).all() if nan else not pad.any()):
             raise ValueError(f"Rd_{i}: cells outside the ({M}, {w}) panel "
                              f"must all be {'NaN' if nan else '0'}")
-        Rds.append(_to_torch(x[:M, :w], device))
+        Rd = _to_torch(x[:M, :w], device)
+        Rds.append(Rd if dtype is None else Rd.to(dtype))
         if not nan:
             lr, lc, lv = plan.panel_coo[i]
             masks.append(densify_coo_mask(lr, lc, lv, M, w, torch.float32,
@@ -98,21 +119,22 @@ def hybrid_state_to_numpy(state: HybridState, *, panel_shapes=None) -> dict:
     """The port's state as a JAX-package payload of numpy arrays (bfloat16
     panels come back as their exact float32 values). ``panel_shapes``: per
     panel the (rows, cols) to pad to with NaN (0 with explicit masks), e.g.
-    the JAX panel-kernel path's block-padded shapes; default: the panels'
-    own shapes."""
+    ``padded_panel_shape`` for the JAX panel-kernel path; default: the
+    panels' own shapes."""
     def host(x):
         return x.detach().to("cpu", torch.float32, copy=True).numpy()
 
     payload = {"W": host(state.W), "H": host(state.H),
                "u_pend": host(state.u_pend), "v_pend": host(state.v_pend)}
     for i, Rd in enumerate(state.Rds):
-        x = host(Rd)
-        if panel_shapes is not None:
-            full = np.full(panel_shapes[i], 0.0 if state.masks else np.nan,
-                           np.float32)
-            full[:x.shape[0], :x.shape[1]] = x
-            x = full
-        payload[f"Rd_{i}"] = x
+        if panel_shapes is None:
+            payload[f"Rd_{i}"] = host(Rd)
+            continue
+        # copy into the padded array's corner: one f32 host array a panel
+        full = np.full(panel_shapes[i], 0.0 if state.masks else np.nan,
+                       np.float32)
+        torch.from_numpy(full)[:Rd.shape[0], :Rd.shape[1]].copy_(Rd)
+        payload[f"Rd_{i}"] = full
     for i, v in enumerate(state.vals_r):
         payload[f"vals_r_{i}"] = host(v)
     for i, v in enumerate(state.vals_c):

@@ -8,7 +8,12 @@ nothing), then for the RMSE readbacks. So ``rank_time`` is the measured
 device work of the group (solver steps and their on-device RMSE evals) and
 ``rmse_time`` the readbacks alone. ``update_time`` stays 0: the
 fused rank body cannot split sweep from residual phases without per-phase
-fences (phase timing, not ported yet).
+fences, which is what phase timing (solvers/phase_loop.py) is for.
+
+Checkpoints: every ``ckpt_every`` outer iterations the group is flushed
+(so the state is final), then ``ckpt_fn(oiter, get_payload())`` writes
+the host copy of the state. The save is not charged to any iteration's
+``rank_time``.
 """
 
 from __future__ import annotations
@@ -26,13 +31,16 @@ def pipelined_loop(*, start_oiter: int, maxiter: int, fuse: int,
                    do_step: Callable[[], torch.Tensor],
                    do_rmse: Callable[[], object],
                    callback: Optional[Callable[[IterStats], None]] = None,
+                   ckpt_every: int = 0, ckpt_fn=None,
+                   get_payload: Optional[Callable[[], dict]] = None,
                    early_stop_eps: float = 0.0,
                    ) -> list[IterStats]:
     """Run outer iterations ``start_oiter..maxiter``; ``do_step`` returns a
     tensor on the training device (its W), ``do_rmse`` a 0-d tensor.
     ``early_stop_eps`` > 0 ends the loop once the relative RMSE
     improvement drops below it — checked at flush boundaries, so with
-    ``fuse`` > 1 up to fuse-1 extra iterations may run before the stop."""
+    ``fuse`` > 1 up to fuse-1 extra iterations may run before the stop
+    (an iteration that stops the run writes no checkpoint)."""
     fuse = max(1, fuse)
     stats: list[IterStats] = []
     pending: list[tuple[int, object]] = []
@@ -64,8 +72,12 @@ def pipelined_loop(*, start_oiter: int, maxiter: int, fuse: int,
     for oiter in range(start_oiter, maxiter + 1):
         last_tok[0] = do_step()
         pending.append((oiter, do_rmse()))
-        if len(pending) >= fuse or oiter == maxiter:
+        at_ckpt = bool(ckpt_every) and oiter % ckpt_every == 0
+        if len(pending) >= fuse or at_ckpt or oiter == maxiter:
             t0 = flush(t0)
             if early_stopped(stats, early_stop_eps):
                 break
+        if at_ckpt and ckpt_fn and get_payload is not None:
+            ckpt_fn(oiter, get_payload())
+            t0 = time.perf_counter()
     return stats

@@ -409,8 +409,9 @@ def test_untiled_note_where_jax_would_tile(tmp_path):
 def test_cli_als_flags_reach_config(monkeypatch):
     seen = {}
 
-    def fake_train(cfg, R, T, *, device, log):
+    def fake_train(cfg, R, T, *, device, log, resume_from_checkpoint):
         seen["cfg"], seen["device"] = cfg, device
+        assert resume_from_checkpoint is False
 
     monkeypatch.setattr(cli, "train", fake_train)
     rc = cli.main(["--dataset", "synthetic:m=40,n=25,nnz=400,seed=3",

@@ -314,13 +314,44 @@ def test_train_flags_build_the_jax_config(monkeypatch, tmp_path, name,
     (["--mesh", "4"], "item 15"),
     (["--mesh2d", "2x2"], "item 15"),
 ])
-def test_unported_train_flags_raise_their_item(flags, item):
-    """Checkpoints (item 7), phase timing (item 13) and meshes (item 15)
-    parse, and the trainer raises NotImplementedError naming the item."""
+def test_unported_train_flags_raise_their_item(monkeypatch, tmp_path, flags,
+                                               item):
+    """Meshes (item 15) parse, and the trainer raises NotImplementedError
+    naming the item. Checkpoints (item 7) and phase timing (item 13), now
+    in the port, reach the Config and train() as the JAX CLI passes
+    them (cli/train.py:137-139 there): ``--resume`` with no checkpoint
+    directory is its ValueError."""
+    monkeypatch.chdir(tmp_path)
     argv = ["--dataset", "synthetic:m=40,n=25,nnz=400", "-k", "2", "-t", "1",
             "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
-        _run(lambda: cli.main(argv))
+    if item == "item 15":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
+            _run(lambda: cli.main(argv))
+        return
+    cfg = cli.build_config(cli.build_parser().parse_args(argv))
+    assert cfg.checkpoint_dir == ("ck" if "--checkpoint-dir" in flags
+                                  else None)
+    assert cfg.checkpoint_every == (1 if "--checkpoint-every" in flags
+                                    else 0)
+    assert cfg.phase_timing == ("--phase-timing" in flags)
+    if flags == ["--resume"]:
+        with pytest.raises(ValueError, match="no checkpoint_dir"):
+            _run(lambda: cli.main(argv))
+        return
+    seen = {}
+    real = cli.train
+
+    def spy(cfg, R, T, **kw):
+        seen.update(kw)
+        return real(cfg, R, T, **kw)
+
+    monkeypatch.setattr(cli, "train", spy)
+    rc, out = _run(lambda: cli.main(argv))
+    assert rc == 0 and seen["resume_from_checkpoint"] is False
+    if cfg.checkpoint_every:
+        assert os.path.exists(tmp_path / "ck" / "ckpt_000001.npz")
+    if cfg.phase_timing:
+        assert "[-INFO-] iteration num 1" in out
 
 
 def test_bench_serve_cli():

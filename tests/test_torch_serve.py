@@ -292,12 +292,14 @@ def test_recommend_mesh_raises_item_15(factors):
     ("als", "ell", True, "item 15"),
     ("ccd", "hybrid", True, "item 15"),
     ("ccd", "ell", True, "item 15"),
-    ("ccd", "ell", False, "item 12"),
-    ("ccd", "auto", False, "item 12"),
+    ("ccd", "ell", False, "solvers.ccd_ell.ccd_ell_train"),
+    ("ccd", "auto", False, "solvers.ccd_ell.ccd_ell_train"),
 ])
 def test_get_train_fn(solver, backend, sharded, want):
-    """The JAX registry's lookup mapped onto the port's trainers; what the
-    port lacks raises NotImplementedError naming its ROADMAP.md item."""
+    """The JAX registry's lookup mapped onto the port's trainers (pure ELL,
+    item 12, now in the port: its two cases look it up and fit); what
+    the port lacks raises NotImplementedError naming its ROADMAP.md
+    item."""
     if want.startswith("item"):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{want}"):
             get_train_fn(solver, backend, sharded=sharded)
@@ -305,6 +307,16 @@ def test_get_train_fn(solver, backend, sharded, want):
     fn = get_train_fn(solver, backend, sharded=sharded)
     assert f"{fn.__module__}.{fn.__name__}" == (
         "cuda_recommender_tpu_torch." + want)
+    if want.endswith("ccd_ell_train"):          # a working ell fit
+        from cuda_recommender_tpu_torch.core.init import init_factors_np
+        R, T = datasets.synthetic(m=40, n=25, nnz=400, seed=3)
+        W0, H0 = init_factors_np(3, R.rows, R.cols, seed=0)
+        W, H, stats = fn(R, W0, H0, T, Config(k=3, maxiter=2,
+                                              backend=backend),
+                         device="cpu")
+        m = MFModel.from_factors(W, H, entity_major=False)
+        assert m.W.shape == (40, 3) and np.isfinite(m.H).all()
+        assert stats[-1].rmse < stats[0].rmse
 
 
 def test_mips_recall_after_training():
