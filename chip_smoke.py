@@ -58,7 +58,17 @@ paths:
   timing at the headline (K3 and K2 in the sweeps, the rank/update split,
   the RMSE on the fused run's trajectory) and through the CLI with ``-q 1``
   (a rank line per rank); the pure-ELL backend through the CLI with the
-  golden check, and 2 + 1 iterations resumed bit-equal to the CLI's 3.
+  golden check, and 2 + 1 iterations resumed bit-equal to the CLI's 3;
+* multi-device training and sharded serving (``parallel/``, one process a
+  rank over ``torch.distributed``): a world of one rank opened in this
+  process over NCCL runs the sharded hybrid at the headline through
+  ``train(mesh=...)`` (K1 and K2, 2·k·T all-reduces an outer iteration,
+  W, H and the RMSE bit-equal to the single-device run), then sharded ALS
+  (K5), dense on a 1-D mesh (K4, the masked sweeps) and ELL, each
+  bit-equal to its single-device run, and the sharded top-10; then two
+  ranks on the one card over gloo (NCCL allows one rank a GPU) train the
+  ml10M hybrid through ``cli.train --mesh 2``, held against the
+  single-device run.
 
 Each phase prints its wall seconds. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -1409,9 +1419,9 @@ def run_bench(extra=(), timeout=900, data=None) -> dict:
 def time_probe_kernels(panel, variant_shape, tail, reps=5) -> dict:
     """Each probe kernel against its plain version and, where one exists,
     its PyTorch call, warm, in turns: stream_rmw (tiles down the columns,
-    the Pallas control's order, and 16-byte vectors) and stream_read
-    (weighted; the 2-byte tile pattern and 16-byte vectors) at the bench's
-    panel 0,
+    the Pallas control's order, and 16-byte vectors; ``R.add_(1)``) and
+    stream_read (weighted; the 2-byte tile pattern and 16-byte vectors;
+    ``torch.mv(R.t(), u)`` with u rounded to bf16) at the bench's panel 0,
     the rounding variant at the variant matrix's shape, gather form B at
     the bench's largest tail side (by graph replays). Returns
     name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -1456,13 +1466,17 @@ def time_probe_kernels(panel, variant_shape, tail, reps=5) -> dict:
                                 lambda: R.add_(1),
                                 lambda: pr.stream_rmw(R, vec16=True)],
            4 * cells, cells, f"{M}x{W} bf16, 16-byte vectors, flat")
+    # the library call of the weighted read: the matvec u·R in one
+    # torch.mv, with u rounded to the panel's bf16 (torch.mv takes one dtype)
+    u_lib = u.to(R.dtype)
     for name, vec16 in (("stream_read", False), ("stream_read_vec16", True)):
         record(name, [lambda: pr.stream_read_plain(R, u),
+                      lambda: torch.mv(R.t(), u_lib),
                       lambda vec16=vec16: pr.stream_read(R, u, vec16=vec16)],
                2 * cells + 4 * (-(-M // 512) + W), cells,
                f"{M}x{W} bf16, u-weighted 512-row blocks"
                + (", 16-byte vectors" if vec16 else ""))
-    del R, u
+    del R, u, u_lib
     torch.cuda.empty_cache()
 
     M, W = variant_shape
@@ -1965,7 +1979,7 @@ def run_resume(what, device, R, T, cfg_kw, *, iters, split,
                save_s=[e["save_s"] for e in saves], load_s=loads[0]["load_s"],
                plan=plans[0] if plans else None, shapes=shapes,
                s_iter=_steady(full.stats),
-               rmse=[st.rmse for st in full.stats])
+               rmse=[st.rmse for st in full.stats], W=full.W, H=full.H)
     print(f"[resume] {what}: W, H bit-equal after {split} + "
           f"{iters - split} iterations to {iters} straight; resumed "
           f"iterations {[st.oiter for st in res.stats]}; snapshot "
@@ -2190,7 +2204,228 @@ def run_ell(device) -> dict:
     print(f"[ell] golden {checks}; s/iter (iterations 2-{iters}) "
           f"{s_iter:.4f} ({rank_s}); resumed {split} + {iters - split} "
           f"bit-equal to the CLI's {iters} iterations", flush=True)
-    return dict(s_iter=s_iter, checks=checks)
+    return dict(s_iter=s_iter, checks=checks, W=res.W, H=res.H,
+                rmse=[st.rmse for st in res.stats])
+
+#: phase 34's sharded top-k: the first users of phase 4's factors
+SHARDED_TOPK_USERS = 1024
+#: phase 35: two ranks on the one card (gloo: NCCL refuses two ranks on
+#: one GPU), the phase 29 hybrid run through the CLI
+TWO_RANKS = 2
+#: phase 35's bar on W and H against the single-device run: relative
+#: Frobenius distance (a bf16 residual; see run_two_ranks)
+TWO_RANKS_REL_TOL = 1e-2
+
+
+def _bit_equal(what, got, want) -> None:
+    for name, a, b in zip("WH", got, want):
+        if a.shape != b.shape or not np.array_equal(a.view(np.int32),
+                                                    b.view(np.int32)):
+            raise AssertionError(f"{what}: {name} not bit-equal to the "
+                                 f"single-device run")
+
+
+def _close_rmse(what, got, want, tol) -> float:
+    d = max(abs(a - b) for a, b in zip(got, want))
+    if len(got) != len(want) or d > tol:
+        raise AssertionError(f"{what}: RMSE {got} vs {want} (bar {tol})")
+    return d
+
+
+def _sharded_train(what, device, mesh, R, T, cfg, want_kernels) -> tuple:
+    """train() over ``mesh`` with the kernel and collective counts set to
+    0 just before and read just after; every kernel of ``want_kernels``
+    launched. Returns (result, launches, collectives, peak bytes)."""
+    from cuda_recommender_tpu_torch import train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.ops import launches as lc
+    from cuda_recommender_tpu_torch.parallel import collectives as cc
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launch_counts()
+    cc.reset_collective_counts()
+    res = train(cfg, R, T, device=device, mesh=mesh, log=MetricsLog(None))
+    launches, coll = lc.launch_counts(), cc.collective_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in want_kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched: {launches}")
+    print(f"[sharded] {what}: s/iter {_steady(res.stats):.4f}; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}; "
+          f"collectives {coll}", flush=True)
+    return res, launches, coll, peak
+
+
+def run_sharded_headline(device, R, T, head) -> dict:
+    """Phase 33: the sharded hybrid (parallel/ccd_hybrid_sharded.py) at the
+    headline over a world of one rank (NCCL), through train(mesh=...): K1
+    and K2 launch as in phase 4, one all-reduce of (g, h) per half-sweep
+    (2·k·T an outer iteration), and W, H and the RMSE bit-equal to phase
+    4's single-device run (at world size 1 the schedules are the same)."""
+    from cuda_recommender_tpu_torch import Config
+    from cuda_recommender_tpu_torch.parallel.mesh import make_mesh
+
+    h = HEADLINE
+    cfg = Config(k=h["k"], lambda_=h["lam"], maxiter=h["iters"],
+                 maxinneriter=1, backend="hybrid", residual_dtype="bfloat16",
+                 mask_dtype="nan", hybrid_panel_kernel=True,
+                 hybrid_dense_cells=h["budget"], hybrid_panel_widths=h["widths"])
+    res, launches, coll, peak = _sharded_train(
+        "hybrid headline, 1 rank", device, make_mesh(1), R, T, cfg,
+        ("panel_update_vsweep", "panel_usweep"))
+    want = want_launches(h["k"], h["iters"], 1, len(head["panels"]))
+    if launches != want:
+        raise AssertionError(f"sharded launches {launches}, want {want}")
+    want_coll = {"all_reduce": 2 * h["k"] * h["iters"], "all_gather": 0,
+                 "gather": 0}
+    if coll != want_coll:
+        raise AssertionError(f"collectives {coll}, want {want_coll}")
+    _bit_equal("sharded hybrid headline", (res.W, res.H),
+               (head["W"], head["H"]))
+    rmse = [st.rmse for st in res.stats]
+    if rmse != head["rmse"]:
+        raise AssertionError(f"sharded RMSE {rmse} vs phase 4's "
+                             f"{head['rmse']}")
+    s_iter = _steady(res.stats)
+    print(f"[sharded] headline over 1 rank: W, H and RMSE bit-equal to "
+          f"phase 4; s/iter {s_iter:.4f} (phase 4: {head['s_iter']:.4f}); "
+          f"peak {peak / 2**30:.2f} GiB (phase 4: {head['peak'] / 2**30:.2f}"
+          f"); {coll['all_reduce']} all-reduces = 2·k·T·iterations",
+          flush=True)
+    return dict(launches=launches, s_iter=s_iter, peak=peak,
+                collectives=coll)
+
+
+def run_sharded_backends(device, head, als_ck, dense_ck, ell) -> dict:
+    """Phase 34: the other sharded backends over the same world of one
+    rank, each against its single-device run of the same configuration
+    (W and H bit-equal, RMSE within 1e-6): ALS at ml20M dims (K5; phase
+    27's straight run), the dense quick start on a 1-D mesh (K4 and the
+    masked sweeps; phase 28's), pure ELL at ml10M dims (phase 32's resumed
+    run); then the sharded top-10 over phase 4's 17,770 items against the
+    brute force on the card."""
+    from cuda_recommender_tpu_torch import Config
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.parallel.mesh import make_mesh
+    from cuda_recommender_tpu_torch.serve.retrieval_sharded import (
+        topk_mips_sharded)
+
+    mesh = make_mesh(1)
+    launches, out = {}, {}
+
+    def held(name, what, R, T, kw, kernels, ref, iters) -> None:
+        res, ln, coll, peak = _sharded_train(what, device, mesh, R, T,
+                                             Config(maxiter=iters, **kw),
+                                             kernels)
+        _bit_equal(what, (res.W, res.H), (ref["W"], ref["H"]))
+        n = len(ref["rmse"])          # phase 32's resumed run: its last
+        _close_rmse(what, [st.rmse for st in res.stats][-n:], ref["rmse"],
+                    1e-6)
+        _count(ln, launches)
+        out[name] = dict(s_iter=_steady(res.stats), peak=peak,
+                         collectives=coll)
+
+    A, D = ALS_HEADLINE, DENSE_HEADLINE
+    R, T = synthetic_cached(A["m"], A["n"], A["nnz"], seed=1,
+                            test_fraction=0.02)
+    held("als", "ALS ml20M k=40", R, T,
+         dict(solver="als", k=A["k"], lambda_=A["lam"], als_solver="gj",
+              als_precision="highest"), ("gj_solve",), als_ck,
+         RESUME_ITERS[0])
+    R, T = synthetic_cached(D["m"], D["n"], D["nnz"], seed=1)
+    held("dense", "dense ml10M k=10, 1-D mesh", R, T,
+         dict(k=D["k"], lambda_=D["lam"]),
+         ("fused_update_vsweep", "masked_usweep"), dense_ck, RESUME_ITERS[0])
+    held("ell", "ell ml10M k=10", R, T,
+         dict(k=D["k"], lambda_=D["lam"], backend="ell"), (), ell,
+         ELL_ITERS[0])
+    del R, T
+    users = np.arange(SHARDED_TOPK_USERS)
+    t0 = time.perf_counter()
+    s, i = topk_mips_sharded(head["W"], head["H"], users, mesh,
+                             topk=SERVE["topk"], entity_major=False,
+                             device=device)
+    topk_s = time.perf_counter() - t0
+    U = torch.from_numpy(np.ascontiguousarray(head["W"].T[users])).to(device)
+    Hd = torch.from_numpy(np.ascontiguousarray(head["H"].T)).to(device)
+    full = U @ Hd.T
+    d_s, same = check_topk("sharded top-10", torch.from_numpy(s).to(device),
+                           torch.from_numpy(i).to(device), full,
+                           torch.topk(full, SERVE["topk"], dim=1).values)
+    print(f"[sharded] top-{SERVE['topk']} of {len(users)} users over "
+          f"{Hd.shape[0]} items, 1 rank: max score diff {d_s:.3e}, ids equal "
+          f"to the brute force's in {100 * same:.2f}% of slots (the rest "
+          f"ties); {topk_s:.3f} s", flush=True)
+    out["topk"] = dict(score_diff=d_s, same_ids=same)
+    return dict(launches=launches, runs=out)
+
+
+def run_two_ranks(hyb_ck) -> dict:
+    """Phase 35: phase 29's hybrid (ml10M dims, k=40, bf16 NaN panels, the
+    panel kernels, 3e8 cells) through ``cli.train --mesh 2`` in two
+    processes on the one card (``parallel/launch.py``; both ranks on
+    cuda:0, so gloo, whose all-reduce takes CUDA tensors: NCCL does not
+    allow two ranks on one GPU). Held against phase 29's single-device run
+    of the same data: each iteration's RMSE within PHASE_RMSE_TOL, and W
+    and H within TWO_RANKS_REL_TOL of it in relative Frobenius norm. A
+    bf16 residual: the two ranks' f32 partial sums, added in another
+    order, move the last bit of a few factor entries, and each such move
+    flips bf16 roundings of the residual downstream, so single entries
+    drift by up to a few 1e-3 (6.4e-3 at a 400 x 150 CPU run, against
+    1.0e-5 at an f32 residual), not the trajectory."""
+    from cuda_recommender_tpu_torch.data.binfmt import load_model
+    from cuda_recommender_tpu_torch.parallel.launch import run_ranks
+
+    kw = RESUME_HYBRID
+    iters = RESUME_ITERS[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "model")
+        args = ["-m", "cuda_recommender_tpu_torch.cli.train", "--mesh",
+                str(TWO_RANKS), "--dist-backend", "gloo", "--dataset",
+                ML10M_SPEC, "-k", str(kw["k"]), "-t", str(iters), "-l",
+                str(kw["lambda_"]), "--backend", "hybrid",
+                "--residual-dtype", "bfloat16", "--mask-dtype", "nan",
+                "--panel-kernel", "--hybrid-cells",
+                str(kw["hybrid_dense_cells"]), "--panel-widths",
+                ",".join(str(w) for w in kw["hybrid_panel_widths"]),
+                "--save-model", model, "--device", "cuda"]
+        print("[two ranks] gloo over 2 processes on cuda:0: "
+              + " ".join(args[1:]), flush=True)
+        t0 = time.perf_counter()
+        res = run_ranks(args, TWO_RANKS, timeout=600,
+                        local_ranks=[0] * TWO_RANKS, cwd=HERE)
+        wall = time.perf_counter() - t0
+        for rank, (rc, text) in enumerate(res):
+            print(f"[two ranks] rank {rank} exited {rc}:\n{text}", flush=True)
+        if any(rc != 0 for rc, _ in res):
+            raise AssertionError("two ranks on one card failed")
+        W, H = load_model(model, entity_major=False)
+    out0 = res[0][1]
+    rmse = [float(x) for x in re.findall(
+        r"^\[-INFO-\] iteration num \d+ .*RMSE=(\S+)", out0, re.M)]
+    rank_s = [float(x) for x in re.findall(
+        r"^\[-INFO-\] iteration num \d+ \trank_time ([0-9.]+)\|", out0,
+        re.M)]
+    d = _close_rmse("two ranks", rmse, hyb_ck["rmse"], PHASE_RMSE_TOL)
+    rel = {name: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+           for name, a, b in (("W", W, hyb_ck["W"]), ("H", H, hyb_ck["H"]))}
+    if max(rel.values()) > TWO_RANKS_REL_TOL:
+        raise AssertionError(f"two ranks: factors off the single-device "
+                             f"run: relative distance {rel}")
+    launches = _cli_launches(out0)
+    for name in ("panel_update_vsweep", "panel_usweep"):
+        if launches[name] <= 0:
+            raise AssertionError(f"two ranks: {name} never launched")
+    s_iter = sum(rank_s[1:]) / len(rank_s[1:])
+    print(f"[two ranks] backend gloo; RMSE {rmse} vs one device "
+          f"{hyb_ck['rmse']} (max diff {d:.3e}); relative distance "
+          f"{rel}; max |dW| "
+          f"{float(np.abs(W - hyb_ck['W']).max()):.3e}, |dH| "
+          f"{float(np.abs(H - hyb_ck['H']).max()):.3e}; s/iter {s_iter:.4f} "
+          f"(one device {hyb_ck['s_iter']:.4f}); rank 0's launches "
+          f"{launches}; {wall:.1f} s", flush=True)
+    return dict(launches=launches, s_iter=s_iter, rmse_diff=d, rel=rel)
 
 
 def main() -> int:
@@ -2371,8 +2606,7 @@ def main() -> int:
           "the model file, batch top-10 f32 and int8 against the brute "
           "force, recall@10, the engine's sequential queries")
     t0 = time.perf_counter()
-    serve = run_serving(dev, head.pop("W"), head.pop("H"),
-                        head.pop("recall"))
+    serve = run_serving(dev, head["W"], head["H"], head.pop("recall"))
     print(f"[serve] phase 23: {time.perf_counter() - t0:.1f} s; card: {smi}",
           flush=True)
 
@@ -2447,7 +2681,7 @@ def main() -> int:
 
     phase("30 phase timing at the Netflix-100M headline (2 iterations: K3, "
           "K2; rank/update split)")
-    phased = run_phase_headline(dev, *head.pop("data"), head)
+    phased = run_phase_headline(dev, *head["data"], head)
     _count(phased["launches"], paths)
 
     phase("31 phase timing through the CLI (--phase-timing -q 1, the dense "
@@ -2458,12 +2692,42 @@ def main() -> int:
     phase("32 pure ELL through the CLI (--backend ell --golden, ml10M dims, "
           "k=10), then 2 + 1 iterations resumed, bit-equal")
     ell = run_ell(dev)
+
+    from cuda_recommender_tpu_torch.parallel import multihost
+    phase("33 the sharded hybrid at the headline over one rank (NCCL, "
+          "train(mesh=...)): K1, K2, 2·k·T all-reduces an iteration, "
+          "bit-equal to phase 4")
+    multihost.initialize_local("cuda")
+    try:
+        sh_head = run_sharded_headline(dev, *head.pop("data"), head)
+        _count(sh_head["launches"], paths)
+
+        phase("34 sharded ALS (ml20M, K5), dense (ml10M, 1-D mesh: K4, the "
+              "masked sweeps), ELL (ml10M) and top-10 over one rank, each "
+              "bit-equal to its single-device run")
+        sh_rest = run_sharded_backends(dev, head, als_ck, dense_ck, ell)
+        _count(sh_rest["launches"], paths)
+    finally:
+        multihost.shutdown()
+
+    phase("35 two ranks on the one card (gloo): the ml10M hybrid through "
+          "cli.train --mesh 2, against phase 29's single-device run")
+    two = run_two_ranks(hyb_ck)
+    _count(two["launches"], paths)
     phase(None)
     print("[resume] summary " + json.dumps({
         name: {key: rec[key] for key in ("bytes", "save_s", "load_s",
                                          "s_iter")}
         for name, rec in (("als_ml20m", als_ck), ("dense_ml10m", dense_ck),
                           ("hybrid_ml10m", hyb_ck))}), flush=True)
+    print("[sharded] summary " + json.dumps({
+        "headline_1_rank": {key: sh_head[key] for key in ("s_iter", "peak")},
+        "headline_single_device": {"s_iter": head["s_iter"],
+                                   "peak": head["peak"]},
+        "backends_1_rank": sh_rest["runs"],
+        "two_ranks_gloo": {key: two[key] for key in ("s_iter", "rmse_diff",
+                                                     "rel")},
+        "card": smi}), flush=True)
     print("[phase] summary " + json.dumps({
         "headline_split": phased["split"], "fused_s_iter": head["s_iter"],
         "update_busy_ms": phased["update"]["busy_ms"],

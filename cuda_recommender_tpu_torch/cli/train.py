@@ -12,8 +12,21 @@ knobs (with ``--transpose-stair 0|1|auto``), the ALS layout knobs,
 ``--save-model``, ``--device``, checkpoints (``--checkpoint-dir``,
 ``--checkpoint-every``, ``--resume``) and ``--phase-timing`` (fenced
 per-phase rank/update times; with ``-q 1`` a line per rank).
-``--mesh``/``--mesh2d`` (ROADMAP.md queue 1 item 15) are parsed, and the
-trainer raises ``NotImplementedError`` naming their item.
+
+``--mesh N`` shards the run over N RANKS, one process a GPU, under
+``torchrun`` (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); it raises unless
+``WORLD_SIZE`` is N. (In the JAX package ``--mesh N`` is N devices of one
+process.) ``--mesh2d AxB`` is the dense backend's (users x items) mesh of
+A·B ranks. NCCL runs the collectives on the card and gloo on the CPU
+(``--dist-backend`` picks another). Every rank loads the data and ends
+with the same factors; rank 0 alone prints the iteration lines and the
+golden verdict and writes ``--save-model``, the predictions and the
+metrics file.
+
+    torchrun --nproc-per-node 4 -m cuda_recommender_tpu_torch.cli.train \
+        --mesh 4 --dataset synthetic:m=6040,n=3706,nnz=900000 -k 10 -t 3 \
+        --backend hybrid --mask-dtype nan --panel-kernel
 
 Data: a ``data_dir`` holding ``meta_modified_all`` (the reference's packed
 binary, src/tools.cpp:3-85) or ``meta`` (legacy text, src/extras.cpp:24-44),
@@ -99,10 +112,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "budget) or 'ref'. ALS: 'ell' (any request but "
                         "'ref' resolves to it) or 'ref'")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="shard over an N-device mesh (not in the port yet: "
-                        "ROADMAP.md queue 1 item 15)")
+                   help="shard over N ranks (one process a GPU, under "
+                        "torchrun; WORLD_SIZE must be N)")
     p.add_argument("--mesh2d", default=None, metavar="AxB",
-                   help="2-D (users x items) mesh (item 15)")
+                   help="2-D (users x items) mesh of A*B ranks for the "
+                        "dense backend")
+    p.add_argument("--dist-backend", default=None, dest="dist_backend",
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a mesh (default: "
+                        "nccl on cuda, gloo on cpu)")
+    p.add_argument("--defer-group", type=int, default=None, metavar="G",
+                   dest="defer_group",
+                   help="hybrid ELL-tail rank-deferral group (0 disables; "
+                        "not in the port: ROADMAP.md 'Not ported')")
     p.add_argument("--fused-iters", type=int, default=1, dest="fused_iters",
                    help="outer iterations enqueued before the loop waits "
                         "for their RMSE readbacks")
@@ -189,6 +211,8 @@ def build_config(args) -> Config:
         overrides["als_group_mb"] = int(args.als_group_mb)
     if args.als_gather_tile_mb is not None:
         overrides["als_gather_tile_mb"] = float(args.als_gather_tile_mb)
+    if args.defer_group is not None:
+        overrides["hybrid_defer_group"] = int(args.defer_group)
     return Config(
         solver=Solver.ALS if args.als else Solver.CCD,
         k=args.k, maxiter=args.maxiter, maxinneriter=args.maxinneriter,
@@ -218,22 +242,50 @@ def load_data(args):
     raise SystemExit(f"no meta_modified_all or meta manifest in {args.data_dir}")
 
 
+def make_cli_mesh(args):
+    """The mesh ``--mesh`` / ``--mesh2d`` ask for, over the initialized
+    process group, or None."""
+    from ..parallel.mesh import make_mesh, make_mesh_2d
+    if args.mesh2d:
+        a, b = (int(x) for x in args.mesh2d.lower().split("x"))
+        return make_mesh_2d((a, b))
+    return make_mesh(args.mesh) if args.mesh else None
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = build_config(args)
-    R, T = load_data(args)
-    print(f"[info] loaded {R.rows} x {R.cols}, nnz={R.nnz}, "
-          f"test nnz={T.nnz}", flush=True)
+    from ..parallel import multihost
+    # a mesh's process group, from the launcher's environment; closed here
+    # if opened here
+    opened = bool(args.mesh or args.mesh2d) and multihost.initialize(
+        args.device, backend=args.dist_backend)
+    try:
+        return _main(args, cfg, make_cli_mesh(args))
+    finally:
+        if opened:
+            multihost.shutdown()
 
-    # the port has no mesh yet: the trainer's check raises
-    # NotImplementedError naming its ROADMAP.md item
-    check_supported(cfg, cfg.resolve_backend(R.rows, R.cols),
-                    args.mesh2d or args.mesh or None)
-    log = MetricsLog(cfg.metrics_file)
+
+def _main(args, cfg: Config, mesh) -> int:
+    root = mesh is None or mesh.get_rank() == 0
+    R, T = load_data(args)
+    if root:
+        print(f"[info] loaded {R.rows} x {R.cols}, nnz={R.nnz}, "
+              f"test nnz={T.nnz}", flush=True)
+    if mesh is not None and cfg.hybrid_defer_group > 0:
+        # the sharded hybrid never reads hybrid_defer_group: fail loud
+        # instead of running the undeferred schedule (the JAX CLI's words)
+        raise SystemExit("--defer-group is single-device-only: the sharded "
+                         "hybrid path does not implement rank deferral "
+                         "(pass --defer-group 0 or drop --mesh/--mesh2d)")
+    check_supported(cfg, cfg.resolve_backend(R.rows, R.cols), mesh)
+    log = MetricsLog(cfg.metrics_file if root else None, echo=root)
     try:
         result = train(cfg, R, T, device=args.device, log=log,
-                       resume_from_checkpoint=args.resume)
-        if args.save_model or cfg.do_predict:
+                       resume_from_checkpoint=args.resume,
+                       **({} if mesh is None else {"mesh": mesh}))
+        if root and (args.save_model or cfg.do_predict):
             path = args.save_model or "model"
             binfmt.save_model(path, result.W, result.H,
                               entity_major=result.entity_major)
@@ -250,7 +302,7 @@ def main(argv=None) -> int:
                 print("[info] predictions written to ./output", flush=True)
     finally:
         log.close()
-    if args.device.startswith("cuda"):
+    if args.device.startswith("cuda") and root:
         from ..ops.launches import launch_counts
         print("[info] kernel launches: " + json.dumps(launch_counts()),
               flush=True)

@@ -13,9 +13,12 @@ backends (so every AUTO choice), ALS on the ``ell`` backend (ALS's one
 compiled path: any backend request but ``ref`` resolves to it), and both on
 the ``ref`` backend, each with checkpoint/resume (``cfg.checkpoint_dir``,
 ``resume_from_checkpoint``; core/checkpoint.py) and CCD++ with phase timing
-on dense, hybrid and ell (solvers/phase_loop.py). A mesh and the knobs
-ROADMAP.md lists as not ported raise ``NotImplementedError`` naming their
-item.
+on dense, hybrid and ell (solvers/phase_loop.py). With a ``mesh``
+(parallel/mesh.py: one rank a process, ``torch.distributed``) the sharded
+trainers of parallel/ run ALS, ell, hybrid and dense (1-D or 2-D); every
+rank returns the same factors, and only rank 0 prints, writes the metrics
+file and checkpoints, and runs the golden check. The knobs ROADMAP.md lists
+as not ported raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -60,8 +63,9 @@ class TrainResult:
 
 def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
     """Raise for a configuration the port does not run:
-    NotImplementedError naming the ROADMAP.md item that ports it, or, for
-    phase timing on pallas and ALS, the JAX package's own refusal."""
+    NotImplementedError naming the ROADMAP.md item that ports it, or the
+    JAX package's own refusal (phase timing on pallas, ALS or a mesh; the
+    pallas backend or the transposed stair with a mesh)."""
     als = cfg.solver == Solver.ALS
     if als and cfg.phase_timing and backend != Backend.REF:
         raise NotImplementedError(
@@ -69,15 +73,28 @@ def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
             "iterations into rank/update phases, src/CCD.cpp:76-139; its ALS "
             "prints one per-iteration time, which the normal loop already "
             "measures)")
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not in the port yet "
-                                  "(ROADMAP.md queue 1 item 15: "
-                                  "multi-device)")
+    if cfg.phase_timing and mesh is not None and not als \
+            and backend != Backend.REF:
+        raise NotImplementedError(
+            "phase_timing is single-device in the trainer loop; the "
+            "sharded hybrid path has per-phase shard_map dispatches "
+            "(parallel.ccd_hybrid_sharded.make_sharded_hybrid_phase_"
+            "fns, exercised with measured rank/update times on a "
+            "2+-device mesh by tests/test_hybrid_sharded.py)")
     if cfg.phase_timing and backend == Backend.PALLAS:
         raise NotImplementedError(
             "phase_timing is not implemented for the pallas backend; "
             "use dense (same dense-residual schedule) — hybrid, dense "
             "and ell all support it")
+    if mesh is not None and not als and backend == Backend.PALLAS:
+        raise NotImplementedError(
+            "the Pallas backend is single-chip; use backend=dense or ell "
+            "with --mesh")
+    if mesh is not None and not als and backend == Backend.HYBRID \
+            and cfg.hybrid_transpose:
+        raise NotImplementedError(
+            "hybrid_transpose is single-device-only (the sharded "
+            "hybrid plans the classic user-axis stair)")
     if backend == Backend.HYBRID:
         from ..solvers.ccd_hybrid import check_supported
         check_supported(cfg)
@@ -92,10 +109,11 @@ def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
         check_supported(cfg)
 
 
-def checkpoint_meta(cfg: Config, backend: Backend) -> dict:
+def checkpoint_meta(cfg: Config, backend: Backend,
+                    num_shards: int = 1) -> dict:
     """Layout-determining knobs stamped into the checkpoint manifest, per
     backend, with the JAX package's keys and values (its trainer.py::
-    checkpoint_meta; one device, so ``num_shards`` 1): ELL and hybrid
+    checkpoint_meta; ``num_shards`` the mesh's ranks): ELL and hybrid
     payloads are slot- or panel-space, so resuming under a different k,
     bucket width or panel plan would map them onto a different layout — a
     shape error at best, silently wrong factors when shapes coincide. Only
@@ -105,7 +123,7 @@ def checkpoint_meta(cfg: Config, backend: Backend) -> dict:
         # (data/ell.py _choose_widths)
         "ell_layout": 2,
         "k": cfg.k,
-        "num_shards": 1,
+        "num_shards": num_shards,
     }
     if cfg.solver == Solver.ALS:
         meta["min_width"] = cfg.als_min_width
@@ -121,7 +139,8 @@ def checkpoint_meta(cfg: Config, backend: Backend) -> dict:
 
 
 def load_resume(cfg: Config, backend: Backend,
-                ckpt: Optional[Checkpointer]) -> Optional[dict]:
+                ckpt: Optional[Checkpointer],
+                num_shards: int = 1) -> Optional[dict]:
     """The latest checkpoint of ``ckpt`` as a solver's ``resume`` payload
     ({"oiter", "W", "H", extras...}), or None when there is none. Raises
     ValueError, with the JAX package's texts, when there is no
@@ -139,7 +158,7 @@ def load_resume(cfg: Config, backend: Backend,
             f"backend={latest.get('backend')} but this run is "
             f"solver={cfg.solver.value} backend={backend.value} — payloads "
             "are incompatible")
-    want = checkpoint_meta(cfg, backend)
+    want = checkpoint_meta(cfg, backend, num_shards)
     have = latest.get("meta") or {}
     bad = {key: (have[key], want[key]) for key in want
            if key in have and have[key] != want[key]}
@@ -180,7 +199,7 @@ def _run_reference(cfg: Config, R, W0, H0, T, log):
 
 
 def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
-                  run: dict, ckpt=None, resume=None):
+                  run: dict, ckpt=None, resume=None, mesh=None):
     if backend == Backend.REF:
         return _run_reference(cfg, R, W0, H0, T, log)
 
@@ -207,9 +226,11 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
             lambda oiter, t, dt, rmse: log.rank(
                 cfg.solver.value, backend.value, oiter, t, dt, rmse))
     if ckpt is not None:
-        meta = checkpoint_meta(cfg, backend)
+        meta = checkpoint_meta(cfg, backend, _shards(mesh))
 
         def save(oiter, payload):
+            if payload is None:          # a sharded run: rank 0 writes
+                return
             t0 = time.perf_counter()
             path = ckpt.save(oiter, W=payload.pop("W"), H=payload.pop("H"),
                              solver=cfg.solver.value, backend=backend.value,
@@ -221,18 +242,48 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
     if resume is not None:
         kw["resume"] = resume
     return solve(cfg, backend, R, W0, H0, T, device=device, callback=cb,
-                 log=log, run=run, **kw)
+                 log=log, run=run, mesh=mesh, **kw)
+
+
+def _shards(mesh) -> int:
+    return 1 if mesh is None else mesh.size()
+
+
+def _solve_sharded(cfg: Config, backend: Backend, R, W0, H0, T, mesh, *,
+                   run=None, **kw):
+    """The sharded trainers (parallel/), the JAX trainer's mesh dispatch
+    (its core/trainer.py:106-138)."""
+    if cfg.solver == Solver.ALS:
+        from ..parallel.als_ell_sharded import als_ell_train_sharded
+        return als_ell_train_sharded(R, W0, H0, T, cfg, mesh, **kw)
+    if backend == Backend.HYBRID:
+        from ..parallel.ccd_hybrid_sharded import ccd_hybrid_train_sharded
+        return ccd_hybrid_train_sharded(R, W0, H0, T, cfg, mesh, run=run,
+                                        **kw)
+    if backend == Backend.DENSE:
+        from ..parallel.mesh import dense_ccd_shardings, dense_ccd_shardings_2d
+        from ..solvers.ccd_dense import ccd_dense_train
+        blocks = (dense_ccd_shardings_2d(mesh) if mesh.ndim == 2
+                  else dense_ccd_shardings(mesh))
+        return ccd_dense_train(R, W0, H0, T, cfg, shardings=blocks, **kw)
+    from ..parallel.ccd_ell_sharded import ccd_ell_train_sharded
+    return ccd_ell_train_sharded(R, W0, H0, T, cfg, mesh, **kw)
 
 
 def solve(cfg: Config, backend: Backend, R, W0, H0, T, *, device,
           callback=None, log: Optional[MetricsLog] = None,
-          run: Optional[dict] = None, **kw):
+          run: Optional[dict] = None, mesh=None, **kw):
     """Run the compiled solver of (``cfg.solver``, ``backend``) — the path
     ``train()`` runs — on ``device``; returns (W, H, stats). Prints nothing
     unless ``log`` is given. The hybrid backend writes its orientation and
     plan into ``run`` (``ccd_hybrid_train``); the others leave it as it
     is. ``kw``: the solvers' checkpoint and phase-timing hooks
-    (``ckpt_every``, ``ckpt_fn``, ``resume``, ``rank_callback``)."""
+    (``ckpt_every``, ``ckpt_fn``, ``resume``, ``rank_callback``). With a
+    ``mesh`` the sharded trainers run (ref ignores it)."""
+    if mesh is not None and backend != Backend.REF:
+        return _solve_sharded(cfg, backend, R, W0, H0, T, mesh,
+                              device=device, callback=callback, log=log,
+                              run=run, **kw)
     if cfg.solver == Solver.ALS:
         from ..solvers.als_ell import als_ell_train
         return als_ell_train(R, W0, H0, T, cfg, device=device,
@@ -259,10 +310,24 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
           resume_from_checkpoint: bool = False) -> TrainResult:
     """Full training run on ``device`` ("cuda" or "cpu"; "cuda" without a
     GPU raises) with optional golden validation (cfg.golden) and
-    checkpoint/resume (cfg.checkpoint_dir / resume_from_checkpoint)."""
+    checkpoint/resume (cfg.checkpoint_dir / resume_from_checkpoint).
+
+    ``mesh`` (parallel/mesh.py, over the initialized process group): every
+    rank calls ``train`` with the same data and gets the same factors; the
+    rank trains on ``cuda:{LOCAL_RANK}`` for ``device="cuda"``. Rank 0
+    alone logs (``log`` and ``cfg.metrics_file``), writes checkpoints and
+    runs the golden check; every rank reads a resumed checkpoint, so
+    ``checkpoint_dir`` must be visible to all of them."""
     backend = cfg.resolve_backend(R.rows, R.cols)
     check_supported(cfg, backend, mesh)
     device = resolve_device(device)
+    root = True
+    if mesh is not None:
+        from ..parallel.multihost import rank_device
+        device = rank_device(device)
+        root = mesh.get_rank() == 0
+    if not root:
+        log = MetricsLog(None, echo=False)
     log = log or MetricsLog(cfg.metrics_file)
     entity_major = cfg.solver == Solver.ALS
     log.info(f"[info] Picked Version: {cfg.solver.value.upper()}!")
@@ -279,7 +344,7 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     resume = None
     if resume_from_checkpoint:
         t0 = time.perf_counter()
-        resume = load_resume(cfg, backend, ckpt)
+        resume = load_resume(cfg, backend, ckpt, _shards(mesh))
         if resume is not None:
             log.info(f"[info] resuming from checkpoint oiter="
                      f"{resume['oiter']}")
@@ -290,7 +355,8 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
     t0 = time.perf_counter()
     run: dict = {}
     W, H, stats = _run_compiled(cfg, backend, R, W0.copy(), H0.copy(), T, log,
-                                device, run, ckpt=ckpt, resume=resume)
+                                device, run, ckpt=ckpt, resume=resume,
+                                mesh=mesh)
     train_time = time.perf_counter() - t0
     log.info("[info] %s Training time: %f s." % (backend.value, train_time))
     t0 = time.perf_counter()
@@ -302,7 +368,7 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
                          backend=backend.value, final_rmse=final_rmse,
                          train_time=train_time)
 
-    if cfg.golden:
+    if cfg.golden and root:
         log.info("[INFO] Computing with reference (golden) backend...")
         t0 = time.perf_counter()
         if run.get("transposed"):

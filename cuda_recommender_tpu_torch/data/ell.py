@@ -202,10 +202,13 @@ def _plan_buckets(degrees: np.ndarray, min_width: int,
 
 
 def _build_side(ptr: np.ndarray, n_entities: int, *, min_width,
-                num_shards: int) -> tuple[EllSide, list[np.ndarray]]:
+                num_shards: int,
+                alloc: bool = True) -> tuple[EllSide, list[np.ndarray]]:
     """First pass: slot assignment + bucket geometry. Returns the side with
     zeroed idx/val plus, per bucket, the per-slot raw entity ids (for the
-    fill pass).
+    fill pass). ``alloc=False`` skips the (rows, L) bucket allocations:
+    geometry only, from the ptr array alone (data/shard_loader.py, where
+    no process holds nnz-scale arrays).
 
     ``min_width`` may be the string "auto": the floor is then chosen from
     THIS side's degree distribution (auto_min_width), so each orientation
@@ -269,7 +272,7 @@ def _build_side(ptr: np.ndarray, n_entities: int, *, min_width,
     for (E, p, rows_ps, grid), boff in zip(buckets_meta, bucket_offsets):
         L = p * E          # <= LANE when E < LANE; XLA pads storage lanes only
         rows = num_shards * rows_ps
-        shape = (rows, L)
+        shape = (rows, L) if alloc else (0, L)
         buckets.append(EllBucket(
             E=E, p=p, rows_per_shard=rows_ps, slots_per_shard=rows_ps * p,
             idx=np.zeros(shape, dtype=np.int32),
@@ -318,6 +321,46 @@ def _fill_side(side: EllSide, fill_grids, ptr, nbr_idx, nbr_val,
             b.idx[r, c] = other_slot_of_entity[nbr_idx[src]]
             b.val[r, c] = nbr_val[src]
     return dataclasses.replace(side, other_zero_slot=other_zero_slot)
+
+
+def plan_ell_pair(csr_ptr: np.ndarray, csc_ptr: np.ndarray, n_rows: int,
+                  n_cols: int, *, min_width: int = 8, num_shards: int = 1
+                  ) -> tuple[EllSide, EllSide, list, list]:
+    """Geometry-only layout of both orientations from the ptr arrays alone
+    (degrees are all the bucketing needs). Bucket idx/val are (0, L)
+    placeholders. Returns (rows_side, cols_side, rows_fill_grids,
+    cols_fill_grids); the fill grids map each (shard, slot) to its raw
+    entity id so a rank can range-read and fill ONLY its shard's rows
+    (data/shard_loader.py). Every rank derives the identical layout."""
+    rows_side, rows_grids = _build_side(csr_ptr, n_rows, min_width=min_width,
+                                        num_shards=num_shards, alloc=False)
+    cols_side, cols_grids = _build_side(csc_ptr, n_cols, min_width=min_width,
+                                        num_shards=num_shards, alloc=False)
+    rows_side = dataclasses.replace(rows_side,
+                                    other_zero_slot=cols_side.n_slots)
+    cols_side = dataclasses.replace(cols_side,
+                                    other_zero_slot=rows_side.n_slots)
+    return rows_side, cols_side, rows_grids, cols_grids
+
+
+def shard_view(side: EllSide, shard: int) -> EllSide:
+    """One shard's block of a shard-uniform side (``num_shards`` = N) as a
+    single-shard side: each bucket's rows [shard·rows_per_shard,
+    (shard+1)·rows_per_shard), and the shard's slots. ``slot_of_entity``
+    stays global. What one rank of a sharded solver holds; with N = 1 the
+    side itself."""
+    if side.num_shards == 1:
+        return side
+    rps = [b.rows_per_shard for b in side.buckets]
+    bks = tuple(
+        dataclasses.replace(b, idx=b.idx[shard * r:(shard + 1) * r],
+                            val=b.val[shard * r:(shard + 1) * r])
+        for b, r in zip(side.buckets, rps))
+    sl = slice(shard * side.slots_per_shard,
+               (shard + 1) * side.slots_per_shard)
+    return dataclasses.replace(side, num_shards=1, buckets=bks,
+                               entity_of_slot=side.entity_of_slot[sl],
+                               slot_nnz=side.slot_nnz[sl])
 
 
 def build_ell_pair(R: RatingMatrix, *, min_width: int | str = 8,

@@ -18,11 +18,6 @@ import numpy as np
 from ..core.config import Backend, Solver
 from ..data.binfmt import load_model, save_model
 
-#: what a request for a sharded trainer raises
-_SHARDED = ("a sharded trainer is not in the port yet (ROADMAP.md queue 1 "
-            "item 15: multi-device)")
-
-
 @dataclasses.dataclass
 class MFModel:
     """Trained factorization R ≈ W Hᵀ (entity-major factors)."""
@@ -59,12 +54,14 @@ class MFModel:
 
     def recommend(self, user_ids, *, topk: int = 10, exclude=None, mesh=None,
                   device="cuda"):
-        """Top-k MIPS retrieval on ``device``. A mesh (the JAX package's
-        sharded item table, ``serve/retrieval_sharded.py``) raises."""
+        """Top-k MIPS retrieval on ``device``; pass a mesh (parallel/
+        mesh.py) to shard the item table over its ranks
+        (serve/retrieval_sharded.py)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded retrieval is not in the port yet (ROADMAP.md queue "
-                "1 item 15: multi-device, serve/retrieval_sharded.py)")
+            from ..serve.retrieval_sharded import topk_mips_sharded
+            return topk_mips_sharded(self.W, self.H, user_ids, mesh,
+                                     topk=topk, exclude=exclude,
+                                     device=device)
         from ..serve.retrieval import topk_mips
         return topk_mips(self.W, self.H, user_ids, topk=topk, exclude=exclude,
                          device=device)
@@ -83,12 +80,13 @@ def get_train_fn(solver: Solver, backend: Backend, *,
     """Registry lookup: (solver, backend, sharded) -> the port's train
     callable with the common signature (R, W0, H0, T, cfg, ...) -> (W, H,
     stats), as in the JAX package (``ccd_reference`` keeps its keyword
-    signature there too). Sharded trainers raise NotImplementedError
-    naming their ROADMAP.md item."""
+    signature there too). The sharded trainers take the mesh after
+    ``cfg``; the dense one takes its block as ``shardings=``."""
     solver, backend = Solver(solver), Backend(backend)
     if solver == Solver.ALS:
         if sharded:
-            raise NotImplementedError(_SHARDED)
+            from ..parallel.als_ell_sharded import als_ell_train_sharded
+            return als_ell_train_sharded
         from ..solvers.als_ell import als_ell_train
         return als_ell_train
     if backend == Backend.REF:
@@ -100,10 +98,14 @@ def get_train_fn(solver: Solver, backend: Backend, *,
     if backend == Backend.DENSE:
         from ..solvers.ccd_dense import ccd_dense_train
         return ccd_dense_train
-    if sharded:
-        raise NotImplementedError(_SHARDED)
     if backend == Backend.HYBRID:
+        if sharded:
+            from ..parallel.ccd_hybrid_sharded import ccd_hybrid_train_sharded
+            return ccd_hybrid_train_sharded
         from ..solvers.ccd_hybrid import ccd_hybrid_train
         return ccd_hybrid_train
+    if sharded:
+        from ..parallel.ccd_ell_sharded import ccd_ell_train_sharded
+        return ccd_ell_train_sharded
     from ..solvers.ccd_ell import ccd_ell_train
     return ccd_ell_train

@@ -5,7 +5,10 @@
   * ``panel_kernel_variants`` — the variant matrix of K1 (P2): the rmw and
     read floors, K1, K1 rounded by integer RNE, K2;
   * ``probe_gather`` — the gather forms A, B, C (P3) against their one
-    PyTorch call, at the probe's shapes and at the ELL tail's.
+    PyTorch call, at the probe's shapes and at the ELL tail's;
+  * ``collective_overhead`` — the host cost of one collective of the
+    sharded paths (NCCL and gloo, a world of one rank), idle and behind
+    queued device work.
 
 Each runs as ``python -m cuda_recommender_tpu_torch.scripts.<name>``, on
 the card unless ``--device cpu`` is given; ``common`` holds what they and

@@ -12,8 +12,8 @@ Against the JAX package: the last chunk is simply short, so the table
 needs no pad rows and the device top-k no over-fetch beyond the host's
 exclusions (``min(topk + excluded, n)`` wide). ``torch.topk`` orders tied
 scores in no promised way, where ``lax.top_k`` puts the lower index first;
-ids agree wherever scores differ. Sharded serving
-(``serve/retrieval_sharded.py``) is ROADMAP.md queue 1 item 15.
+ids agree wherever scores differ. Sharded serving over the ranks of a
+mesh is ``serve/retrieval_sharded.py``.
 """
 
 from __future__ import annotations

@@ -133,16 +133,23 @@ def _solve_side(idx_tiles, val_tiles, side: EllSide, other: torch.Tensor,
 
 
 def make_als_outer_step(ell: EllPair, lam: float, *, solver: str = "gj",
-                        group_bytes: int = GROUP_TEMP_BYTES) -> Callable:
+                        group_bytes: int = GROUP_TEMP_BYTES,
+                        gather: Optional[Callable] = None) -> Callable:
     """One outer iteration: the W side from the current H, then the H side
     from the NEW W. ``step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r,
-    nnz_c) -> (W, H)``, the JAX package's step signature."""
+    nnz_c) -> (W, H)``, the JAX package's step signature. ``gather`` (the
+    sharded step, parallel/als_ell_sharded.py) turns this rank's slot block
+    of the other side's factors into the global table (an all-gather);
+    ``ell`` is then the rank's shard of the layout."""
     rows, cols = ell.rows_side, ell.cols_side
 
+    def table(F):
+        return F if gather is None else gather(F)
+
     def step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c):
-        W = _solve_side(idx_r, vals_r, rows, H, lam, nnz_r, solver,
+        W = _solve_side(idx_r, vals_r, rows, table(H), lam, nnz_r, solver,
                         group_bytes)
-        H = _solve_side(idx_c, vals_c, cols, W, lam, nnz_c, solver,
+        H = _solve_side(idx_c, vals_c, cols, table(W), lam, nnz_c, solver,
                         group_bytes)
         return W, H
 

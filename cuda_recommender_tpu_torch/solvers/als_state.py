@@ -47,3 +47,13 @@ def als_state_to_numpy(W: torch.Tensor, H: torch.Tensor) -> dict:
     """The slot-space factors as a JAX-package payload of numpy arrays."""
     return {"W": W.detach().to("cpu", copy=True).numpy(),
             "H": H.detach().to("cpu", copy=True).numpy()}
+
+
+def als_payload_block(payload: dict, ell: EllPair, shard: int) -> dict:
+    """Rank ``shard``'s slot block of a global payload of a shard-uniform
+    layout (``ell`` built with ``num_shards`` N)."""
+    out = {}
+    for key, side in (("W", ell.rows_side), ("H", ell.cols_side)):
+        s = side.slots_per_shard
+        out[key] = np.asarray(payload[key])[shard * s:(shard + 1) * s]
+    return out

@@ -58,7 +58,11 @@ from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep
 from ..ops.densify import RESIDUAL_DTYPES, densify_coo_mask
-from .dense_state import (DenseState, dense_state_from_numpy,
+from ..parallel.collectives import (all_gather_rows, all_reduce_pair,
+                                    gather_arrays)
+from ..parallel.multihost import rank_device
+from .dense_state import (DenseState, dense_payload_assemble,
+                          dense_payload_block, dense_state_from_numpy,
                           dense_state_to_numpy)
 from .phase_loop import phased_ccd_loop, rank_rows, refuse_pending
 from .pipeline import pipelined_loop
@@ -98,26 +102,38 @@ def _half_sweep(g: torch.Tensor, h: torch.Tensor, lam: float,
     return out.clamp_min(0.0) if nmf else out
 
 
-def make_outer_step(lam: float, maxinneriter: int, *, nmf: bool = False
+def _no_reduce(g, h):
+    return g, h
+
+
+def make_outer_step(lam: float, maxinneriter: int, *, nmf: bool = False,
+                    reduce_v: Callable = _no_reduce,
+                    reduce_u: Callable = _no_reduce,
                     ) -> Callable[..., torch.Tensor]:
     """One outer iteration over all k ranks (a Python loop), updating the
     state IN PLACE (the JAX step donates it). ``step(state, mask, row_nnz,
-    col_nnz)`` returns the state's W."""
+    col_nnz)`` returns the state's W. ``reduce_v(g, h)`` and
+    ``reduce_u(g, h)`` (a sharded residual) sum the v-sweep's and the
+    u-sweep's partials over the ranks that share the block's columns and
+    rows before the division; the state is then this rank's block."""
 
     def step(st: DenseState, mask, row_nnz, col_nnz) -> torch.Tensor:
+        def new_v(u_sweep):
+            return _half_sweep(*reduce_v(*u_sweep), lam, col_nnz, nmf)
+
+        def new_u(v):
+            return _half_sweep(*reduce_u(*masked_usweep(st.Rhat, mask, v)),
+                               lam, row_nnz, nmf)
+
         for t in range(st.W.shape[0]):
             # K4: deferred subtract of rank t-1 + add-back of rank t, and
             # the first v-sweep with the old u, in one residual pass
-            g, h = fused_update_vsweep(st.Rhat, mask, st.W[t], st.u_pend,
-                                       st.H[t], st.v_pend)
-            v = _half_sweep(g, h, lam, col_nnz, nmf)
-            u = _half_sweep(*masked_usweep(st.Rhat, mask, v), lam, row_nnz,
-                            nmf)
+            v = new_v(fused_update_vsweep(st.Rhat, mask, st.W[t], st.u_pend,
+                                          st.H[t], st.v_pend))
+            u = new_u(v)
             for _ in range(maxinneriter - 1):      # src/CCD.cpp:107-123
-                v = _half_sweep(*masked_vsweep(st.Rhat, mask, u), lam,
-                                col_nnz, nmf)
-                u = _half_sweep(*masked_usweep(st.Rhat, mask, v), lam,
-                                row_nnz, nmf)
+                v = new_v(masked_vsweep(st.Rhat, mask, u))
+                u = new_u(v)
             # write back (src/CCD.cpp:128-134); the subtract of rank t's new
             # outer product is deferred to rank t+1 via (u_pend, v_pend)
             st.W[t] = u
@@ -211,16 +227,19 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     run after outer iteration ``oiter``. With ``cfg.phase_timing`` the
     phases are fenced and timed apart (``rank_callback(oiter, t, dt,
     rmse)`` per rank). With ``log``, the residual's size and the device
-    set-up time are reported as an info line."""
+    set-up time are reported as an info line.
+
+    ``shardings`` (``parallel.mesh.dense_ccd_shardings`` or ``_2d``: this
+    rank's block) runs the sharded residual (``_train_sharded``)."""
     check_supported(cfg)
-    if shardings is not None:
-        raise NotImplementedError("a sharded dense residual is not in the "
-                                  "port yet (ROADMAP.md queue 1 item 15: "
-                                  "multi-device)")
     if cfg.phase_timing:
         refuse_pending(resume)
     dev = resolve_device(device)
     rdt = RESIDUAL_DTYPES[cfg.residual_dtype]
+    if shardings is not None:
+        return _train_sharded(R, W0, T, cfg, shardings, dev, rdt,
+                              callback=callback, ckpt_every=ckpt_every,
+                              ckpt_fn=ckpt_fn, resume=resume, log=log)
     m, n = R.rows, R.cols
 
     t0 = time.perf_counter()
@@ -280,3 +299,99 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
             fuse=cfg.fused_outer_iters,
             do_step=lambda: step(state, mask, row_nnz, col_nnz), **common)
     return state.W.cpu().numpy(), state.H.cpu().numpy(), stats
+
+
+def _train_sharded(R: RatingMatrix, W0: np.ndarray, T: TestCOO, cfg: Config,
+                   lay, dev, rdt, *, callback=None, ckpt_every: int = 0,
+                   ckpt_fn=None, resume=None,
+                   log: Optional[MetricsLog] = None):
+    """The sharded residual (the JAX package's ccd_dense.py:205-235): each
+    sharded axis is padded to a multiple of its mesh dimension with
+    all-zero pad entities (zero mask, zero factors: the empty-entity rule,
+    src/CCD.cpp:8, keeps them exactly 0); this rank densifies only its
+    (mp/a, np/b) block and runs K4 and the masked sweeps on it; the
+    v-sweep's column partials are all-reduced over the user axis' group and
+    (2-D) the u-sweep's row partials over the item axis' group, one
+    all-reduce of the concatenated (g, h) each. The RMSE and the result
+    gather the factors; a checkpoint payload is the JAX package's global
+    padded arrays, gathered to rank 0 (None on the others)."""
+    dev = rank_device(dev)
+    (a, b), (i, j) = lay.divs, lay.coord
+    m, n = R.rows, R.cols
+    mp, np_ = m + (-m) % a, n + (-n) % b
+    mb, nb = mp // a, np_ // b
+    rs, cs = slice(i * mb, (i + 1) * mb), slice(j * nb, (j + 1) * nb)
+
+    t0 = time.perf_counter()
+    r, c, v = R.to_coo()
+    keep = (r >= rs.start) & (r < rs.stop) & (c >= cs.start) & (c < cs.stop)
+    Rd, mask = densify_coo_mask(r[keep] - rs.start, c[keep] - cs.start,
+                                v[keep], mb, nb, rdt, cfg.mask_dtype, dev)
+    start_oiter = 1
+    if resume is not None:
+        start_oiter = int(resume["oiter"]) + 1
+        del Rd
+        state = dense_state_from_numpy(
+            dense_payload_block(resume, lay.divs, lay.coord), (mb, nb), rdt,
+            dev)
+    else:
+        W0p = np.pad(np.asarray(W0, np.float32), ((0, 0), (0, mp - m)))
+        zeros = dict(dtype=torch.float32, device=dev)
+        state = DenseState(
+            Rhat=Rd, W=torch.as_tensor(W0p[:, rs].copy(), device=dev),
+            H=torch.zeros((W0.shape[0], nb), **zeros),  # src/CCD.cpp:56-60
+            u_pend=torch.zeros(mb, **zeros), v_pend=torch.zeros(nb, **zeros))
+
+    def degrees(ptr, pad, sl):
+        return torch.as_tensor(
+            np.pad(np.diff(ptr).astype(np.float32), (0, pad))[sl],
+            device=dev)
+
+    row_nnz = degrees(R.csr_ptr, mp - m, rs)
+    col_nnz = degrees(R.csc_ptr, np_ - n, cs)
+    synchronize(dev)
+    if log is not None:
+        log.info(f"[info] dense residual sharded {a} x {b}: a {mb} x {nb} "
+                 f"block a rank ({m} x {n} padded to {mp} x {np_}); device "
+                 f"set-up {time.perf_counter() - t0:.3f} s")
+
+    def reduce_over(group):
+        return lambda g, h: all_reduce_pair(g, h, group)
+
+    step = make_outer_step(
+        cfg.lambda_, cfg.maxinneriter, nmf=cfg.do_nmf,
+        reduce_v=reduce_over(lay.user_group),
+        reduce_u=(reduce_over(lay.item_group)
+                  if lay.item_group is not None else _no_reduce))
+
+    def full_W():
+        return all_gather_rows(state.W.T, lay.user_group).T
+
+    def full_H():
+        if lay.item_group is None:
+            return state.H
+        return all_gather_rows(state.H.T, lay.item_group).T
+
+    def i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    ti, tj = i64(T.row_idx), i64(T.col_idx)
+    tv = torch.as_tensor(np.asarray(T.val, np.float32), device=dev)
+    chunk = default_eval_chunk(T.nnz, cfg.eval_chunk)
+
+    def get_payload():
+        parts = gather_arrays(dense_state_to_numpy(state), dev)
+        return None if parts is None else dense_payload_assemble(parts,
+                                                                 lay.divs)
+
+    stats = pipelined_loop(
+        start_oiter=start_oiter, maxiter=cfg.maxiter,
+        fuse=cfg.fused_outer_iters,
+        do_step=lambda: step(state, mask, row_nnz, col_nnz),
+        do_rmse=lambda: calrmse_device(ti, tj, tv, full_W(), full_H(),
+                                       entity_major=False, chunk=chunk),
+        callback=callback, ckpt_every=ckpt_every, ckpt_fn=ckpt_fn,
+        get_payload=get_payload,
+        early_stop_eps=cfg.eps if cfg.early_stop else 0.0)
+    return (full_W().cpu().numpy()[:, :m], full_H().cpu().numpy()[:, :n],
+            stats)

@@ -79,11 +79,21 @@ def initial_state(ell: EllPair, W0: np.ndarray, device) -> EllState:
 
 
 def make_ell_outer_step(ell: EllPair, idx_r, idx_c, rnnz_r, rnnz_c,
-                        lam: float, maxinneriter: int, *, nmf: bool = False
+                        lam: float, maxinneriter: int, *, nmf: bool = False,
+                        gather: Optional[Callable] = None,
                         ) -> Callable[[EllState], torch.Tensor]:
     """One outer iteration over all k ranks (a Python loop), updating the
-    state IN PLACE (the JAX step donates it). Returns the state's W."""
+    state IN PLACE (the JAX step donates it). Returns the state's W.
+
+    ``gather`` (the sharded step, parallel/ccd_ell_sharded.py) turns the
+    stacked slot vectors of this rank's slot block into the global table
+    the gathers read (an all-gather); ``ell`` is then the rank's shard of
+    the layout. Without it the slot vectors are the table."""
     rows, cols = ell.rows_side, ell.cols_side
+
+    def table(*vecs) -> torch.Tensor:
+        t = torch.stack(vecs, -1)
+        return extend_zero(t if gather is None else gather(t))
 
     def rank(st: EllState, t: int) -> None:
         u_old, v_old = st.W[t], st.H[t]
@@ -94,23 +104,19 @@ def make_ell_outer_step(ell: EllPair, idx_r, idx_c, rnnz_r, rnnz_c,
             # the stacked [u_pend, u_old] table ----
             if i == 0:
                 g, h = fused_update_sweep(
-                    idx_c, st.vals_c, cols,
-                    extend_zero(torch.stack([st.u_pend, u_old], -1)),
+                    idx_c, st.vals_c, cols, table(st.u_pend, u_old),
                     owns=(st.v_pend, v_old), signs=(-1.0, 1.0), sweep_col=1)
             else:
-                g, h = fused_sweep(idx_c, st.vals_c, cols,
-                                   extend_zero(torch.stack([u, u], -1)))
+                g, h = fused_sweep(idx_c, st.vals_c, cols, table(u, u))
             v = _half_sweep(g, h, lam, rnnz_c, nmf)
             # ---- u-sweep (rows side): [v_pend, v_old, v_new] — deferred
             # subtract, add-back and the sweep with the NEW v ----
             if i == 0:
                 gu, hu = fused_update_sweep(
-                    idx_r, st.vals_r, rows,
-                    extend_zero(torch.stack([st.v_pend, v_old, v], -1)),
+                    idx_r, st.vals_r, rows, table(st.v_pend, v_old, v),
                     owns=(st.u_pend, u_old), signs=(-1.0, 1.0), sweep_col=2)
             else:
-                gu, hu = fused_sweep(idx_r, st.vals_r, rows,
-                                     extend_zero(torch.stack([v, v], -1)))
+                gu, hu = fused_sweep(idx_r, st.vals_r, rows, table(v, v))
             u = _half_sweep(gu, hu, lam, rnnz_r, nmf)
         # ---- write back (src/CCD.cpp:128-134); the subtract of rank t's
         # new outer product is deferred to rank t+1 ----

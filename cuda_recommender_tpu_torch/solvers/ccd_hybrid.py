@@ -567,8 +567,9 @@ def initial_state(plan: HybridPlan, W0: np.ndarray, dtype: torch.dtype,
 
 def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
                            lam: float, maxinneriter: int, *,
-                           nmf: bool = False) -> Callable[[HybridState],
-                                                          torch.Tensor]:
+                           nmf: bool = False,
+                           reduce: Optional[Callable] = None,
+                           ) -> Callable[[HybridState], torch.Tensor]:
     """One outer iteration over all k ranks (a Python loop), all parts,
     updating ``state`` IN PLACE (the JAX step donates these buffers).
     Returns the state's W.
@@ -581,12 +582,20 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
     iterations i > 0 re-sweep with K3 and ``fused_sweep``, without
     updates. W[t], H[t] take (u, v), which also become the pending outer
     product. A state with explicit panel masks (``state.masks``) runs K4,
-    ``masked_usweep`` and ``masked_vsweep`` in those three places."""
+    ``masked_usweep`` and ``masked_vsweep`` in those three places.
+
+    ``reduce(g, h) -> (g, h)`` (the sharded step, parallel/
+    ccd_hybrid_sharded.py) sums each half-sweep's partials over the ranks
+    before the division; ``plan`` is then the rank's part of the plan
+    (``local_plan``): its panels' row blocks and its shard of the tail."""
     rows, cols = plan.ell.rows_side, plan.ell.cols_side
     panels = plan.panels
     have_light = plan.nnz_light > 0
     m, n = plan.row_nnz.shape[0], plan.col_nnz.shape[0]
     d = dplan
+    if reduce is None:
+        def reduce(g, h):
+            return g, h
 
     def rank(st: HybridState, t: int) -> None:
         u_old, v_old = st.W[t], st.H[t]
@@ -622,7 +631,7 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
                 g_e, h_e = stacked_remap((g_l, h_l), d.slot_of_ipos)
                 g = g + g_e
                 h = h + h_e
-            v = _half_sweep(g, h, lam, d.col_nnz, nmf)
+            v = _half_sweep(*reduce(g, h), lam, d.col_nnz, nmf)
 
             # ---- u-sweep (users) ----
             gu, hu = torch.zeros(m, **f32), torch.zeros(m, **f32)
@@ -647,7 +656,7 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
                 gu_e, hu_e = stacked_remap((g_lr, h_lr), d.slot_of_upos)
                 gu = gu + gu_e
                 hu = hu + hu_e
-            u = _half_sweep(gu, hu, lam, d.row_nnz, nmf)
+            u = _half_sweep(*reduce(gu, hu), lam, d.row_nnz, nmf)
 
         # ---- write back (src/CCD.cpp:128-134); the subtract of rank t's
         # new outer product is deferred to rank t+1 via (u_pend, v_pend) ----
@@ -665,7 +674,8 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
 
 def make_hybrid_phase_fns(plan: HybridPlan, dplan: HybridDevicePlan,
                           lam: float, maxinneriter: int, *,
-                          nmf: bool = False):
+                          nmf: bool = False,
+                          reduce: Optional[Callable] = None):
     """Phase-split step functions for phase timing (solvers/phase_loop.py):
     the reference's plain schedule (add-back, sweeps, immediate subtract,
     src/CCD.cpp:74-139), each phase one fenceable pass over ALL parts
@@ -678,12 +688,16 @@ def make_hybrid_phase_fns(plan: HybridPlan, dplan: HybridDevicePlan,
     893-975). The update phases are plain torch, as XLA computes them in
     the JAX package (its ``_panel_update`` and ``_ell_update``,
     ccd_hybrid.py:840-868): ``rank1_update`` rounds the delta to the
-    panel's dtype and then the sum."""
+    panel's dtype and then the sum. ``reduce``: as in
+    ``make_hybrid_outer_step`` (the sharded phase functions)."""
     rows, cols = plan.ell.rows_side, plan.ell.cols_side
     panels = plan.panels
     have_light = plan.nnz_light > 0
     m, n = plan.row_nnz.shape[0], plan.col_nnz.shape[0]
     d = dplan
+    if reduce is None:
+        def reduce(g, h):
+            return g, h
 
     def _both(st: HybridState, t: int, sign: float) -> None:
         u, v = st.W[t], st.H[t]
@@ -717,9 +731,9 @@ def make_hybrid_phase_fns(plan: HybridPlan, dplan: HybridDevicePlan,
             if have_light:
                 g_l, h_l = sweep_partials(d.idx_c, st.vals_c, cols,
                                           extend_zero(u))
-                g = g + g_l[d.slot_of_ipos]
-                h = h + h_l[d.slot_of_ipos]
-            v = _half_sweep(g, h, lam, d.col_nnz, nmf)
+                g = g + extend_zero(g_l)[d.slot_of_ipos]
+                h = h + extend_zero(h_l)[d.slot_of_ipos]
+            v = _half_sweep(*reduce(g, h), lam, d.col_nnz, nmf)
 
             gu, hu = torch.zeros(m, **f32), torch.zeros(m, **f32)
             for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
@@ -730,9 +744,9 @@ def make_hybrid_phase_fns(plan: HybridPlan, dplan: HybridDevicePlan,
             if have_light:
                 g_lr, h_lr = sweep_partials(d.idx_r, st.vals_r, rows,
                                             extend_zero(v))
-                gu = gu + g_lr[d.slot_of_upos]
-                hu = hu + h_lr[d.slot_of_upos]
-            u = _half_sweep(gu, hu, lam, d.row_nnz, nmf)
+                gu = gu + extend_zero(g_lr)[d.slot_of_upos]
+                hu = hu + extend_zero(h_lr)[d.slot_of_upos]
+            u = _half_sweep(*reduce(gu, hu), lam, d.row_nnz, nmf)
         st.W[t] = u
         st.H[t] = v
 

@@ -82,3 +82,34 @@ def dense_state_to_numpy(state: DenseState, *, shape=None) -> dict:
             "H": np.pad(host(state.H), ((0, 0), (0, np_ - n))),
             "u_pend": np.pad(host(state.u_pend), (0, mp - m)),
             "v_pend": np.pad(host(state.v_pend), (0, np_ - n))}
+
+
+def dense_payload_block(payload: dict, divs: tuple[int, int],
+                        coord: tuple[int, int]) -> dict:
+    """The block of a sharded run's global payload (padded to multiples of
+    the mesh dims, as the JAX package's sharded dense run stores it) that
+    the rank at mesh ``coord`` holds: its (mp/a, np/b) residual block, W's
+    and u_pend's columns of its users, H's and v_pend's of its items."""
+    (a, b), (i, j) = divs, coord
+    mp, np_ = np.shape(payload["Rhat"])
+    mb, nb = mp // a, np_ // b
+    rs, cs = slice(i * mb, (i + 1) * mb), slice(j * nb, (j + 1) * nb)
+    return {"Rhat": np.asarray(payload["Rhat"])[rs, cs],
+            "W": np.asarray(payload["W"])[:, rs],
+            "H": np.asarray(payload["H"])[:, cs],
+            "u_pend": np.asarray(payload["u_pend"])[rs],
+            "v_pend": np.asarray(payload["v_pend"])[cs]}
+
+
+def dense_payload_assemble(parts: dict, divs: tuple[int, int]) -> dict:
+    """The global payload from every rank's block payload (``parts``: key
+    -> list in rank order; rank r holds block (r // b, r % b))."""
+    a, b = divs
+    rows = [r * b for r in range(a)]           # one rank per user block
+    cols = list(range(b))                      # one rank per item block
+    return {"Rhat": np.block([[parts["Rhat"][r * b + c] for c in range(b)]
+                              for r in range(a)]),
+            "W": np.concatenate([parts["W"][r] for r in rows], axis=1),
+            "u_pend": np.concatenate([parts["u_pend"][r] for r in rows]),
+            "H": np.concatenate([parts["H"][c] for c in cols], axis=1),
+            "v_pend": np.concatenate([parts["v_pend"][c] for c in cols])}

@@ -82,3 +82,32 @@ def ell_state_to_numpy(state: EllState) -> dict:
     for i, v in enumerate(state.vals_c):
         payload[f"vals_c_{i}"] = host(v)
     return payload
+
+
+def ell_payload_block(payload: dict, ell: EllPair, shard: int) -> dict:
+    """The block of a global payload of a shard-uniform layout (``ell``
+    built with ``num_shards`` N, as the JAX package's sharded run stores
+    it) that rank ``shard`` holds: its slot block of the factors and the
+    pending vectors, its rows of each bucket's value tile."""
+    rows, cols = ell.rows_side, ell.cols_side
+    sr = slice(shard * rows.slots_per_shard,
+               (shard + 1) * rows.slots_per_shard)
+    sc = slice(shard * cols.slots_per_shard,
+               (shard + 1) * cols.slots_per_shard)
+    out = {"W": np.asarray(payload["W"])[:, sr],
+           "H": np.asarray(payload["H"])[:, sc],
+           "u_pend": np.asarray(payload["u_pend"])[sr],
+           "v_pend": np.asarray(payload["v_pend"])[sc]}
+    for key, side in (("vals_r", rows), ("vals_c", cols)):
+        for i, b in enumerate(side.buckets):
+            r = b.rows_per_shard
+            out[f"{key}_{i}"] = np.asarray(
+                payload[f"{key}_{i}"])[shard * r:(shard + 1) * r]
+    return out
+
+
+def ell_payload_assemble(parts: dict) -> dict:
+    """The global payload from every rank's block payload (``parts``: key
+    -> list in rank order = shard-major slot order)."""
+    return {key: np.concatenate(blocks, axis=1 if key in ("W", "H") else 0)
+            for key, blocks in parts.items()}

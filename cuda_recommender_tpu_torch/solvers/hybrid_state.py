@@ -140,3 +140,28 @@ def hybrid_state_to_numpy(state: HybridState, *, panel_shapes=None) -> dict:
     for i, v in enumerate(state.vals_c):
         payload[f"vals_c_{i}"] = host(v)
     return payload
+
+
+#: payload keys a sharded hybrid run holds whole on every rank
+REPLICATED = ("W", "H", "u_pend", "v_pend")
+
+
+def hybrid_payload_block(payload: dict, plan, shard: int,
+                         num_shards: int) -> dict:
+    """The block of a sharded run's global payload (the JAX package's
+    layout: each panel's rows the concatenation of N equal per-shard
+    blocks, each block-padded on its own in a panel-kernel payload; each
+    bucket tile shard-major) that rank ``shard`` holds. ``plan`` is the
+    global N-aligned plan; the factors and pending vectors are whole."""
+    out = {key: payload[key] for key in REPLICATED}
+    for i in range(len(plan.panels)):
+        x = np.asarray(payload[f"Rd_{i}"])
+        per = x.shape[0] // num_shards
+        out[f"Rd_{i}"] = x[shard * per:(shard + 1) * per]
+    for key, side in (("vals_r", plan.ell.rows_side),
+                      ("vals_c", plan.ell.cols_side)):
+        for i, b in enumerate(side.buckets):
+            r = b.rows_per_shard
+            out[f"{key}_{i}"] = np.asarray(
+                payload[f"{key}_{i}"])[shard * r:(shard + 1) * r]
+    return out

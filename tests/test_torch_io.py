@@ -34,6 +34,9 @@ def _files(d) -> dict:
             for name in sorted(os.listdir(d))}
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def _run(fn):
     buf = io.StringIO()
     with redirect_stdout(buf):
@@ -316,17 +319,23 @@ def test_train_flags_build_the_jax_config(monkeypatch, tmp_path, name,
 ])
 def test_unported_train_flags_raise_their_item(monkeypatch, tmp_path, flags,
                                                item):
-    """Meshes (item 15) parse, and the trainer raises NotImplementedError
-    naming the item. Checkpoints (item 7) and phase timing (item 13), now
-    in the port, reach the Config and train() as the JAX CLI passes
-    them (cli/train.py:137-139 there): ``--resume`` with no checkpoint
-    directory is its ValueError."""
+    """Meshes (item 15), checkpoints (item 7) and phase timing (item 13),
+    all in the port now, reach the Config and train() as the JAX CLI
+    passes them (cli/train.py:137-139 there): ``--resume`` with no
+    checkpoint directory is its ValueError; ``--mesh 4`` and ``--mesh2d
+    2x2`` train on 4 ranks (parallel/launch.py, gloo), rank 0 alone
+    printing the iteration line."""
     monkeypatch.chdir(tmp_path)
     argv = ["--dataset", "synthetic:m=40,n=25,nnz=400", "-k", "2", "-t", "1",
             "--device", "cpu", *flags]
     if item == "item 15":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
-            _run(lambda: cli.main(argv))
+        from cuda_recommender_tpu_torch.parallel.launch import run_ranks
+        res = run_ranks(["-m", "cuda_recommender_tpu_torch.cli.train",
+                         *argv], 4, timeout=240, cwd=ROOT,
+                        env={"OMP_NUM_THREADS": "2"})
+        for rank, (rc, text) in enumerate(res):
+            assert rc == 0, f"rank {rank} exited {rc}:\n{text}"
+            assert text.count("[-INFO-] iteration num 1") == (rank == 0)
         return
     cfg = cli.build_config(cli.build_parser().parse_args(argv))
     assert cfg.checkpoint_dir == ("ck" if "--checkpoint-dir" in flags

@@ -128,12 +128,13 @@ def test_phase_mode_through_trainer_verbose(data):
 @pytest.mark.parametrize("kw,match", [
     (dict(backend="pallas"), "pallas"),
     (dict(solver="als"), "CCD telemetry mode"),
-    (dict(backend="ell", _mesh=True), "item 15"),
+    pytest.param(dict(backend="ell", _mesh=True),
+                 "single-device in the trainer loop", id="kw2-item 15"),
 ])
 def test_phase_mode_unsupported_combinations(data, kw, match):
-    """pallas and ALS refuse phase timing with the JAX package's words; a
-    mesh is not in the port (the JAX package's phase loop is
-    single-device there too)."""
+    """pallas, ALS and a mesh refuse phase timing with the JAX package's
+    words (its phase loop is single-device; the sharded phase functions
+    are parallel/ccd_hybrid_sharded.py's)."""
     R, T = data
     kw = dict(kw)
     mesh = object() if kw.pop("_mesh", False) else None

@@ -236,3 +236,65 @@ def test_extend_zero_matches_jax():
         np.testing.assert_array_equal(
             ell_ops.extend_zero(torch.from_numpy(a.copy())).numpy(),
             np.asarray(jops.extend_zero(jnp.asarray(a))))
+
+
+@pytest.fixture(scope="module")
+def binary_dataset(tmp_path_factory):
+    """tests/test_shard_loader.py's dataset, written by the port (the two
+    packages' files are byte-identical, tests/test_torch_io.py)."""
+    from cuda_recommender_tpu_torch.data.binfmt import write_binary_dataset
+    R, T = datasets.synthetic(m=200, n=90, nnz=4000, seed=3)
+    d = tmp_path_factory.mktemp("shard_loader") / "data"
+    write_binary_dataset(str(d), R, T)
+    return str(d), R
+
+
+@pytest.mark.parametrize("index_space", ["slot", "entity"])
+@pytest.mark.parametrize("shard_ids", [[0, 1, 2, 3], [4, 5, 6, 7]])
+def test_shard_loader_identical(binary_dataset, index_space, shard_ids):
+    """data/shard_loader.py's range-read fill: the port's blocks, layout
+    and read count bit-identical to the JAX package's, and its blocks the
+    shards' rows of the port's full shard-uniform build
+    (tests/test_shard_loader.py's cases)."""
+    from cuda_recommender_tpu.data import shard_loader as jsl
+    from cuda_recommender_tpu_torch.data import shard_loader as tsl
+    d, R = binary_dataset
+    got = tsl.load_local_ell_shards(d, 8, shard_ids, min_width=8,
+                                    index_space=index_space)
+    _assert_same(got, jsl.load_local_ell_shards(d, 8, shard_ids, min_width=8,
+                                                index_space=index_space))
+    full = build_ell_pair(R, min_width=8, num_shards=8,
+                          index_space=index_space)
+    for blocks, side in ((got.rows_blocks, full.rows_side),
+                         (got.cols_blocks, full.cols_side)):
+        for b_i, b in enumerate(side.buckets):
+            for q, s in enumerate(shard_ids):
+                sl = slice(s * b.rows_per_shard, (s + 1) * b.rows_per_shard)
+                np.testing.assert_array_equal(blocks[b_i][q][0], b.idx[sl])
+                np.testing.assert_array_equal(blocks[b_i][q][1], b.val[sl])
+
+
+@pytest.mark.parametrize("shard_ids", [[0, 1], [2, 3]])
+def test_hybrid_shard_loader_identical(tmp_path, shard_ids):
+    """The hybrid manifest and the range-read hybrid blocks (panel row
+    blocks, the tail's shards) bit-identical to the JAX package's at
+    tests/multihost_hybrid_worker.py's sizes, 4 shards."""
+    from cuda_recommender_tpu.data import shard_loader as jsl
+    from cuda_recommender_tpu_torch.data import shard_loader as tsl
+    from cuda_recommender_tpu_torch.data.binfmt import write_binary_dataset
+    R, T = datasets.synthetic(m=96, n=48, nnz=1500, seed=7)
+    write_binary_dataset(str(tmp_path / "data"), R, T)
+    kw = dict(k=4, backend="hybrid", hybrid_dense_cells=24 * 48,
+              hybrid_panel_widths=(16,))
+    mf = tsl.hybrid_manifest_from_plan(
+        plan_hybrid(R, Config(**kw), num_shards=4, materialize_dense=False))
+    _assert_same(mf, jsl.hybrid_manifest_from_plan(
+        j_plan(jds.synthetic(m=96, n=48, nnz=1500, seed=7)[0], JConfig(**kw),
+               num_shards=4, materialize_dense=False)))
+    tsl.save_hybrid_manifest(str(tmp_path / "mf.npz"), mf)
+    _assert_same(tsl.load_hybrid_manifest(str(tmp_path / "mf.npz")), mf)
+    got = tsl.load_local_hybrid_shards(str(tmp_path / "data"), mf, 4,
+                                       shard_ids)
+    assert got.nnz_read == got.expected_nnz_read
+    _assert_same(got, jsl.load_local_hybrid_shards(str(tmp_path / "data"),
+                                                   mf, 4, shard_ids))

@@ -276,9 +276,20 @@ def test_mfmodel_roundtrip(factors, tmp_path):
 
 
 def test_recommend_mesh_raises_item_15(factors):
+    """``recommend(mesh=...)`` (item 15, now in the port) shards the item
+    table over the mesh's ranks: here a world of one rank in this
+    process, the same items as the single-device path."""
+    from cuda_recommender_tpu_torch.parallel import multihost
+    from cuda_recommender_tpu_torch.parallel.mesh import make_mesh
     W, H = factors
-    with pytest.raises(NotImplementedError, match="item 15"):
-        MFModel(W=W, H=H).recommend([0], mesh=object(), device="cpu")
+    multihost.initialize_local("cpu")
+    try:
+        got = MFModel(W=W, H=H).recommend([0, 3], topk=4, mesh=make_mesh(1),
+                                          device="cpu")
+    finally:
+        multihost.shutdown()
+    want = retrieval.topk_mips(W, H, [0, 3], topk=4, device="cpu")
+    assert_same_topk(got, want, W[[0, 3]].astype(np.float64) @ H.T)
 
 
 @pytest.mark.parametrize("solver,backend,sharded,want", [
@@ -289,17 +300,23 @@ def test_recommend_mesh_raises_item_15(factors):
     ("ccd", "dense", False, "solvers.ccd_dense.ccd_dense_train"),
     ("ccd", "dense", True, "solvers.ccd_dense.ccd_dense_train"),
     ("ccd", "hybrid", False, "solvers.ccd_hybrid.ccd_hybrid_train"),
-    ("als", "ell", True, "item 15"),
-    ("ccd", "hybrid", True, "item 15"),
-    ("ccd", "ell", True, "item 15"),
+    pytest.param("als", "ell", True,
+                 "parallel.als_ell_sharded.als_ell_train_sharded",
+                 id="als-ell-True-item 15"),
+    pytest.param("ccd", "hybrid", True,
+                 "parallel.ccd_hybrid_sharded.ccd_hybrid_train_sharded",
+                 id="ccd-hybrid-True-item 15"),
+    pytest.param("ccd", "ell", True,
+                 "parallel.ccd_ell_sharded.ccd_ell_train_sharded",
+                 id="ccd-ell-True-item 15"),
     ("ccd", "ell", False, "solvers.ccd_ell.ccd_ell_train"),
     ("ccd", "auto", False, "solvers.ccd_ell.ccd_ell_train"),
 ])
 def test_get_train_fn(solver, backend, sharded, want):
     """The JAX registry's lookup mapped onto the port's trainers (pure ELL,
-    item 12, now in the port: its two cases look it up and fit); what
-    the port lacks raises NotImplementedError naming its ROADMAP.md
-    item."""
+    item 12, and the sharded trainers, item 15, now in the port: the ELL
+    cases look it up and fit); what the port lacks raises
+    NotImplementedError naming its ROADMAP.md item."""
     if want.startswith("item"):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{want}"):
             get_train_fn(solver, backend, sharded=sharded)

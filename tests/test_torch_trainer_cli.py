@@ -164,16 +164,29 @@ def test_dense_nan_mask_raises_value_error(tiny, backend):
               T, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(mesh=True),
                                 dict(resume_from_checkpoint=True)])
 def test_mesh_and_resume_raise(tiny, kw):
-    """A mesh is not in the port (item 15); a resume with no
+    """A mesh (item 15, now in the port) trains: here a world of one rank
+    in this process, the sharded hybrid equal to the single-device run
+    within the sharded bar (atol 2e-5, rtol 1e-4); a resume with no
     checkpoint_dir is the JAX package's ValueError."""
     R, T = tiny
-    err, match = ((NotImplementedError, "ROADMAP.md") if "mesh" in kw
-                  else (ValueError, "no checkpoint_dir"))
-    with pytest.raises(err, match=match):
-        train(Config(k=2, maxiter=1, **KERNEL), R, T, device="cpu", **kw)
+    cfg = Config(k=2, maxiter=1, **KERNEL)
+    if "mesh" in kw:
+        from cuda_recommender_tpu_torch.parallel import multihost
+        from cuda_recommender_tpu_torch.parallel.mesh import make_mesh
+        multihost.initialize_local("cpu")
+        try:
+            got = train(cfg, R, T, device="cpu", mesh=make_mesh(1))
+        finally:
+            multihost.shutdown()
+        want = train(cfg, R, T, device="cpu")
+        np.testing.assert_allclose(got.W, want.W, atol=2e-5, rtol=1e-4)
+        np.testing.assert_allclose(got.H, want.H, atol=2e-5, rtol=1e-4)
+        return
+    with pytest.raises(ValueError, match="no checkpoint_dir"):
+        train(cfg, R, T, device="cpu", **kw)
 
 
 def test_cuda_without_gpu_raises(tiny, monkeypatch):
@@ -209,6 +222,18 @@ SERVING_MODULES = (
     "cuda_recommender_tpu_torch.cli.convert",
     "cuda_recommender_tpu_torch.cli.predict",
     "cuda_recommender_tpu_torch.cli.bench_serve")
+#: the multi-device layer's modules, which the walk below must reach too
+PARALLEL_MODULES = (
+    "cuda_recommender_tpu_torch.parallel.mesh",
+    "cuda_recommender_tpu_torch.parallel.multihost",
+    "cuda_recommender_tpu_torch.parallel.collectives",
+    "cuda_recommender_tpu_torch.parallel.launch",
+    "cuda_recommender_tpu_torch.parallel.run_cases",
+    "cuda_recommender_tpu_torch.parallel.ccd_ell_sharded",
+    "cuda_recommender_tpu_torch.parallel.als_ell_sharded",
+    "cuda_recommender_tpu_torch.parallel.ccd_hybrid_sharded",
+    "cuda_recommender_tpu_torch.serve.retrieval_sharded",
+    "cuda_recommender_tpu_torch.data.shard_loader")
 
 
 def test_port_imports_no_jax():
@@ -223,7 +248,7 @@ def test_port_imports_no_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        f"missing = set({MEASUREMENT_MODULES + SERVING_MODULES!r})"
+        f"missing = set({MEASUREMENT_MODULES + SERVING_MODULES + PARALLEL_MODULES!r})"
         " - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cuda_recommender_tpu'\n"
