@@ -68,7 +68,17 @@ paths:
   bit-equal to its single-device run, and the sharded top-10; then two
   ranks on the one card over gloo (NCCL allows one rank a GPU) train the
   ml10M hybrid through ``cli.train --mesh 2``, held against the
-  single-device run.
+  single-device run;
+* the ALS gram precisions and the native host helpers: the ALS headline
+  under ``als_precision`` "high" (bf16x3) and "default" (one bf16 pass)
+  through ``train()`` against the "highest" run (RMSE an iteration, s/iter,
+  one profiled step split into the gram products, the gathers and K5),
+  "highest" again bit-equal to its first run, the bf16 gram products
+  against their plain f32 version at every bucket, sharded "default" over
+  one rank bit-equal to one device, and the host set-up at Netflix-100M
+  dims (data, CSR+CSC build, plan, ELL build) with the native C++ helpers
+  against their NumPy paths, byte-equal; every phase before it took the
+  native helpers.
 
 Each phase prints its wall seconds. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -598,6 +608,11 @@ def run_als_headline(device, *, m, n, nnz, k, lam, iters,
         als_state_from_numpy, slot_payload)
 
     t0 = time.perf_counter()
+    # generated into the cache, then read back: a generated matrix keeps
+    # each column's entries in draw order, a cached one is rebuilt in row
+    # order, and ALS walks the columns, so the runs held bit-equal to this
+    # one (phase 36) read the cached matrix as this one does
+    synthetic_cached(m, n, nnz, seed=1, test_fraction=0.02)
     R, T = synthetic_cached(m, n, nnz, seed=1, test_fraction=0.02)
     data_s = time.perf_counter() - t0
     print(f"[als] data {R.rows} x {R.cols}, train nnz {R.nnz}, test nnz "
@@ -668,10 +683,11 @@ def run_als_headline(device, *, m, n, nnz, k, lam, iters,
                                  f"bit-equal, max|diff| "
                                  f"{float((a - b).abs().max()):.3e}")
         print(f"[als] step {name}: gj bit-equal to gj_xla", flush=True)
+    W_em, H_em = res.W, res.H
     del R, T, res, out, idx_r, vals_r, idx_c, vals_c
     torch.cuda.empty_cache()
     return dict(s_iter=s_iter, rate=rate, peak=peak, launches=launches,
-                rmse=rmse, per_iter=per_iter)
+                rmse=rmse, per_iter=per_iter, W=W_em, H=H_em)
 
 
 def time_gj(k, S=ALS_HEADLINE["m"], reps=5) -> dict:
@@ -2428,15 +2444,271 @@ def run_two_ranks(hyb_ck) -> dict:
     return dict(launches=launches, s_iter=s_iter, rmse_diff=d, rel=rel)
 
 
+#: phase 36: the ALS headline's other gram precisions, each held to phase
+#: 8's "highest" run an iteration: "high" (bf16x3) within 1e-3, the CPU
+#: test's bar (tests/test_torch_als_precision.py); "default" (one bf16
+#: pass) within 0.01, the JAX package's own bar for it
+#: (tests/test_compiled_solvers.py:146-155)
+ALS_PREC_RMSE = {"high": 1e-3, "default": 1e-2}
+ALS_PRECISIONS = tuple(ALS_PREC_RMSE)
+#: phase 37: the bf16 gram products against their plain version. Products
+#: of bf16 values are exact in f32, so the card's product and the plain
+#: one differ only in the order of their f32 sums over E lanes; each sum
+#: lies within E·eps·Σ|terms| of the exact one (eps = 2^-23, f32's machine
+#: epsilon: it also covers an accumulator that truncates), so the two lie
+#: within PRODUCT_BAR·E·eps·Σ|terms| of each other
+PRODUCT_BAR = 2.0
+F32_EPS = 2.0 ** -23
+#: the data sheet's dense bf16 tensor-core peak (700 W), FLOP/s
+PEAK_BF16_FLOP_S = 989e12
+
+
+def assembly_bound(nnz: int, slots: int, k: int, precision: str) -> tuple:
+    """(ms, what bounds it): the least time of one outer iteration's gram
+    and rhs assembly (the gathers and the products) at ``precision``. Its
+    inputs are each rating's lane index (int64) and value (f32) on both
+    sides, read once (the factor tables are a few MB); its output the
+    (k+1)² augmented gram of every slot, f32, written once; its work
+    2·(k+1)² operations a rating and side, in f32 outside the tensor cores
+    ("highest") or bf16 on them (one pass; three for "high")."""
+    nbytes = 2 * nnz * 12 + slots * (k + 1) ** 2 * 4
+    flops = 2 * nnz * 2 * (k + 1) ** 2
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = (flops / PEAK_F32_FLOP_S if precision == "highest" else
+             flops * (3 if precision == "high" else 1) / PEAK_BF16_FLOP_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _als_setup(device):
+    """The ALS headline's data (phase 8's cache), its ELL layout (planned
+    once) and the trainer's initial slot-space state on ``device``."""
+    from cuda_recommender_tpu_torch.core.init import init_factors_np
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.data.ell import build_ell_pair
+    from cuda_recommender_tpu_torch.solvers import als_ell
+    from cuda_recommender_tpu_torch.solvers.als_state import (
+        als_state_from_numpy, slot_payload)
+
+    A = ALS_HEADLINE
+    R, T = synthetic_cached(A["m"], A["n"], A["nnz"], seed=1,
+                            test_fraction=0.02)
+    W0, H0 = init_factors_np(A["k"], R.rows, R.cols, seed=0,
+                             entity_major=True)
+    ell = build_ell_pair(R, min_width="auto")
+    W, H = als_state_from_numpy(slot_payload(ell, W0, H0), ell, device)
+    tiles = (*als_ell.side_tensors(ell.rows_side, device),
+             *als_ell.side_tensors(ell.cols_side, device))
+    nnz = (torch.as_tensor(ell.rows_side.slot_nnz, device=device),
+           torch.as_tensor(ell.cols_side.slot_nnz, device=device))
+    return R, T, ell, W, H, tiles, nnz
+
+
+def run_als_precisions(device, als) -> dict:
+    """Phase 36: train() at the ALS headline under "high" and "default"
+    (the launch counts set to 0 just before each run and read just after:
+    K5 launched per_iter x iterations), each run's s/iter and RMSE per
+    iteration against phase 8's "highest" run (ALS_PREC_RMSE); then
+    "highest" again, W, H and the RMSE bit-equal to phase 8's run (the
+    bf16 runs changed no process-wide matmul flag). After each run one
+    profiled outer step at its precision on one ELL layout, planned once:
+    the gram products', the gathers' and K5's ms
+    (scripts/profile_iteration.py::als_split) beside the assembly's bound
+    (``assembly_bound``)."""
+    from cuda_recommender_tpu_torch import Config, train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.ops import launches as lc
+    from cuda_recommender_tpu_torch.scripts.profile_iteration import (
+        als_split, profile_split)
+    from cuda_recommender_tpu_torch.solvers import als_ell
+
+    A = ALS_HEADLINE
+    R, T, ell, W, H, tiles, nnz = _als_setup(device)
+    idx_r, vals_r, idx_c, vals_c = tiles
+    slots = ell.rows_side.n_slots + ell.cols_side.n_slots
+    out, launches, factors = {}, {}, {}
+    for prec in (*ALS_PRECISIONS, "highest"):
+        cfg = Config(solver="als", k=A["k"], lambda_=A["lam"],
+                     maxiter=A["iters"], als_solver="gj",
+                     als_precision=prec)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lc.reset_launch_counts()
+        res = train(cfg, R, T, device=device, log=MetricsLog(None))
+        ln = lc.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rmse = [st.rmse for st in res.stats]
+        per_iter = als_ell.k5_launches_per_iter(ell, A["k"], "gj",
+                                                cfg.als_group_mb << 20, prec)
+        want = {name: 0 for name in ln}
+        want["gj_solve"] = per_iter * A["iters"]
+        if ln != want:
+            raise AssertionError(f"ALS {prec}: launches {ln}, want {want}")
+        _count(ln, launches)
+        diff = [a - b for a, b in zip(rmse, als["rmse"])]
+        if prec == "highest":
+            _bit_equal("ALS highest after high and default", (res.W, res.H),
+                       (als["W"], als["H"]))
+            if rmse != als["rmse"]:
+                raise AssertionError(f"ALS highest RMSE {rmse} vs phase "
+                                     f"8's {als['rmse']}")
+            print("[als] highest after high and default: W, H and RMSE "
+                  "bit-equal to phase 8", flush=True)
+        else:
+            _check_rmse(f"ALS {prec}", rmse, A["iters"])
+            if max(map(abs, diff)) > ALS_PREC_RMSE[prec]:
+                raise AssertionError(f"ALS {prec}: RMSE {rmse} vs highest "
+                                     f"{als['rmse']} (bar "
+                                     f"{ALS_PREC_RMSE[prec]})")
+        factors[prec] = dict(W=res.W, H=res.H, rmse=rmse)
+        step = als_ell.make_als_outer_step(ell, A["lam"], solver="gj",
+                                           precision=prec)
+        prof = profile_split(lambda: step(idx_r, idx_c, vals_r, vals_c, W,
+                                          H, *nnz), device)
+        parts = als_split(prof)
+        kernels = sorted({name for name, _, _ in prof["kernels"]
+                          if re.search(r"gemm|nvjet|xmma|cutlass", name)})
+        s_iter = _steady(res.stats)
+        b_ms, b_by = assembly_bound(R.nnz, slots, A["k"], prec)
+        out[prec] = dict(s_iter=s_iter, rmse=rmse, rmse_vs_highest=diff,
+                         k5_per_iter=per_iter, launches=ln["gj_solve"],
+                         peak=peak, busy_ms=prof["busy_ms"],
+                         idle_pct=prof["idle_pct"], parts_ms=parts,
+                         gemm_kernels=kernels, assembly_bound_ms=b_ms,
+                         assembly_bound_by=b_by)
+        print(f"[als] {prec}: s/iter {s_iter:.4f} (highest "
+              f"{als['s_iter']:.4f}); RMSE {rmse}, minus highest's {diff} "
+              f"(bar {ALS_PREC_RMSE.get(prec, 0.0)}); K5 {per_iter} an "
+              "iteration, "
+              f"{ln['gj_solve']} launches; peak {peak / 2**30:.2f} GiB; one "
+              f"profiled step: busy {prof['busy_ms']:.3f} ms, idle "
+              f"{prof['idle_pct']:.2f}%, " + ", ".join(
+                  f"{p} {ms:.3f} ms" for p, ms in parts.items())
+              + f"; gram kernels {kernels}; the assembly's bound "
+              f"{b_ms:.3f} ms ({b_by}) against its gathers and products' "
+              f"{parts['bmm'] + parts['gather']:.3f}", flush=True)
+        del res, step
+    del R, T, tiles
+    torch.cuda.empty_cache()
+    return dict(runs=out, launches=launches, factors=factors)
+
+
+def check_gram_products(device) -> float:
+    """Phase 37: the bf16 gram products on the card (``gram_product``:
+    ``torch.bmm`` with an f32 result on the tensor cores) against their
+    plain version (``gram_product_plain``: widened to f32, one f32 bmm) on
+    the ALS headline's operands: both sides, every bucket's first row
+    group, each product of "default" and of "high" (hi·hi, hi·lo, lo·hi),
+    every entry within PRODUCT_BAR·E·eps·Σ|terms|. Returns the largest
+    |card - plain|."""
+    from cuda_recommender_tpu_torch.solvers import als_ell
+
+    A = ALS_HEADLINE
+    R, T, ell, W, H, tiles, _ = _als_setup(device)
+    idx_r, vals_r, idx_c, vals_c = tiles
+    worst, ratio, n = 0.0, 0.0, 0
+    for prec in ALS_PRECISIONS:
+        for side, other, idx_t, val_t in (
+                (ell.rows_side, H, idx_r, vals_r),
+                (ell.cols_side, W, idx_c, vals_c)):
+            tables = als_ell.gram_tables(other, prec)
+            for b, idx, val in zip(side.buckets, idx_t, val_t):
+                r0, r1 = als_ell._row_groups(b.rows, b.L, b.p, A["k"],
+                                             precision=prec)[0]
+                F = als_ell.gather_operands(idx[r0:r1], val[r0:r1], tables,
+                                            b, A["k"], prec)
+                pairs = ((0, 0),) if prec == "default" else (
+                    (0, 0), (0, 1), (1, 0))
+                for i, j in pairs:
+                    got = als_ell.gram_product(F[i], F[j])
+                    want = als_ell.gram_product_plain(F[i], F[j])
+                    terms = als_ell.gram_product_plain(F[i].abs(),
+                                                       F[j].abs())
+                    err = (got - want).abs()
+                    bar = PRODUCT_BAR * b.E * F32_EPS * terms
+                    if got.dtype != torch.float32 or bool((err > bar).any()):
+                        raise AssertionError(
+                            f"gram product {prec} ({i}, {j}) at bucket E="
+                            f"{b.E}: max |diff| {float(err.max()):.3e} over "
+                            f"the bar")
+                    worst = max(worst, float(err.max()))
+                    ratio = max(ratio, float((err / bar.clamp_min(
+                        1e-30)).max()))
+                    n += 1
+    print(f"[gram] {n} bf16 products (default; high's hi·hi, hi·lo, lo·hi) "
+          f"on both sides' buckets against the plain f32 product: max "
+          f"|diff| {worst:.3e}, at most {100 * ratio:.1f}% of the bar "
+          f"{PRODUCT_BAR:g}·E·2^-23·Σ|terms|", flush=True)
+    del R, T, tiles
+    torch.cuda.empty_cache()
+    return worst
+
+
+def run_sharded_als_default(device, factors) -> dict:
+    """Phase 38: sharded ALS under "default" over a world of one rank
+    (NCCL) through train(mesh=...), W, H bit-equal and the RMSE within
+    1e-6 of phase 36's single-device "default" run; K5 launched."""
+    from cuda_recommender_tpu_torch import Config
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.parallel import multihost
+    from cuda_recommender_tpu_torch.parallel.mesh import make_mesh
+
+    A = ALS_HEADLINE
+    ref = factors["default"]
+    R, T = synthetic_cached(A["m"], A["n"], A["nnz"], seed=1,
+                            test_fraction=0.02)
+    cfg = Config(solver="als", k=A["k"], lambda_=A["lam"],
+                 maxiter=A["iters"], als_solver="gj", als_precision="default")
+    multihost.initialize_local("cuda")
+    try:
+        res, ln, coll, peak = _sharded_train("ALS ml20M default", device,
+                                             make_mesh(1), R, T, cfg,
+                                             ("gj_solve",))
+    finally:
+        multihost.shutdown()
+    _bit_equal("sharded ALS default", (res.W, res.H), (ref["W"], ref["H"]))
+    d = _close_rmse("sharded ALS default", [st.rmse for st in res.stats],
+                    ref["rmse"], 1e-6)
+    print(f"[sharded] ALS default over 1 rank: W, H bit-equal to phase "
+          f"36's run, RMSE within {d:.1e}", flush=True)
+    return dict(launches=ln, s_iter=_steady(res.stats), peak=peak)
+
+
+def run_host_setup() -> dict:
+    """Phase 39: the host set-up split at Netflix-100M dims (phase 4's
+    cached data), NumPy then native (scripts/host_setup.py, one turn):
+    every output byte-equal between the paths; then the native helpers'
+    path counts of the whole smoke, which must show the native path."""
+    from cuda_recommender_tpu_torch import native
+    from cuda_recommender_tpu_torch.scripts import host_setup
+
+    smoke_paths = native.path_counts()
+    h = HEADLINE
+    out = host_setup.run(h["m"], h["n"], h["nnz"], seed=1, turns=1)
+    for helper in ("groupsort", "ellfill"):
+        if smoke_paths[helper]["native"] <= 0:
+            raise AssertionError(f"the smoke's runs never took the native "
+                                 f"{helper}: {smoke_paths}")
+    print(f"[host] Netflix-100M dims, NumPy -> native: " + ", ".join(
+        f"{step} {out['median_s']['numpy'][step]:.3f} -> "
+        f"{out['median_s']['native'][step]:.3f} s" for step in
+        host_setup.STEPS) + f"; outputs byte-equal; the smoke's own "
+        f"native path counts {smoke_paths}", flush=True)
+    out["smoke_paths"] = smoke_paths
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from cuda_recommender_tpu_torch import native
     from cuda_recommender_tpu_torch.core.device import resolve_device
     from cuda_recommender_tpu_torch.ops import build
 
     t_all = time.perf_counter()
+    native.reset_path_counts()
     phase("1 environment")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2461,6 +2733,13 @@ def main() -> int:
         for line in log.splitlines():
             if re.search(r"Compiling entry|registers|spill", line):
                 print("[ptxas] " + line.strip(), flush=True)
+    t0 = time.perf_counter()
+    so = native.build_library()
+    if not native.available():
+        raise AssertionError("the native host helpers do not load")
+    print(f"[build] native host helpers {os.path.relpath(so, HERE)} (g++ "
+          f"{' '.join(native.FLAGS)}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     phase("3 kernel checks (and the column sweeps at every row alignment)")
     worst = check_kernels(dev, CHECK_SHAPES)
@@ -2714,6 +2993,25 @@ def main() -> int:
           "cli.train --mesh 2, against phase 29's single-device run")
     two = run_two_ranks(hyb_ck)
     _count(two["launches"], paths)
+
+    phase("36 the ALS headline under als_precision \"high\" (bf16x3) and "
+          "\"default\" (one bf16 pass): s/iter, RMSE against phase 8, one "
+          "profiled step each; then \"highest\" bit-equal to phase 8")
+    prec = run_als_precisions(dev, als)
+    _count(prec["launches"], paths)
+
+    phase("37 the bf16 gram products against their plain f32 version at "
+          "the ALS headline's buckets")
+    gram_worst = check_gram_products(dev)
+
+    phase("38 sharded ALS under \"default\" over one rank (NCCL), "
+          "bit-equal to phase 36's run")
+    sh_als = run_sharded_als_default(dev, prec["factors"])
+    _count(sh_als["launches"], paths)
+
+    phase("39 the host set-up split at Netflix-100M dims, NumPy then the "
+          "native helpers, outputs byte-equal")
+    host = run_host_setup()
     phase(None)
     print("[resume] summary " + json.dumps({
         name: {key: rec[key] for key in ("bytes", "save_s", "load_s",
@@ -2728,6 +3026,15 @@ def main() -> int:
         "two_ranks_gloo": {key: two[key] for key in ("s_iter", "rmse_diff",
                                                      "rel")},
         "card": smi}), flush=True)
+    print("[als-precision] summary " + json.dumps({
+        "phase_8_highest": {"s_iter": als["s_iter"], "rmse": als["rmse"]},
+        **prec["runs"], "gram_product_max_abs_err": gram_worst,
+        "sharded_default_1_rank_s_iter": sh_als["s_iter"], "card": smi}),
+        flush=True)
+    print("[host] summary " + json.dumps({
+        key: host[key] for key in ("data", "median_s", "numpy_over_native",
+                                   "smoke_paths", "host_cpus")}),
+        flush=True)
     print("[phase] summary " + json.dumps({
         "headline_split": phased["split"], "fused_s_iter": head["s_iter"],
         "update_busy_ms": phased["update"]["busy_ms"],

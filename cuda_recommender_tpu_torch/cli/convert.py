@@ -5,9 +5,9 @@ the reference's offline preconversion step (its loaders expect preconverted
 binaries, reference src/tools.cpp:3-85, but the converter itself is not in
 that repo). Reads MovieLens-style text (``user item rating [ts]``), splits
 train/test, and writes a ``meta_modified_all`` directory any
-reference-compatible consumer can load. The port parses with NumPy: the
-JAX package's native C++ parser (``native/textparse``) is ROADMAP.md
-queue 1 item 8.
+reference-compatible consumer can load. Uses the native C++ text parser
+(cuda_recommender_tpu_torch/native) when it builds, falling back to NumPy,
+and says which ran.
 
     python -m cuda_recommender_tpu_torch.cli.convert ratings.txt ds_dir \\
         [--test-fraction 0.1] [--seed 0] [--zero-based]
@@ -18,8 +18,10 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .. import native
 from ..data import binfmt, datasets
 from ..data.sparse import from_coo, make_test
+from ..native import textparse
 
 
 def main(argv=None) -> int:
@@ -32,9 +34,18 @@ def main(argv=None) -> int:
                    help="ids in the input are 0-based (default 1-based)")
     args = p.parse_args(argv)
 
-    r, c, v = datasets.load_text_ratings(args.input,
-                                         one_based=not args.zero_based)
-    print("[info] parsed with NumPy", flush=True)
+    try:
+        if not native.available():
+            raise OSError("no native library")
+        r, c, v = textparse.load_text_ratings(args.input,
+                                              one_based=not args.zero_based)
+        native.record("textparse", "native")
+        print("[info] parsed with native C++ parser", flush=True)
+    except OSError:
+        r, c, v = datasets.load_text_ratings(args.input,
+                                             one_based=not args.zero_based)
+        native.record("textparse", "numpy")
+        print("[info] parsed with NumPy fallback", flush=True)
 
     rows = int(r.max()) + 1 if len(r) else 0
     cols = int(c.max()) + 1 if len(c) else 0

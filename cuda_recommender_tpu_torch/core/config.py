@@ -6,13 +6,13 @@ packages. It carries the semantic knob set of the reference's ``parameter``
 class (reference src/pmf.h:8-43) and its CLI (reference
 src/extras.cpp:68-141).
 
-The port runs every knob of a single-device run: CCD++ on the ``dense``,
-``pallas``, ``hybrid`` (explicit bfloat16/int8 masks or NaN-sentinel
-panels, the hand-written kernels) and ``ell`` backends, ALS on ``ell``, the
-NumPy ``ref`` backend, checkpoints and phase timing. ``core/trainer.py``
-raises ``NotImplementedError`` for the rest (a mesh, ALS precisions other
-than "highest", the fp8 residual, ``hybrid_defer_group``), naming the
-ROADMAP.md item that ports it.
+The port runs every knob of a run on one device or a mesh: CCD++ on the
+``dense``, ``pallas``, ``hybrid`` (explicit bfloat16/int8 masks or
+NaN-sentinel panels, the hand-written kernels) and ``ell`` backends, ALS on
+``ell`` at every ``als_precision``, the NumPy ``ref`` backend, checkpoints
+and phase timing. ``core/trainer.py`` raises ``NotImplementedError`` for
+the rest (the fp8 residual, ``hybrid_defer_group``), naming the ROADMAP.md
+entry that says why.
 
 Reference quirks preserved deliberately:
   * ``maxinneriter`` defaults to 1 (the code default at src/pmf.h:31, not the
@@ -93,7 +93,13 @@ class Config:
     als_group_mb: int = 2048
     #: ALS gather tiling threshold (MB); 0 disables.
     als_gather_tile_mb: float = 32
-    #: ALS gram-assembly matmul precision: "highest", "high" or "default".
+    #: ALS gram-assembly matmul precision, as the JAX package's
+    #: ``jax.lax.Precision`` on the TPU: "highest" = true f32 (one f32
+    #: ``bmm``); "high" = bf16x3, the operands split into bf16 hi and lo
+    #: and hi·hi + hi·lo + lo·hi summed in f32; "default" = one bf16 pass
+    #: with f32 accumulation. The two bf16 forms run on the tensor cores
+    #: (solvers/als_ell.py). A mesh runs "high" as "default", as the JAX
+    #: package's sharded ALS does.
     als_precision: str = "highest"
     #: ALS k×k solve: "gj", "gj_xla" or "lax".
     als_solver: str = "gj"

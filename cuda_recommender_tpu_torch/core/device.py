@@ -3,7 +3,10 @@
 A CUDA device that is asked for and missing is an error: nothing here falls
 back to the CPU. On CUDA, float32 matrix products run in full float32
 (TF32 off), so the plain PyTorch versions of the kernels and the RMSE keep
-the JAX package's f32 numerics.
+the JAX package's f32 numerics. No other code changes a process-wide
+matmul flag: a product in lower precision (the ALS gram at
+``als_precision`` "high" or "default") takes it from its operands' dtype,
+bf16, so an f32 product after it runs as before.
 """
 
 from __future__ import annotations

@@ -104,9 +104,6 @@ def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
     if backend == Backend.PALLAS:
         from ..solvers.ccd_pallas import check_supported
         check_supported(cfg)
-    if als and backend == Backend.ELL:
-        from ..solvers.als_ell import check_supported
-        check_supported(cfg)
 
 
 def checkpoint_meta(cfg: Config, backend: Backend,

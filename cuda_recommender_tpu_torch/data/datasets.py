@@ -6,9 +6,9 @@ The port's copy of those of ``cuda_recommender_tpu/data/datasets.py``
 draws in the same order, so both packages see identical ratings. The
 reference ships no data, only binary loaders for pre-converted MovieLens /
 Netflix / Yahoo dumps (reference src/tools.cpp:3-85); those are in
-``data/binfmt.py``, and the text ratings parser is below. The JAX package
-parses text with its native C++ parser when built (``native/textparse``);
-the port parses with NumPy only.
+``data/binfmt.py``, and the text ratings parser is below (the NumPy path;
+cli/convert.py parses with the native C++ parser, ``native/textparse``,
+when it builds).
 """
 
 from __future__ import annotations

@@ -294,16 +294,31 @@ def _fill_side(side: EllSide, fill_grids, ptr, nbr_idx, nbr_val,
                other_slot_of_entity: np.ndarray, other_zero_slot: int) -> EllSide:
     """Second pass: write idx (other-side slot ids) and val into bucket arrays.
 
-    The same cells as the per-entity loop of the JAX package's NumPy fill,
-    written in one vectorized scatter per (bucket, shard): slot j of shard s
-    holds its entity's d neighbours in row ``s*rows_per_shard + j//p``,
-    lanes ``(j%p)*E .. (j%p)*E + d``, and every other lane points at the
-    zero slot with value 0."""
+    Through the native C++ fill (cuda_recommender_tpu_torch/native, as the
+    JAX package fills) when it is available; otherwise the same cells as
+    the per-entity loop of the JAX package's NumPy fill, written in one
+    vectorized scatter per (bucket, shard): slot j of shard s holds its
+    entity's d neighbours in row ``s*rows_per_shard + j//p``, lanes
+    ``(j%p)*E .. (j%p)*E + d``, and every other lane points at the zero
+    slot with value 0. Byte-identical either way; the path ran is recorded
+    (``native.path_counts()``)."""
+    from .. import native
+
     ptr = np.ascontiguousarray(ptr, dtype=np.int64)
     nbr_idx = np.ascontiguousarray(nbr_idx, dtype=np.int32)
     nbr_val = np.ascontiguousarray(nbr_val, dtype=np.float32)
     other_slot_of_entity = np.ascontiguousarray(other_slot_of_entity,
                                                 dtype=np.int32)
+    if native.available():
+        from ..native.ellfill import fill_bucket
+        for b, grid in zip(side.buckets, fill_grids):
+            fill_bucket(ptr, nbr_idx, nbr_val, other_slot_of_entity,
+                        np.ascontiguousarray(grid, dtype=np.int64),
+                        b.E, b.p, b.rows_per_shard, b.L, other_zero_slot,
+                        b.idx, b.val)
+        native.record("ellfill", "native")
+        return dataclasses.replace(side, other_zero_slot=other_zero_slot)
+    native.record("ellfill", "numpy")
     for b, grid in zip(side.buckets, fill_grids):
         b.idx.fill(other_zero_slot)
         b.val.fill(0.0)

@@ -4,8 +4,8 @@ The port's copy of the NumPy paths of ``cuda_recommender_tpu/native/
 groupsort.py``: ``key_count == np.bincount(keys, minlength=nkeys)`` and
 ``stable_perm == np.argsort(keys, kind="stable")``, byte for byte, so the
 dual CSR+CSC build and the hybrid panel split match the JAX package. The
-OpenMP C++ helpers of that package are not ported yet (ROADMAP.md, queue 1,
-"native host helpers").
+callers reach them through native/groupsort.py, which takes the OpenMP C++
+counting sort instead when the library is available.
 
 ``stable_perm`` sorts by 16-bit digits: NumPy's stable sort is a radix sort
 for 16-bit keys and a timsort for wider ones, and two stable radix passes

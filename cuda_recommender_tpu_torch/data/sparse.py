@@ -74,8 +74,11 @@ class RatingMatrix:
 def from_coo(rows: int, cols: int, row_idx, col_idx, val) -> RatingMatrix:
     """Build dual CSR+CSC from COO triples (duplicates not merged, like the
     ref). Stable by construction: column order within a row (and row order
-    within a column) is the COO input order (data/groupsort.py)."""
-    from .groupsort import perm_gather, stable_perm
+    within a column) is the COO input order. The grouping runs through the
+    native OpenMP counting sort when available, NumPy otherwise
+    (data/groupsort.py) -- byte-identical either way
+    (native/groupsort.py)."""
+    from ..native.groupsort import perm_gather, stable_perm
 
     row_idx = np.ascontiguousarray(row_idx, dtype=np.int32)
     col_idx = np.ascontiguousarray(col_idx, dtype=np.int32)

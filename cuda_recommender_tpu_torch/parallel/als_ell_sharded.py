@@ -25,8 +25,8 @@ from ..core.metrics_log import MetricsLog
 from ..data.ell import build_ell_pair
 from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import calrmse_device, default_eval_chunk
-from ..solvers.als_ell import (check_supported, k5_launches_per_iter,
-                               make_als_outer_step, side_tensors)
+from ..solvers.als_ell import (k5_launches_per_iter, make_als_outer_step,
+                               side_tensors)
 from ..solvers.als_state import (als_payload_block, als_state_from_numpy,
                                  als_state_to_numpy, slot_payload)
 from ..solvers.pipeline import pipelined_loop
@@ -46,8 +46,11 @@ def als_ell_train_sharded(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     """ALS over the ranks of ``mesh``; W0 (m, k), H0 (n, k) entity-major in
     and out, the same on every rank. Checkpoint payloads are the global
     slot-space factors (the JAX package's), on rank 0 (None elsewhere)."""
-    check_supported(cfg)
     lay = ell_shardings(mesh)
+    # the JAX package's sharded step maps every precision but "highest" to
+    # DEFAULT (its parallel/als_ell_sharded.py:40-41), so "high" runs one
+    # bf16 pass here too
+    precision = "highest" if cfg.als_precision == "highest" else "default"
     dev = rank_device(device)
     group_bytes = cfg.als_group_mb << 20
     ell = build_ell_pair(R, min_width=cfg.als_min_width,
@@ -68,14 +71,15 @@ def als_ell_train_sharded(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     if log is not None:
         log.info(f"[info] als sharded over {lay.num_shards} ranks: "
                  f"{loc.rows_side.n_slots} + {loc.cols_side.n_slots} slots "
-                 f"a rank; K5 launches per iteration a rank "
-                 f"{k5_launches_per_iter(loc, W0.shape[1], cfg.als_solver, group_bytes)}")
+                 f"a rank; gram precision {precision}; K5 launches per "
+                 f"iteration a rank {k5_launches_per_iter(loc, W0.shape[1], cfg.als_solver, group_bytes, precision)}")
 
     def gather(F):
         return all_gather_rows(F, lay.group)
 
     step = make_als_outer_step(loc, cfg.lambda_, solver=cfg.als_solver,
-                               group_bytes=group_bytes, gather=gather)
+                               group_bytes=group_bytes, gather=gather,
+                               precision=precision)
 
     def i64(x):
         return torch.as_tensor(np.asarray(x, np.int64), device=dev)

@@ -10,15 +10,20 @@ under 6.5e9 cells; K1, K2 and the ELL tail), the JAX README's quick start
 (ml10M dims, k = 10, f32 residual, bf16 mask; K4 and masked_usweep), and
 the ALS headline (``scripts/bench_als_tpu.py:76-79``: ml20M dims, k = 40,
 λ = 0.1; the gathers, the gram ``bmm`` and K5; the step alone, without the
-trainer's RMSE). Each runs two untraced outer iterations, then one traced.
-Prints one line per kernel name and a JSON summary per configuration as its
-last line.
+trainer's RMSE) at each ``--als-precisions`` (default "highest"; the ALS
+lines add the split into the gram products, the gathers and K5). Each runs
+two untraced outer iterations, then one traced. Prints one line per kernel
+name and a JSON summary per configuration as its last line.
+
+    python -m cuda_recommender_tpu_torch.scripts.profile_iteration \
+        --configs als --als-precisions highest,high,default
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
@@ -78,9 +83,10 @@ def dense_step(device, m, n, nnz, k, lam):
             f"dense {m}x{n}, k={k}, f32 residual, bf16 mask")
 
 
-def als_step(device, m, n, nnz, k, lam):
+def als_step(device, m, n, nnz, k, lam, precision="highest"):
     """The ALS headline's outer step (solver gj: K5) from the trainer's
-    initial state, set up as ``als_ell_train`` sets it up."""
+    initial state at gram ``precision``, set up as ``als_ell_train`` sets
+    it up."""
     from ..core.config import Config
     from ..data.ell import build_ell_pair
     from ..solvers import als_ell
@@ -96,9 +102,30 @@ def als_step(device, m, n, nnz, k, lam):
     nnz_r = torch.as_tensor(ell.rows_side.slot_nnz, device=device)
     nnz_c = torch.as_tensor(ell.cols_side.slot_nnz, device=device)
     W, H = als_state_from_numpy(slot_payload(ell, W0, H0), ell, device)
-    step = als_ell.make_als_outer_step(ell, lam, solver="gj")
+    step = als_ell.make_als_outer_step(ell, lam, solver="gj",
+                                       precision=precision)
     return (lambda: step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c),
-            f"als {m}x{n}, nnz {nnz}, k={k}, solver gj")
+            f"als {m}x{n}, nnz {nnz}, k={k}, solver gj, precision "
+            f"{precision}")
+
+
+#: the ALS step's kernels by part: the gram products (cuBLAS' f32 SIMT
+#: kernels and its Hopper bf16 kernels), the gathers ``table[idx]``
+#: (aten::index's kernels) and K5; the rest (casts, the rating column's
+#: copy, λ, the zeroing of empty slots) is "other"
+ALS_PARTS = (("bmm", re.compile(r"gemm|nvjet|xmma|cutlass")),
+             ("gather", re.compile(r"index|gather")),
+             ("gj_solve", re.compile(r"gj_")))
+
+
+def als_split(out: dict) -> dict:
+    """ms of ``profile_split``'s kernels by ALS_PARTS, and "other"."""
+    split = {name: 0.0 for name, _ in ALS_PARTS}
+    split["other"] = 0.0
+    for name, ms, _ in out["kernels"]:
+        part = next((p for p, rx in ALS_PARTS if rx.search(name)), "other")
+        split[part] += ms
+    return split
 
 
 def profile_split(step, device, warm: int = 2) -> dict:
@@ -161,15 +188,29 @@ def main(argv=None) -> int:
         prog="cuda_recommender_tpu_torch.scripts.profile_iteration",
         description="one steady outer iteration under torch.profiler")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--configs", default="hybrid,dense,als",
+                   help="comma-separated: hybrid, dense, als")
+    p.add_argument("--als-precisions", default="highest",
+                   help="comma-separated als_precision values of the ALS "
+                        "configuration")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    for which in ("hybrid", "dense", "als"):
+    runs = [(which, None) for which in args.configs.split(",")
+            if which != "als"]
+    if "als" in args.configs.split(","):
+        runs += [("als", prec) for prec in args.als_precisions.split(",")]
+    for which, prec in runs:
         step, what = (hybrid_step(device) if which == "hybrid"
                       else dense_step(device, **DENSE) if which == "dense"
-                      else als_step(device, **ALS))
+                      else als_step(device, **ALS, precision=prec))
         out = profile_split(step, device)
         del step
         report(what, out)
+        if which == "als":
+            out["parts_ms"] = als_split(out)
+            print("[profile]   by part: " + ", ".join(
+                f"{part} {ms:.3f} ms" for part, ms in
+                out["parts_ms"].items()), flush=True)
         print(json.dumps({"config": which, "what": what,
                           "device": card(device), **out}), flush=True)
         if device.type == "cuda":

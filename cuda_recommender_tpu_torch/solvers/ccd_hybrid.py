@@ -70,7 +70,7 @@ from ..core.config import Config
 from ..core.device import resolve_device, synchronize
 from ..core.metrics_log import MetricsLog
 from ..data.ell import EllPair, build_ell_pair
-from ..data.groupsort import key_count, perm_gather, stable_perm
+from ..native.groupsort import key_count, perm_gather, stable_perm
 from ..data.sparse import RatingMatrix, TestCOO, from_coo, make_test
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep

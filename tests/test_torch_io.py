@@ -19,6 +19,7 @@ from cuda_recommender_tpu.cli import train as jtrain
 from cuda_recommender_tpu.data import binfmt as jbinfmt
 from cuda_recommender_tpu.data import datasets as jdatasets
 from cuda_recommender_tpu.eval import ranking as jranking
+from cuda_recommender_tpu_torch import native as port_native
 from cuda_recommender_tpu_torch.cli import bench_serve, convert, predict
 from cuda_recommender_tpu_torch.cli import train as cli
 from cuda_recommender_tpu_torch.data import binfmt, datasets
@@ -176,9 +177,14 @@ def test_convert_identical_to_jax(tmp_path):
     src = _ratings_text(tmp_path / "ratings.txt")
     rc, out = _run(lambda: convert.main([src, str(tmp_path / "p"),
                                          "--test-fraction", "0.2"]))
-    assert rc == 0 and "[info] parsed with NumPy" in out
-    assert _run(lambda: jconvert.main([src, str(tmp_path / "j"),
-                                       "--test-fraction", "0.2"]))[0] == 0
+    jrc, jout = _run(lambda: jconvert.main([src, str(tmp_path / "j"),
+                                            "--test-fraction", "0.2"]))
+    assert rc == 0 and jrc == 0
+    # both take the native C++ parser where g++ builds it, else NumPy
+    parser = ("native C++ parser" if port_native.available()
+              else "NumPy fallback")
+    assert out.splitlines()[0] == jout.splitlines()[0] == \
+        f"[info] parsed with {parser}"
     assert _files(tmp_path / "p") == _files(tmp_path / "j")
 
 

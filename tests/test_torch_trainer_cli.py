@@ -111,10 +111,10 @@ def test_cli_runs_and_matches_train(tmp_path):
 
 
 #: knob -> (Config knobs, what the run does): a regex the raise must match,
-#: or None where the port runs it (ell, phase timing and checkpoints,
-#: once outside the port; each case keeps its name)
+#: or None where the port runs it (ALS precision "high", ell, phase timing
+#: and checkpoints, once outside the port; each case keeps its name)
 UNSUPPORTED = {
-    "als": (dict(solver="als", als_precision="high"), "ROADMAP.md"),
+    "als": (dict(solver="als", als_precision="high"), None),
     "ell": (dict(backend="ell"), None),
     "dense_phase_timing": (dict(backend="dense", phase_timing=True), None),
     "dense_fp8": (dict(backend="dense", residual_dtype="float8_e4m3fn"),
