@@ -34,12 +34,17 @@ paths:
   defaults, and runs the README's CLI command with no backend flag;
 * the measurement layer: checks the probe kernels (the stream controls
   stream_rmw and stream_read in the 2-byte tile pattern and in 16-byte
-  vectors, K1's integer-rounding variant, the three gather forms) against
-  their plain versions, runs the port's bench (``python -m
+  vectors, K1's integer-rounding variant, the three gather forms, A and B
+  on both of their paths: the table in shared memory, counted as
+  ``gather_smem``, and in L2, counted as ``gather``, at the bench's rows
+  tail, at the largest table the card's shared memory takes and one row
+  over it, and on views off a 16-byte boundary) against their plain
+  versions, runs the port's bench (``python -m
   cuda_recommender_tpu_torch.bench``) at the headline, then with the auto
   stair, the auto orientation and the transposed stair, times the probe
-  kernels at the bench's shapes, runs the variant and gather probe scripts
-  and a small ``cli/bench.py`` grid;
+  kernels at the bench's shapes (gathers A and B at both tail sides),
+  runs the variant and gather probe scripts and a small ``cli/bench.py``
+  grid;
 * serving (``serve/``, ``models/``, ``data/binfmt.py`` and the file and
   serving CLIs): writes and reads back the headline run's factors in the
   reference's model format, retrieves top-10 items over its 17,770-item
@@ -126,15 +131,22 @@ PROBES = {
     "panel_update_vsweep_irne": ("panel_kernels.cu",
                                  "scripts/panel_kernel_variants.py:95"),
     "gather": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
+    "gather_smem": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
 }
 #: probe checks: small and ragged panels, then the scripts' own shapes (the
 #: headline's two panels; the variant matrix's default)
 PROBE_SMALL = ((50, 70), (1537, 300))
 PROBE_SCRIPT_SHAPES = ((330_128, 17_770), (150_061, 4_096),
                        (165_376, 18_432))
-#: gather checks: (table rows, index rows): the probe's shape and a ragged
-#: small one
-GATHER_CHECKS = ((8192, 4096), (37, 19))
+#: gather checks: (table rows, index rows): the probe's shape, a ragged
+#: small one and the bench's rows tail at the headline; "limit" and "over"
+#: stand for the largest 128-lane table the card's shared memory takes
+#: (453 rows on the H100) and one row more
+GATHER_CHECKS = ((8192, 4096), (37, 19), (417, 22_659), ("limit", 37),
+                 ("over", 37))
+#: elements (4 bytes each) an index or output view starts into its buffer,
+#: (index, output): off a 16-byte boundary alike, and apart
+GATHER_VIEWS = ((1, 1), (2, 3))
 #: the bench's run lengths: the headline (>= 5 timed after 2 warm-ups) and
 #: the two A/B runs
 BENCH_ITERS = dict(iters=5, warmup=2)
@@ -1270,13 +1282,12 @@ def check_probe_kernels(device) -> dict:
     (the 16-byte streams also on a view one row in, whose rows start off a
     16-byte boundary): rmw, the rounding variant's stored residual and the
     gathers bit-equal (the variant's also to K1's), sums within RTOL of
-    sum(|terms|). Returns each kernel's largest |kernel - plain|."""
+    sum(|terms|); the gathers through ``check_gathers``. Returns each
+    kernel's largest |kernel - plain|."""
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
     from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
         pattern_panel
-    from cuda_recommender_tpu_torch.scripts.probe_gather import \
-        probe_inputs
 
     worst = {name: 0.0 for name in PROBES}
     for M, W in PROBE_SMALL + PROBE_SCRIPT_SHAPES:
@@ -1350,18 +1361,97 @@ def check_probe_kernels(device) -> dict:
               f"(also to "
               f"K1's); sums' largest error / sum|terms| {max(ratios):.2e} "
               f"(bar {RTOL}) [{time.perf_counter() - t0:.1f} s]", flush=True)
+    worst.update(check_gathers(device))
+    return worst
+
+
+def check_gathers(device) -> dict:
+    """P3's forms A, B and C bit-equal to their plain version at each of
+    GATHER_CHECKS (out-of-range indices in the first row), and A and B also
+    on index and output views off a 16-byte boundary (GATHER_VIEWS, NaN
+    guard cells around the output) and on each path the table allows; each
+    line names the path that ran, by the launch counts, which must be the
+    one ``gather_plan`` picks. At the limit the shared-memory path runs, one
+    row over it the C entry point refuses that path (cudaErrorInvalidValue)
+    and the wrapper raises. Returns {"gather": 0.0, "gather_smem": 0.0}
+    (the largest |kernel - plain|: bit-equal, or AssertionError)."""
+    from cuda_recommender_tpu_torch.ops import build
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+    from cuda_recommender_tpu_torch.ops.launches import launch_counts
+    from cuda_recommender_tpu_torch.scripts.probe_gather import L, \
+        probe_inputs
+
+    smem_limit = pr.gather_limits(device)[0]
+    s_lim = (smem_limit - pr.GATHER_SMEM_RESERVE) // (4 * L)
+    sizes = {"limit": s_lim, "over": s_lim + 1}
+
+    def run(tab, idx, form, path=None, views=(0, 0)):
+        n = idx.numel()
+        ib = torch.empty(n + views[0], dtype=torch.int32, device=device)
+        iv = ib[views[0]:].view(idx.shape)
+        iv.copy_(idx)
+        ob = torch.full((n + views[1] + 1,), float("nan"), device=device)
+        ov = ob[views[1]:views[1] + n].view(idx.shape)
+        before = launch_counts()
+        pr.gather(tab, iv, form, out=ov, path=path)
+        _sync(device)
+        ran = [k for k in ("gather", "gather_smem")
+               if launch_counts()[k] != before[k]]
+        want = pr.gather_plain(tab, idx, form)
+        guards = torch.cat([ob[:views[1]], ob[views[1] + n:]])
+        if not (torch.equal(_bits(ov), _bits(want))
+                and bool(torch.isnan(guards).all())):
+            raise AssertionError(
+                f"gather {form} table {tab.shape[0]} x {L}, index "
+                f"{idx.shape[0]} x {L}, path {path}, views {views}: "
+                f"{int((_bits(ov) != _bits(want)).sum())} entries differ "
+                "from the plain version, or a guard cell was written")
+        return ran[0] if len(ran) == 1 else ran
+
     for S, rows in GATHER_CHECKS:
+        S = sizes.get(S, S)
         tab, idx = probe_inputs(S, rows, device, seed=S)
         idx["A"][0, :4] = torch.tensor([-1, S, S + 7, 0], dtype=torch.int32)
+        idx["B"][0, :3] = torch.tensor([-1, S * L, S * L - 1],
+                                       dtype=torch.int32)
+        fits = pr.gather_smem_bytes(S, L) <= smem_limit
+        ran = {}
         for form in ("A", "B", "C"):
-            got = pr.gather(tab, idx[form], form)
-            want = pr.gather_plain(tab, idx[form], form)
-            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-                raise AssertionError(f"gather {form} S={S} rows={rows}: "
-                                     "differs from the plain version")
-        print(f"[check] gather A, B, C at table {S} x 128, index {rows} x 128"
-              " (out-of-range indices read 0): bit-equal", flush=True)
-    return worst
+            ran[form] = run(tab, idx[form], form)
+            want = "gather_smem" if fits and form != "C" else "gather"
+            if ran[form] != want:
+                raise AssertionError(f"gather {form} at table {S}: ran "
+                                     f"{ran[form]}, the plan says {want}")
+            if form == "C":
+                continue
+            for views in GATHER_VIEWS:
+                run(tab, idx[form], form, views=views)
+            if fits:
+                run(tab, idx[form], form, path="l2")
+        print(f"[check] gather A, B, C at table {S} x {L}, index {rows} x "
+              f"{L}: bit-equal (out-of-range indices read 0; A and B also "
+              f"on views {list(GATHER_VIEWS)}"
+              + (" and on the L2 path" if fits else "")
+              + f"); ran A {ran['A']}, B {ran['B']}, C {ran['C']}",
+              flush=True)
+        if rows == 37 and not fits:
+            out = torch.empty(idx["A"].shape, device=device)
+            rc = build.load("probe_kernels").crtpu_gather(
+                tab.data_ptr(), idx["A"].data_ptr(), out.data_ptr(), rows, L,
+                S, 0, 1, torch.cuda.current_stream().cuda_stream)
+            if rc != 1:  # cudaErrorInvalidValue
+                raise AssertionError(f"crtpu_gather's shared-memory path at "
+                                     f"table {S}: rc {rc}, want 1")
+            try:
+                pr.gather(tab, idx["A"], "A", path="smem")
+            except ValueError as err:
+                print(f"[check] gather at table {S} x {L}: the shared-memory "
+                      f"path refused (C rc {rc}; wrapper: {err})", flush=True)
+            else:
+                raise AssertionError("the wrapper took the shared-memory "
+                                     f"path at table {S}")
+        del tab, idx
+    return {"gather": 0.0, "gather_smem": 0.0}
 
 
 def run_bench(extra=(), timeout=900, data=None) -> dict:
@@ -1432,23 +1522,25 @@ def run_bench(extra=(), timeout=900, data=None) -> dict:
     return rec
 
 
-def time_probe_kernels(panel, variant_shape, tail, reps=5) -> dict:
+def time_probe_kernels(panel, variant_shape, tails, reps=5) -> dict:
     """Each probe kernel against its plain version and, where one exists,
     its PyTorch call, warm, in turns: stream_rmw (tiles down the columns,
     the Pallas control's order, and 16-byte vectors; ``R.add_(1)``) and
     stream_read (weighted; the 2-byte tile pattern and 16-byte vectors;
     ``torch.mv(R.t(), u)`` with u rounded to bf16) at the bench's panel 0,
-    the rounding variant at the variant matrix's shape, gather form B at
-    the bench's largest tail side (by graph replays). Returns
-    name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    the rounding variant at the variant matrix's shape, gather forms A and
+    B (and C) at each of the bench's tail sides ``tails`` (by graph
+    replays; ``torch.gather``, ``torch.take``, ``index_select``). Returns
+    name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by); "gather"
+    and "gather_smem" are form B on the side whose path each counts."""
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
-    from cuda_recommender_tpu_torch.scripts.common import cold_copies, \
-        cycling, device_panel, time_ms
+    from cuda_recommender_tpu_torch.scripts import sweep_timing as st
+    from cuda_recommender_tpu_torch.scripts.common import device_panel, \
+        time_ms
     from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
         pattern_panel
-    from cuda_recommender_tpu_torch.scripts.probe_gather import \
-        probe_inputs, tail_shape
+    from cuda_recommender_tpu_torch.scripts.probe_gather import tail_shape
     from cuda_recommender_tpu_torch.scripts.sweep_timing import time_turns
 
     out = {}
@@ -1521,31 +1613,33 @@ def time_probe_kernels(panel, variant_shape, tail, reps=5) -> dict:
     del R, vecs
     torch.cuda.empty_cache()
 
-    # the gather's device time is below the host's cost of a call: graph
-    # replays, the index cold (probe_gather's method), in turns
-    S, rows = tail_shape(tail["lanes"], tail["table_rows"], tail["width"])
-    tab, idx = probe_inputs(S, rows, "cuda", seed=5)
-    ib = cold_copies(idx["B"])
-    ib64 = cold_copies(idx["B"].to(torch.int64))
-    fns = [cycling([(lambda ix=ix: pr.gather_plain(tab, ix, "B"))
-                    for ix in ib]),
-           cycling([(lambda ix=ix: torch.take(tab, ix)) for ix in ib64]),
-           cycling([(lambda ix=ix: pr.gather(tab, ix, "B")) for ix in ib])]
-    first = [time_ms(fn, dev, 100, graph=True) for fn in fns]
-    second = [time_ms(fn, dev, 100, graph=True) for fn in fns[::-1]][::-1]
-    ms = [(a + b) / 2 for a, b in zip(first, second)]
-    n = idx["B"].numel()
-    b_ms, b_by = bound(8 * n + 4 * tab.numel(), 0)
-    out["gather"] = dict(ms=ms[2], plain_ms=ms[0], library_ms=ms[1],
-                         bound_ms=b_ms, bound_by=b_by)
-    print(f"[timing] gather                   form B, table {S}x128, index "
-          f"{rows}x128 (the tail side {tail['lanes']}:{tail['table_rows']}:"
-          f"{tail['width']}), graph replays, index cold: kernel "
-          f"{first[2]:.4f} / {second[2]:.4f} ms, plain {first[0]:.4f} / "
-          f"{second[0]:.4f} ms, torch.take {first[1]:.4f} / {second[1]:.4f} "
-          f"ms; bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms[2]:.1f}% of "
-          f"it", flush=True)
-    del tab, idx, ib, ib64, fns
+    # P3's gathers A and B at the bench's two tail sides, the rows side on
+    # the shared-memory path and the cols side on the L2 path: graph
+    # replays with the index cold, in turns with their plain versions and
+    # library calls (sweep_timing.gathers, probe_gather's method)
+    smem_limit = pr.gather_limits(dev)[0]
+    for name, side in tails.items():
+        if not side["lanes"]:
+            continue
+        S, rows = tail_shape(side["lanes"], side["table_rows"], side["width"])
+        what = f"{name} side {S}x128, {rows} rows"
+        recs = st.time_sweeps(st.gathers(S, rows, dev, seed=5), what, dev,
+                              st.GATHER_REPS, graph=True)
+        path = pr.gather_plan(S, 128, rows * 128, smem_limit)["path"]
+        for form in ("A", "B"):
+            rec = recs[f"gather {form} {what}"]
+            b_ms, b_by = bound(rec["bytes"], 0)
+            print(f"[timing] gather {form} {name} side ({path} path, table "
+                  f"{S}x128, index {rows}x128): kernel {rec['ms']:.5f} ms, "
+                  f"plain {rec['plain_ms']:.5f} ms, library "
+                  f"{rec['library_ms']:.5f} ms; bound {b_ms:.5f} ms "
+                  f"({b_by}), {100 * b_ms / rec['ms']:.1f}% of it",
+                  flush=True)
+        rec = recs[f"gather B {what}"]
+        out["gather_smem" if path == "smem" else "gather"] = dict(
+            ms=rec["ms"], plain_ms=rec["plain_ms"],
+            library_ms=rec["library_ms"], bound_ms=bound(rec["bytes"], 0)[0],
+            bound_by="bytes")
     torch.cuda.empty_cache()
     return out
 
@@ -2845,9 +2939,8 @@ def main() -> int:
     if off > BENCH_S_ITER_TOL:
         raise AssertionError("the bench's s/iter is off phase 4's")
     r0, r1, w = bd["panels"][0]
-    tail = max(bd["tail"].values(), key=lambda t: t["lanes"])
     probe_times = time_probe_kernels((r1 - r0, w), PROBE_SCRIPT_SHAPES[2],
-                                     tail)
+                                     bd["tail"])
     print(f"[timing] card: {smi}", flush=True)
 
     phase("20 the bench with the auto stair, the auto orientation and the "

@@ -226,14 +226,21 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log, device,
         meta = checkpoint_meta(cfg, backend, _shards(mesh))
 
         def save(oiter, payload):
-            if payload is None:          # a sharded run: rank 0 writes
-                return
-            t0 = time.perf_counter()
-            path = ckpt.save(oiter, W=payload.pop("W"), H=payload.pop("H"),
-                             solver=cfg.solver.value, backend=backend.value,
-                             extra=payload, meta=meta)
-            log.event("checkpoint", oiter=oiter, bytes=os.path.getsize(path),
-                      save_s=time.perf_counter() - t0)
+            if payload is not None:      # a sharded run: rank 0 writes
+                t0 = time.perf_counter()
+                path = ckpt.save(oiter, W=payload.pop("W"),
+                                 H=payload.pop("H"), solver=cfg.solver.value,
+                                 backend=backend.value, extra=payload,
+                                 meta=meta)
+                log.event("checkpoint", oiter=oiter,
+                          bytes=os.path.getsize(path),
+                          save_s=time.perf_counter() - t0)
+            if mesh is not None:
+                # every rank waits for rank 0's file: a rank that ran ahead
+                # into a resume would otherwise read the previous
+                # checkpoint and leave its peers' collectives unmatched
+                import torch.distributed as dist
+                dist.barrier()
 
         kw.update(ckpt_every=cfg.checkpoint_every, ckpt_fn=save)
     if resume is not None:

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_pi = ctypes.POINTER(ctypes.c_int)
 #: library name -> {C function: argtypes}; every function returns the CUDA
 #: error code of its launch (int, 0 = success)
 SIGNATURES = {
@@ -57,8 +58,11 @@ SIGNATURES = {
         # R, u (None: NaN-skip), tile partials, g, rows, width, 16-byte
         # vectors, stream
         "crtpu_stream_read": [_p, _p, _p, _p, _i, _i, _i, _p],
-        # table, index, out, index rows, lanes, table rows, form, stream
-        "crtpu_gather": [_p, _p, _p, _ll, _i, _ll, _i, _p],
+        # table, index, out, index rows, lanes, table rows, form, path
+        # (L2, shared memory), stream
+        "crtpu_gather": [_p, _p, _p, _ll, _i, _ll, _i, _i, _p],
+        # device, out: opt-in shared memory a block, SMs
+        "crtpu_gather_limits": [_i, _pi, _pi],
     },
 }
 

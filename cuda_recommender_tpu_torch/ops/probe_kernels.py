@@ -23,7 +23,11 @@ and ``stream_read_vec16``):
     over an f32 table ``tab`` (S, L) and an int32 index tile ``idx``
     (rows, L): A ``out[r, l] = tab[idx[r, l], l]``, B ``out[r, l] =
     tab.flatten()[idx[r, l]]``, C ``out[r, :] = tab[idx[r, 0], :]``. An
-    index outside the table reads 0.
+    index outside the table reads 0. A and B take one of two kernels by
+    the table's bytes (``gather_plan``): the table copied into each SM's
+    shared memory where it fits in a block's opt-in shared memory (counted
+    as ``gather_smem``), else read from L2 under an evict-last policy
+    (counted as ``gather``, as form C is).
 
 Each wrapper takes the plain version ONLY for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (on the current stream) or raises. It
@@ -34,6 +38,8 @@ launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .launches import count
@@ -43,6 +49,28 @@ from .panel_kernels import _launch, _ptr, _row_chunks, _stream
 BLOCK_ROWS = 512
 #: gather forms -> the C entry point's mode code
 GATHER_MODES = {"A": 0, "B": 1, "C": 2}
+#: gather paths of forms A and B -> the C entry point's path code
+GATHER_PATHS = {"l2": 0, "smem": 1}
+#: elements a thread takes a step, and threads a block, of each kernel of
+#: forms A and B: the L2 path's, and the shared-memory path's with the
+#: whole table or (form A, aligned, L a multiple of 32) a column group
+GATHER_STEP = {"l2": 4, "table": 8, "cols": 8}
+GATHER_THREADS = {"l2": 128, "table": 256, "cols": 512}
+#: the L2 path's blocks an SM (the kernel's launch bounds)
+GATHER_L2_BLOCKS_PER_SM = 8
+#: blocks of the whole-table kernel that share one read of the table
+GATHER_TABLE_CLUSTER = 4
+#: lanes of a column group
+GATHER_COL_LANES = 32
+#: shared memory the shared-memory path needs besides the table: the
+#: mbarrier and a zero (16 bytes), and 16 for a table off a 16-byte boundary
+GATHER_SMEM_RESERVE = 32
+#: the H100's opt-in shared memory a block and its SMs: what a CPU tensor's
+#: plan assumes (``gather_limits``)
+H100_SMEM_OPTIN = 232_448
+H100_SMS = 132
+
+_limits: dict = {}
 
 
 def _check_panel(R: torch.Tensor) -> tuple[int, int]:
@@ -94,9 +122,97 @@ def stream_read(R: torch.Tensor, u: torch.Tensor | None = None, *,
     return g
 
 
-def gather(tab: torch.Tensor, idx: torch.Tensor, form: str) -> torch.Tensor:
+def gather_smem_bytes(S: int, L: int) -> int:
+    """Dynamic shared memory of the shared-memory path for an (S, L) f32
+    table: the table rounded up to 16 bytes, plus GATHER_SMEM_RESERVE."""
+    return GATHER_SMEM_RESERVE + -(-4 * S * L // 16) * 16
+
+
+def gather_plan(S: int, L: int, n_idx: int, smem_limit: int, *,
+                form: str = "B", sms: int = H100_SMS, path: str | None = None,
+                tab_offset: int = 0, idx_offset: int = 0,
+                out_offset: int = 0) -> dict:
+    """How ``crtpu_gather`` runs form ``form`` ("A" or "B") over an (S, L)
+    f32 table and ``n_idx`` index elements, on a device with
+    ``smem_limit`` bytes of opt-in shared memory a block and ``sms`` SMs;
+    the offsets are the table's, the index's and the output's addresses
+    mod 16 (bytes). ``path`` None picks "smem" where
+    ``gather_smem_bytes(S, L)`` fits in ``smem_limit``, else "l2"; asking
+    for "smem" where it does not fit raises ValueError. Returns {"path",
+    "kernel" ("l2"; on the shared-memory path "cols" for form A with every
+    offset 0 and L a multiple of 32, else "table"), "grid" (blocks; the
+    table kernel's clusters of GATHER_TABLE_CLUSTER are also capped by how
+    many the card runs at once, which only the card knows),
+    "threads", "per_thread" (elements a thread takes a step), "smem_bytes",
+    "head" and "tail" (elements before the output's first 16-byte step and
+    after its last, one a thread), "steps", "idx_vec" (the index is read
+    16 bytes at a time)}. Pure arithmetic, mirrored by the C entry point."""
+    need = gather_smem_bytes(S, L)
+    if path is None:
+        path = "smem" if need <= smem_limit else "l2"
+    if path not in GATHER_PATHS:
+        raise ValueError(f"path must be one of {sorted(GATHER_PATHS)}, got "
+                         f"{path!r}")
+    if path == "smem" and need > smem_limit:
+        raise ValueError(f"a {S} x {L} f32 table needs {need} bytes of "
+                         f"shared memory; a block may opt in to "
+                         f"{smem_limit}")
+    kernel = "l2"
+    if path == "smem":
+        aligned = not (tab_offset % 16 or idx_offset % 16 or out_offset % 16)
+        kernel = ("cols" if form == "A" and aligned
+                  and L % GATHER_COL_LANES == 0 else "table")
+    step, threads = GATHER_STEP[kernel], GATHER_THREADS[kernel]
+    if kernel == "cols":
+        groups, rows = L // GATHER_COL_LANES, n_idx // L
+        want = -(-rows * (GATHER_COL_LANES // step) // threads)
+        return {"path": path, "kernel": kernel,
+                "grid": groups * max(1, min(want, sms // groups)),
+                "threads": threads, "per_thread": step,
+                "smem_bytes": 16 + S * GATHER_COL_LANES * 4, "head": 0,
+                "tail": 0, "steps": n_idx // step, "idx_vec": True}
+    head = min(n_idx, (16 - out_offset % 16) % 16 // 4)
+    steps = (n_idx - head) // step
+    if kernel == "table":   # whole clusters, at most a block an SM
+        c = GATHER_TABLE_CLUSTER
+        grid = c * max(1, min(-(-steps // (threads * c)), sms // c))
+    else:
+        grid = max(1, min(-(-steps // threads),
+                          sms * GATHER_L2_BLOCKS_PER_SM))
+    return {"path": path, "kernel": kernel, "grid": grid,
+            "threads": threads, "per_thread": step,
+            "smem_bytes": need if path == "smem" else 0, "head": head,
+            "tail": n_idx - head - steps * step, "steps": steps,
+            "idx_vec": (idx_offset + 4 * head) % 16 == 0}
+
+
+def gather_limits(device: torch.device) -> tuple[int, int]:
+    """(opt-in shared memory a block, SMs) that ``gather_plan`` takes for
+    ``device``: a CUDA device's, read once a device through the kernel
+    library; the H100's for the CPU (whose plain version has no limit of
+    its own)."""
+    if device.type != "cuda":
+        return H100_SMEM_OPTIN, H100_SMS
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _limits:
+        from .build import load
+        smem, sms = ctypes.c_int(), ctypes.c_int()
+        _launch(load("probe_kernels").crtpu_gather_limits, index,
+                ctypes.byref(smem), ctypes.byref(sms))
+        _limits[index] = (smem.value, sms.value)
+    return _limits[index]
+
+
+def gather(tab: torch.Tensor, idx: torch.Tensor, form: str, *,
+           out: torch.Tensor | None = None,
+           path: str | None = None) -> torch.Tensor:
     """P3 form ``form`` ("A", "B" or "C") of ``tab`` (S, L) float32 at
-    ``idx`` (rows, L) int32. Returns out, (rows, L) float32."""
+    ``idx`` (rows, L) int32, into ``out`` (contiguous (rows, L) float32 on
+    the same device; allocated when None). ``path`` ("smem" or "l2", forms
+    A and B only) overrides ``gather_plan``'s choice; "smem" for a table
+    over the device's limit (the H100's for a CPU tensor) raises. Returns
+    out."""
     if form not in GATHER_MODES:
         raise ValueError(f"form must be one of {sorted(GATHER_MODES)}, got "
                          f"{form!r}")
@@ -110,14 +226,31 @@ def gather(tab: torch.Tensor, idx: torch.Tensor, form: str) -> torch.Tensor:
     if not (tab.is_contiguous() and idx.is_contiguous()) or \
             tab.device != idx.device:
         raise ValueError("table and index must be contiguous, on one device")
+    if out is not None and (out.shape != idx.shape or
+                            out.dtype != torch.float32 or
+                            not out.is_contiguous() or
+                            out.device != idx.device):
+        raise ValueError(f"out must be contiguous float32 of shape "
+                         f"{tuple(idx.shape)} on {idx.device}")
+    if form == "C" and path is not None:
+        raise ValueError("form C has one kernel; path is for forms A and B")
+    S, L = tab.shape
+    plan = None
+    if form != "C":
+        smem_limit, sms = gather_limits(tab.device)
+        plan = gather_plan(S, L, idx.numel(), smem_limit, form=form, sms=sms,
+                           path=path)
     if tab.device.type == "cpu":
-        return gather_plain(tab, idx, form)
+        got = gather_plain(tab, idx, form)
+        return got if out is None else out.copy_(got)
     from .build import load
-    out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    if out is None:
+        out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    code = 0 if plan is None else GATHER_PATHS[plan["path"]]
     _launch(load("probe_kernels").crtpu_gather, _ptr(tab), _ptr(idx),
-            _ptr(out), idx.shape[0], idx.shape[1], tab.shape[0],
-            GATHER_MODES[form], _stream(idx))
-    count("gather")
+            _ptr(out), idx.shape[0], L, S, GATHER_MODES[form], code,
+            _stream(idx))
+    count("gather_smem" if code else "gather")
     return out
 
 

@@ -13,11 +13,13 @@ Over an f32 table ``tab`` (S, 128) and an int32 index tile ``idx``
   C  out[r, :] = tab[idx[r, 0], :]      against tab.index_select(0, idx[:, 0])
 
 (the library calls take an int64 copy of the index, made before timing).
-The table stays in L2, as the tail's small tables do; the index tiles
-are cycled through copies of 128 MB in all, so that they come from device
-memory as the tail's do. Each call's device time is below the host's cost
-of issuing it, so REPS calls are captured in a CUDA graph and timed by
-its replay.
+Forms A and B take the shared-memory path where the table fits in a
+block's opt-in shared memory (the rows tail's 417 x 128 table), else the
+L2 path (``ops/probe_kernels.py::gather_plan``; each record names the
+path). The index tiles are cycled through copies of 128 MB in all, so that
+they come from device memory as the tail's do. Each call's device time is
+below the host's cost of issuing it, so REPS calls are captured in a CUDA
+graph and timed by its replay.
 First at the probe's shapes (S = 8192, a 4 MB table; 4096 index rows),
 then at each ``--tail`` shape: an ELL tail side that gathers LANES padded
 lanes from a table of ROWS entities x WIDTH floats becomes ceil(LANES /
@@ -81,10 +83,11 @@ def gather_probe(S: int, n_rows: int, device, *, seed: int = 0,
     (AssertionError otherwise), then timed by a graph replay with the index
     cold; with ``library`` its PyTorch call too. Returns {"table_rows",
     "index_rows", "elements", form: {"ms", "ns_per_element",
-    "library_ms"}}."""
+    "library_ms", "path" ("smem" or "l2"; form C: "l2")}}."""
     tab, idx = probe_inputs(S, n_rows, device, seed)
     n = n_rows * L
     out = {"table_rows": S, "index_rows": n_rows, "elements": n}
+    path = pr.gather_plan(S, L, n, pr.gather_limits(tab.device)[0])["path"]
     for form in FORMS:
         got = pr.gather(tab, idx[form], form)
         want = pr.gather_plain(tab, idx[form], form)
@@ -106,7 +109,8 @@ def gather_probe(S: int, n_rows: int, device, *, seed: int = 0,
                           graph=True)
         del copies
         out[form] = {"ms": ms, "library_ms": lib,
-                     "ns_per_element": None if ms is None else ms * 1e6 / n}
+                     "ns_per_element": None if ms is None else ms * 1e6 / n,
+                     "path": "l2" if form == "C" else path}
     return out
 
 

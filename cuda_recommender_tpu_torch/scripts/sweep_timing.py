@@ -1,9 +1,11 @@
-"""Kernel timing: K1, K2, K3, K4, the masked sweeps, the rounding variant
-and K5 at the main paths' shapes, each against its plain version (K5 also
-against ``torch.linalg.solve``, the one PyTorch call that computes its
-function), for one checkout of the port.
+"""Kernel timing: K1, K2, K3, K4, the masked sweeps, the rounding variant,
+K5 and P3's gathers at the main paths' shapes, each against its plain
+version (K5 also against ``torch.linalg.solve``, the gathers against
+``torch.gather``, ``torch.take`` and ``index_select``: the one PyTorch call
+that computes each function), for one checkout of the port.
 
     python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
+        [--gathers]
 
 ``--root`` imports the package from another checkout (an unpacked copy of
 another commit; default: the checkout that holds this file), so that one
@@ -13,7 +15,12 @@ its plain version are timed in turns (plain, kernel, kernel, plain; CUDA
 events over REPS calls each, after one warm-up call) on panels far larger
 than the 50 MB L2; K5 in turns plain, library, kernel, kernel, library,
 plain on the ALS headline's rows side (S = 138,493 systems, views of one
-augmented gram as the ALS assembly passes them) at each of GJ_KS.
+augmented gram as the ALS assembly passes them) at each of GJ_KS. With
+``--gathers`` it times P3's gathers A, B and C instead, at GATHER_SHAPES,
+by graph replays of GATHER_REPS calls with the index cycled through 128
+MB of copies (``probe_gather``'s method: a call's device time is below
+the host's cost of issuing it), in turns plain, library, kernel, kernel,
+library, plain.
 ``chip_smoke.py`` times its phases 6, 9 and 15 through ``nan_sweeps``,
 ``gj_solves``, ``masked_sweeps`` and ``time_sweeps``, and checks K5 on
 ``spd_systems``, so that one place holds the calls, their bytes and their
@@ -42,6 +49,14 @@ VARIANT_SHAPE = (165_376, 18_432)
 #: headline) and 128 (the kernel's widest)
 GJ_S = 138_493
 GJ_KS = (10, 40, 128)
+#: P3's gathers (table rows, index rows of 128 lanes): the probe's shape
+#: and the bench's two tail sides at the headline (``tail_shape`` of
+#: 2,900,227 lanes over 17,771 x 3 floats and of 3,027,760 lanes over
+#: 480,190 x 2)
+GATHER_SHAPES = {"probe": (8192, 4096), "rows tail": (417, 22_659),
+                 "cols tail": (7503, 23_655)}
+#: calls captured in a gather's timing graph
+GATHER_REPS = 100
 #: timed calls per kernel and turn, after one untimed
 REPS = 10
 #: the same for K5 (its plain version takes about 2 s a call at k = 128)
@@ -175,12 +190,45 @@ def gj_solves(k, S, device, seed) -> dict:
                          lambda: torch.linalg.solve(A, b))}
 
 
-def time_turns(fns, device, reps: int) -> list:
+def gathers(S, rows, device, seed) -> dict:
+    """P3's forms A, B and C over an (S, 128) f32 table and (rows, 128)
+    int32 index tiles drawn on the device from ``seed``, each call taking
+    the next of the index's cold copies: name -> (kernel call, plain call,
+    bytes, flops, library call). Bytes: each index element read and each
+    output element written once (4 B each; form C reads one index a row),
+    the table read once. The library calls take an int64 copy of the
+    index, made here."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+    from cuda_recommender_tpu_torch.scripts.common import cold_copies, \
+        cycling
+    from cuda_recommender_tpu_torch.scripts.probe_gather import \
+        library_call, probe_inputs
+
+    tab, idx = probe_inputs(S, rows, device, seed)
+    n, table = rows * tab.shape[1], 4 * tab.numel()
+    out = {}
+    for form in ("A", "B", "C"):
+        copies = cold_copies(idx[form])
+        wide = cold_copies(idx[form].to(torch.int64))
+        out[f"gather {form}"] = (
+            cycling([(lambda ix=ix, f=form: pr.gather(tab, ix, f))
+                     for ix in copies]),
+            cycling([(lambda ix=ix, f=form: pr.gather_plain(tab, ix, f))
+                     for ix in copies]),
+            (4 * rows if form == "C" else 4 * n) + 4 * n + table, 0,
+            cycling([library_call(tab, ix, form) for ix in wide]))
+    return out
+
+
+def time_turns(fns, device, reps: int, graph: bool = False) -> list:
     """Each of ``fns`` warmed up once, then timed in turns forward and back
-    (a, b, ..., b, a), each turn ``common.time_ms`` over ``reps`` calls, so
-    that a drift of the card's clock falls on all alike. Returns each one's
-    two readings (None, None on the CPU). It lives here, not in
-    ``common``, because this file also runs against older checkouts."""
+    (a, b, ..., b, a), each turn ``common.time_ms`` over ``reps`` calls
+    (captured in a CUDA graph with ``graph``), so that a drift of the
+    card's clock falls on all alike. Returns each one's two readings
+    (None, None on the CPU). It lives here, not in ``common``, because this
+    file also runs against older checkouts."""
     import torch
 
     from cuda_recommender_tpu_torch.scripts.common import time_ms
@@ -189,12 +237,14 @@ def time_turns(fns, device, reps: int) -> list:
         fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    first = [time_ms(fn, device, reps, 0) for fn in fns]
-    second = [time_ms(fn, device, reps, 0) for fn in fns[::-1]][::-1]
+    first = [time_ms(fn, device, reps, 0, graph=graph) for fn in fns]
+    second = [time_ms(fn, device, reps, 0, graph=graph)
+              for fn in fns[::-1]][::-1]
     return list(zip(first, second))
 
 
-def time_sweeps(calls: dict, what: str, device, reps: int = REPS) -> dict:
+def time_sweeps(calls: dict, what: str, device, reps: int = REPS,
+                graph: bool = False) -> dict:
     """Each of ``calls`` (name -> (kernel, plain, bytes, flops[, library
     call])) against its plain version, in turns plain, [library,] kernel,
     kernel, [library,] plain (``time_turns``); prints a line each. Returns
@@ -207,7 +257,7 @@ def time_sweeps(calls: dict, what: str, device, reps: int = REPS) -> dict:
 
     out = {}
     for name, (kern, plain, nbytes, flops, *lib) in calls.items():
-        got = time_turns([plain, *lib, kern], device, reps)
+        got = time_turns([plain, *lib, kern], device, reps, graph)
         (p1, p2), (k1, k2) = got[0], got[-1]
         ms = mean(got[-1])
         rec = {**rate(nbytes, ms), "plain_ms": mean(got[0]),
@@ -218,15 +268,27 @@ def time_sweeps(calls: dict, what: str, device, reps: int = REPS) -> dict:
         out[f"{name} {what}"] = rec
         print(f"{name + ' ' + what:56s}: " + (
             "not measured (cpu)" if ms is None else
-            f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms"
-            + (f", library {got[1][0]:.3f} / {got[1][1]:.3f} ms" if lib
+            f"kernel {k1:.5f} / {k2:.5f} ms, plain {p1:.5f} / {p2:.5f} ms"
+            + (f", library {got[1][0]:.5f} / {got[1][1]:.5f} ms" if lib
                else "") + f"; kernel {rec['GB_s']:.0f} GB/s, "
             f"{100 * rec['share_of_peak']:.1f}% of the HBM rate"), flush=True)
     return out
 
 
+def time_gathers(device) -> dict:
+    """P3's gathers at GATHER_SHAPES (``gathers``, graph replays);
+    returns {"gather F shape": rate}."""
+    out = {}
+    for name, (S, rows) in GATHER_SHAPES.items():
+        calls = gathers(S, rows, device, seed=S)
+        out.update(time_sweeps(calls, f"{name} {S}x128, {rows} rows",
+                               device, GATHER_REPS, graph=True))
+        del calls
+    return out
+
+
 def run(device) -> dict:
-    """Times every kernel; returns {"kernel shape": rate}."""
+    """Times every kernel but the gathers; returns {"kernel shape": rate}."""
     import torch
 
     out = {}
@@ -261,6 +323,8 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(_HERE)),
                    help="the checkout to import the package from")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--gathers", action="store_true",
+                   help="time P3's gathers instead of the sweeps and K5")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -273,7 +337,8 @@ def main(argv=None) -> int:
                            f"{root}: run each checkout in a fresh process")
     device = resolve_device(args.device)
     out = {"root": root, "device": card(device), "reps": REPS,
-           "kernels": run(device)}
+           "kernels": (time_gathers(device) if args.gathers
+                       else run(device))}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -278,6 +278,28 @@ def test_sweep_timing_script_on_cpu(monkeypatch):
     assert len(lines) == 1 + len(out["kernels"])
 
 
+def test_sweep_timing_gathers_on_cpu(monkeypatch):
+    """``--gathers``: one line per gather form and shape (each against its
+    plain version and its PyTorch call), bytes as the bound counts them,
+    times "not measured" on the CPU."""
+    monkeypatch.setattr(sweep_timing, "GATHER_SHAPES",
+                        {"probe": (64, 16), "rows tail": (5, 7)})
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    rc, lines = _run(sweep_timing.main, ["--device", "cpu", "--gathers"])
+    out = json.loads(lines[-1])
+    assert rc == 0 and out["root"] == ROOT
+    assert sorted(out["kernels"]) == sorted(
+        f"gather {f} {name} {S}x128, {rows} rows" for f in "ABC"
+        for name, (S, rows) in (("probe", (64, 16)), ("rows tail", (5, 7))))
+    for key, r in out["kernels"].items():
+        assert r["ms"] is None and r["plain_ms"] is None
+        assert r["library_ms"] is None and r["flops"] == 0
+        S, rows = (64, 16) if "probe" in key else (5, 7)
+        index = 4 * rows if key.startswith("gather C") else 4 * rows * 128
+        assert r["bytes"] == index + 4 * rows * 128 + 4 * S * 128
+    assert len(lines) == 1 + len(out["kernels"])
+
+
 def test_sweep_timing_refuses_a_package_from_elsewhere(monkeypatch,
                                                        tmp_path):
     """--root names the checkout to time; a process that already holds the

@@ -179,7 +179,7 @@ def test_one_launch_registry():
         "panel_update_vsweep", "panel_vsweep", "panel_usweep",
         "fused_update_vsweep", "masked_vsweep", "masked_usweep", "gj_solve",
         "panel_update_vsweep_irne", "stream_rmw", "stream_read",
-        "stream_rmw_vec16", "stream_read_vec16", "gather"}
+        "stream_rmw_vec16", "stream_read_vec16", "gather", "gather_smem"}
     launches.count("gj_solve")
     launches.count("panel_usweep")
     assert launches.launch_counts()["gj_solve"] == 1

@@ -18,7 +18,8 @@ bit-equal to the straight sharded run (gloo's all-reduce adds the ranks'
 partials in one fixed order, so the resumed trajectory repeats the
 straight one bit for bit; the ELL and ALS paths have no cross-rank sum at
 all), and a checkpoint of either package's sharded run resumes in the
-other at N = 4 within the CCD bar.
+other at N = 4 within the CCD bar. Early stop (``eps=0.9``) ends the
+sharded ELL run after iteration 2, as it ends the JAX package's.
 """
 
 import json
@@ -67,6 +68,10 @@ SOLVE = {
                            backend="ell"), N),
     "ell_t2": (TINY, dict(k=4, maxiter=3, maxinneriter=2, lambda_=0.05,
                           backend="ell"), N),
+    # tests/test_early_stop.py::test_early_stop_sharded
+    "ell_early_stop": (SMALL, dict(k=4, maxiter=8, lambda_=0.1,
+                                   backend="ell", early_stop=True, eps=0.9),
+                       N),
     "als": (SMALL, dict(solver="als", k=5, maxiter=3, lambda_=0.1,
                         backend="ell", ell_chunk=256), N),
     "dense_1d": (SMALL, dict(k=5, maxiter=2, maxinneriter=1, lambda_=0.1,
@@ -241,6 +246,12 @@ def test_every_rank_ends_with_the_same_factors(out, name):
         r = np.load(out / f"{name}.rank{rank}.npz")
         np.testing.assert_array_equal(r["W"], z["W"])
         np.testing.assert_array_equal(r["H"], z["H"])
+
+
+def test_sharded_early_stop(out):
+    """``early_stop=True, eps=0.9`` on 4 ranks stops after iteration 2, as
+    the JAX package's sharded ELL run does."""
+    assert len(_load(out, "ell_early_stop")["rmse"]) == 2
 
 
 @pytest.mark.parametrize("name", HYBRID)

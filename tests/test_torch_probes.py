@@ -18,6 +18,11 @@ f32 -> bf16 conversion (JAX writes 0x7FC0, this torch's CPU 0xFFFF), so
 against JAX a stored NaN must be NaN at the same cell; against the port's
 own K1 every bit is equal.
 
+P3's host logic is held here too: ``gather_plan``'s choice of path and
+kernel at the bench's shapes and at the shared-memory limit, its split of
+the index around the output's 16-byte boundaries, and the wrapper's
+refusals; the kernels themselves run only on the card (chip_smoke.py).
+
 Importing the scripts sets three JAX compilation-cache options (and puts
 the repository on sys.path); the fixture restores them.
 """
@@ -399,6 +404,149 @@ def test_gather_plain_formula_ragged_and_out_of_range(form):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+#: the smoke's new gather checks (table rows, index rows): the bench's rows
+#: tail at the headline, the largest table the H100's shared-memory path
+#: takes, and one row over it
+SMOKE_GATHER_SHAPES = ((417, 37), (453, 37), (454, 37))
+
+
+@pytest.mark.parametrize("S,rows", SMOKE_GATHER_SHAPES)
+@pytest.mark.parametrize("form,body", [("A", "kernel_take"),
+                                       ("B", "kernel_fancy"),
+                                       ("C", "kernel_rowloop")])
+def test_gather_plain_matches_pallas_at_smoke_shapes(scripts, form, body, S,
+                                                     rows):
+    """gather_plain against the Pallas bodies (interpret mode) at the
+    smoke's table shapes, also through an index and an output viewed 4
+    bytes into their buffers."""
+    L = 128
+    rng = np.random.default_rng(S)
+    tab = rng.normal(size=(S, L)).astype(np.float32)
+    hi = S * L if form == "B" else S
+    idx = rng.integers(0, hi, (rows, L)).astype(np.int32)
+    want = np.asarray(_gather_call(getattr(scripts["probe_vmem_gather"],
+                                           body), jnp.asarray(idx),
+                                   jnp.asarray(tab), rows))
+    got = pr.gather_plain(torch.from_numpy(tab), torch.from_numpy(idx), form)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    ib = torch.zeros(idx.size + 1, dtype=torch.int32)
+    iv = ib[1:].view(rows, L)
+    iv.copy_(torch.from_numpy(idx))
+    ob = torch.full((idx.size + 2,), float("nan"))
+    ov = ob[1:-1].view(rows, L)
+    assert pr.gather(torch.from_numpy(tab), iv, form, out=ov) is ov
+    np.testing.assert_array_equal(ov.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert torch.isnan(ob[0]) and torch.isnan(ob[-1])
+
+
+@pytest.mark.parametrize("name,S,rows,path,kernels", [
+    ("rows tail", 417, 22_659, "smem", {"A": "cols", "B": "table"}),
+    ("cols tail", 7503, 23_655, "l2", {"A": "l2", "B": "l2"}),
+    ("probe", 8192, 4096, "l2", {"A": "l2", "B": "l2"})])
+def test_gather_plan_paths_at_the_bench_shapes(name, S, rows, path, kernels):
+    """The rows tail's table (213,504 bytes) fits the H100's opt-in shared
+    memory; the cols tail's (3.84 MB) and the probe's (4 MB) do not."""
+    from cuda_recommender_tpu_torch.scripts.probe_gather import tail_shape
+    if name != "probe":
+        lanes, ents, width = ((2_900_227, 17_771, 3) if name == "rows tail"
+                              else (3_027_760, 480_190, 2))
+        assert tail_shape(lanes, ents, width) == (S, rows)
+    n = rows * 128
+    for form in ("A", "B"):
+        plan = pr.gather_plan(S, 128, n, pr.H100_SMEM_OPTIN, form=form)
+        assert plan["path"] == path and plan["kernel"] == kernels[form]
+        assert plan["head"] == plan["tail"] == 0 and plan["idx_vec"]
+        assert plan["steps"] * plan["per_thread"] == n
+        if path == "smem":
+            assert plan["grid"] == pr.H100_SMS // 4 * 4 if form == "B" \
+                else pr.H100_SMS
+            assert plan["smem_bytes"] == (16 + S * 128 if form == "A" else
+                                          32 + S * 512)
+        else:
+            assert plan["grid"] == min(-(-n // 4 // 128),
+                                       8 * pr.H100_SMS)
+            assert plan["smem_bytes"] == 0
+    assert pr.gather_smem_bytes(S, 128) == 32 + S * 512
+
+
+def test_gather_plan_at_the_limit():
+    """A table exactly at the limit takes shared memory; one byte less of
+    limit, or one row more of table, takes L2, and asking for shared
+    memory then raises. On the H100 the largest 128-lane table is 453
+    rows."""
+    for S, L in ((453, 128), (97, 3), (1, 1)):
+        need = pr.gather_smem_bytes(S, L)
+        assert pr.gather_plan(S, L, 64, need)["path"] == "smem"
+        assert pr.gather_plan(S, L, 64, need - 1)["path"] == "l2"
+        with pytest.raises(ValueError, match="shared memory"):
+            pr.gather_plan(S, L, 64, need - 1, path="smem")
+        assert pr.gather_plan(S, L, 64, need, path="l2")["path"] == "l2"
+    assert pr.gather_plan(453, 128, 64, pr.H100_SMEM_OPTIN)["path"] == "smem"
+    assert pr.gather_plan(454, 128, 64, pr.H100_SMEM_OPTIN)["path"] == "l2"
+    with pytest.raises(ValueError, match="path must be"):
+        pr.gather_plan(4, 4, 16, pr.H100_SMEM_OPTIN, path="vmem")
+
+
+@pytest.mark.parametrize("n,out_off,idx_off,path,want", [
+    # (head, steps, tail, idx_vec)
+    (1000, 0, 0, "l2", (0, 250, 0, True)),
+    (1001, 0, 0, "l2", (0, 250, 1, True)),
+    (1003, 4, 4, "l2", (3, 250, 0, True)),
+    (1003, 4, 8, "l2", (3, 250, 0, False)),
+    (1007, 8, 8, "smem", (2, 125, 5, True)),
+    (1007, 12, 0, "smem", (1, 125, 6, False)),
+    (2, 4, 4, "smem", (2, 0, 0, False)),
+    (5, 4, 4, "l2", (3, 0, 2, True))])
+def test_gather_plan_head_and_tail(n, out_off, idx_off, path, want):
+    """Index elements not a multiple of a step, and views at 4-byte
+    offsets: up to 3 head elements reach the output's 16-byte boundary,
+    the tail is what is left after whole steps, and the index is read 16
+    bytes at a time only where it is aligned at the first step."""
+    plan = pr.gather_plan(3, 1, n, pr.H100_SMEM_OPTIN, path=path,
+                          out_offset=out_off, idx_offset=idx_off)
+    got = (plan["head"], plan["steps"], plan["tail"], plan["idx_vec"])
+    assert got == want
+    assert plan["head"] + plan["steps"] * plan["per_thread"] + \
+        plan["tail"] == n
+    assert plan["kernel"] == ("table" if path == "smem" else "l2")
+
+
+def test_gather_plan_column_groups_need_alignment():
+    """Form A copies only its 32-lane column group where every operand is
+    16-byte aligned and L is a multiple of 32; otherwise the whole table."""
+    def kernel(L, **offsets):
+        return pr.gather_plan(40, L, 40 * L, pr.H100_SMEM_OPTIN, form="A",
+                              **offsets)["kernel"]
+    assert kernel(128) == kernel(96) == kernel(32) == "cols"
+    assert kernel(40) == kernel(16) == "table"
+    for key in ("tab_offset", "idx_offset", "out_offset"):
+        assert kernel(128, **{key: 4}) == "table"
+    plan = pr.gather_plan(40, 96, 40 * 96, pr.H100_SMEM_OPTIN, form="A")
+    assert plan["grid"] == 3 and plan["smem_bytes"] == 16 + 40 * 128
+    plan = pr.gather_plan(417, 96, 22_659 * 96, pr.H100_SMEM_OPTIN,
+                          form="A")
+    assert plan["grid"] == 132     # 3 groups x 44 blocks
+
+
+def test_gather_wrapper_refuses_shared_memory_over_the_limit():
+    """Forcing the shared-memory path for a table over the limit raises
+    (a CPU tensor's plan takes the H100's limit), as does a path for form
+    C; a valid request on the CPU returns the plain version."""
+    tab = torch.zeros((454, 128))
+    idx = torch.zeros((3, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        pr.gather(tab, idx, "A", path="smem")
+    with pytest.raises(ValueError, match="form C"):
+        pr.gather(tab, idx, "C", path="l2")
+    got = pr.gather(tab[:453].contiguous(), idx, "B", path="smem")
+    assert torch.equal(got, torch.zeros((3, 128)))
+    launches.reset_launch_counts()
+    pr.gather(tab, idx, "A", path="l2")
+    assert set(launches.launch_counts().values()) == {0}   # CPU: plain
+
+
 # ---------------------------------------------------------- wrappers, build
 
 @pytest.mark.parametrize("bad", ["dtype", "dims", "stride", "u"])
@@ -421,20 +569,28 @@ def test_stream_wrappers_validate(bad):
         pr.stream_read(R, u)
 
 
-@pytest.mark.parametrize("bad", ["form", "tab_dtype", "idx_dtype", "lanes"])
+@pytest.mark.parametrize("bad", ["form", "tab_dtype", "idx_dtype", "lanes",
+                                 "out_shape", "out_dtype", "out_stride"])
 def test_gather_wrapper_validates(bad):
     tab, idx, form = torch.zeros((4, 3)), torch.zeros((2, 3),
                                                       dtype=torch.int32), "A"
+    out = None
     if bad == "form":
         form = "D"
     elif bad == "tab_dtype":
         tab = tab.double()
     elif bad == "idx_dtype":
         idx = idx.long()
-    else:
+    elif bad == "lanes":
         idx = torch.zeros((2, 4), dtype=torch.int32)
+    elif bad == "out_shape":
+        out = torch.zeros((3, 3))
+    elif bad == "out_dtype":
+        out = torch.zeros((2, 3), dtype=torch.float64)
+    else:
+        out = torch.zeros((3, 2)).t()
     with pytest.raises((TypeError, ValueError)):
-        pr.gather(tab, idx, form)
+        pr.gather(tab, idx, form, out=out)
 
 
 def test_build_binds_the_probe_kernels():
@@ -442,10 +598,13 @@ def test_build_binds_the_probe_kernels():
     argtype per C parameter (test_torch_gj.py checks the parse for every
     source)."""
     assert set(build.SIGNATURES["probe_kernels"]) == {
-        "crtpu_stream_rmw", "crtpu_stream_read", "crtpu_gather"}
+        "crtpu_stream_rmw", "crtpu_stream_read", "crtpu_gather",
+        "crtpu_gather_limits"}
     assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_rmw"]) == 5
     assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_read"]) == 8
-    assert len(build.SIGNATURES["probe_kernels"]["crtpu_gather"]) == 8
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_gather"]) == 9
+    assert len(build.SIGNATURES["probe_kernels"]
+               ["crtpu_gather_limits"]) == 3
     assert len(build.SIGNATURES["panel_kernels"]
                ["crtpu_update_vsweep_irne"]) == 13
     assert build.library_path("probe_kernels") != build.library_path(
