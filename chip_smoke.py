@@ -83,7 +83,14 @@ paths:
   one rank bit-equal to one device, and the host set-up at Netflix-100M
   dims (data, CSR+CSC build, plan, ELL build) with the native C++ helpers
   against their NumPy paths, byte-equal; every phase before it took the
-  native helpers.
+  native helpers;
+* the ml1m trajectories (``scripts/run_trajectories.py``, 3 iterations):
+  the ml-1m-calibrated fixture through text, ``cli/convert``, binfmt and
+  training on dense CCD++ (K4, ``masked_usweep``), the bf16 int8-mask
+  hybrid (K4 and the masked sweeps), the bf16 NaN-panel hybrid (K1, K2)
+  and ALS (K5), each iteration's RMSE and golden RMSE held against the JAX
+  package's committed records, and each arm against its golden run (dense
+  CCD++ and ALS pass golden_compare, the hybrids' RMSE near the golden's).
 
 Each phase prints its wall seconds. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -2553,25 +2560,6 @@ ALS_PRECISIONS = tuple(ALS_PREC_RMSE)
 #: within PRODUCT_BAR·E·eps·Σ|terms| of each other
 PRODUCT_BAR = 2.0
 F32_EPS = 2.0 ** -23
-#: the data sheet's dense bf16 tensor-core peak (700 W), FLOP/s
-PEAK_BF16_FLOP_S = 989e12
-
-
-def assembly_bound(nnz: int, slots: int, k: int, precision: str) -> tuple:
-    """(ms, what bounds it): the least time of one outer iteration's gram
-    and rhs assembly (the gathers and the products) at ``precision``. Its
-    inputs are each rating's lane index (int64) and value (f32) on both
-    sides, read once (the factor tables are a few MB); its output the
-    (k+1)² augmented gram of every slot, f32, written once; its work
-    2·(k+1)² operations a rating and side, in f32 outside the tensor cores
-    ("highest") or bf16 on them (one pass; three for "high")."""
-    nbytes = 2 * nnz * 12 + slots * (k + 1) ** 2 * 4
-    flops = 2 * nnz * 2 * (k + 1) ** 2
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = (flops / PEAK_F32_FLOP_S if precision == "highest" else
-             flops * (3 if precision == "high" else 1) / PEAK_BF16_FLOP_S)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def _als_setup(device):
@@ -2607,13 +2595,14 @@ def run_als_precisions(device, als) -> dict:
     bf16 runs changed no process-wide matmul flag). After each run one
     profiled outer step at its precision on one ELL layout, planned once:
     the gram products', the gathers' and K5's ms
-    (scripts/profile_iteration.py::als_split) beside the assembly's bound
-    (``assembly_bound``)."""
+    (scripts/profile_iteration.py::kernel_split) beside the assembly's
+    bound (scripts/common.py::assembly_bound)."""
     from cuda_recommender_tpu_torch import Config, train
     from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
     from cuda_recommender_tpu_torch.ops import launches as lc
+    from cuda_recommender_tpu_torch.scripts.common import assembly_bound
     from cuda_recommender_tpu_torch.scripts.profile_iteration import (
-        als_split, profile_split)
+        kernel_split, profile_split)
     from cuda_recommender_tpu_torch.solvers import als_ell
 
     A = ALS_HEADLINE
@@ -2659,7 +2648,7 @@ def run_als_precisions(device, als) -> dict:
                                            precision=prec)
         prof = profile_split(lambda: step(idx_r, idx_c, vals_r, vals_c, W,
                                           H, *nnz), device)
-        parts = als_split(prof)
+        parts = kernel_split(prof)
         kernels = sorted({name for name, _, _ in prof["kernels"]
                           if re.search(r"gemm|nvjet|xmma|cutlass", name)})
         s_iter = _steady(res.stats)
@@ -2789,6 +2778,35 @@ def run_host_setup() -> dict:
         host_setup.STEPS) + f"; outputs byte-equal; the smoke's own "
         f"native path counts {smoke_paths}", flush=True)
     out["smoke_paths"] = smoke_paths
+    return out
+
+
+#: phase 40: outer iterations of each ml1m trajectory arm
+TRAJ_ITERS = 3
+
+
+def run_trajectories_phase() -> dict:
+    """``scripts/run_trajectories.py`` at TRAJ_ITERS iterations on the card
+    (the fixture converted in a temp dir, the records written there): each
+    arm launched its kernels (the script asserts it), each iteration's
+    RMSE pair lies within the script's bars of the JAX package's committed
+    record (``results/rmse_trajectory_ml1m_*.jsonl``), and each arm meets
+    its golden run's bar (``run_trajectories.golden_misses``)."""
+    from cuda_recommender_tpu_torch.scripts import run_trajectories as rt
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = rt.run(TRAJ_ITERS, os.path.join(tmp, "work"),
+                     os.path.join(tmp, "out"), "cuda")
+    misses = rt.compare(out, rt.jax_records())
+    if misses:
+        raise AssertionError("trajectories off the JAX records or the "
+                             "golden runs: " + "; ".join(misses))
+    print(f"[trajectories] {len(out)} arms, {TRAJ_ITERS} iterations each, "
+          f"within the bars {rt.BARS} of the JAX records, dense CCD++ "
+          f"golden PASS, ALS under {rt.ALS_GOLDEN_PCT}% off, hybrids within "
+          f"{rt.HYBRID_GOLDEN_GAP} of the golden RMSE, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -3105,6 +3123,13 @@ def main() -> int:
     phase("39 the host set-up split at Netflix-100M dims, NumPy then the "
           "native helpers, outputs byte-equal")
     host = run_host_setup()
+
+    phase("40 the ml1m trajectories (scripts/run_trajectories.py, 3 "
+          "iterations: text -> convert -> binfmt -> dense CCD++, two "
+          "hybrids, ALS) against the golden solvers and the JAX records")
+    traj = run_trajectories_phase()
+    for rec in traj.values():
+        _count(rec["launches"], paths)
     phase(None)
     print("[resume] summary " + json.dumps({
         name: {key: rec[key] for key in ("bytes", "save_s", "load_s",
@@ -3128,6 +3153,14 @@ def main() -> int:
         key: host[key] for key in ("data", "median_s", "numpy_over_native",
                                    "smoke_paths", "host_cpus")}),
         flush=True)
+    print("[trajectories] summary " + json.dumps({
+        arm: {"rmse_compiled": [x["rmse_compiled"] for x in rec["lines"]],
+              "rmse_golden": [x["rmse_golden"] for x in rec["lines"]],
+              "golden_W": rec["summary"]["golden_W"],
+              "golden_H": rec["summary"]["golden_H"],
+              "compiled_train_s": rec["summary"]["compiled_train_s"],
+              "launches": rec["launches"]}
+        for arm, rec in traj.items()}), flush=True)
     print("[phase] summary " + json.dumps({
         "headline_split": phased["split"], "fused_s_iter": head["s_iter"],
         "update_busy_ms": phased["update"]["busy_ms"],

@@ -1,11 +1,14 @@
-"""Evaluation: test RMSE, golden comparison.
+"""Evaluation: test RMSE, training loss, golden comparison.
 
 The port's copy of the host half of ``cuda_recommender_tpu/eval/metrics.py``
-(``calrmse_np``, ``golden_compare``, ``GoldenResult``,
-``default_eval_chunk``) plus ``calrmse_device`` in torch.
+(``calrmse_np``, ``calrmse_r1_np``, ``calloss_np``, ``golden_compare``,
+``GoldenResult``, ``default_eval_chunk``) plus ``calrmse_device`` in torch.
 
 Parity targets in the reference:
   * calrmse        src/tools.cpp:235-248  (fp64 accumulation)
+  * calrmse_r1     src/tools.cpp:250-270  (residual-RMSE trick;
+    the reference mutates the test values in place — here it returns them)
+  * calloss        src/tools.cpp:223-233
   * calculate_rmse_directly  src/extras.cpp:182-216
   * golden_compare src/extras.cpp:218-238 (10% relative/entry)
 """
@@ -17,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..data.sparse import TestCOO
+from ..data.sparse import RatingMatrix, TestCOO
 
 GOLDEN_RTOL = 0.1   # src/extras.cpp:223
 
@@ -45,6 +48,23 @@ def calrmse_np(T: TestCOO, W: np.ndarray, H: np.ndarray, *,
     pred = _dots_np(W, H, T.row_idx, T.col_idx, entity_major)
     err = pred - T.val.astype(np.float64)
     return float(np.sqrt(np.mean(err * err)))
+
+
+def calrmse_r1_np(T: TestCOO, test_vals: np.ndarray, Wt: np.ndarray,
+                  Ht: np.ndarray) -> tuple[float, np.ndarray]:
+    """Rank-one incremental residual RMSE (calrmse_r1, src/tools.cpp:250-259).
+    Functional version: returns (rmse, updated residual test values)."""
+    resid = test_vals - Wt[T.row_idx] * Ht[T.col_idx]
+    return float(np.sqrt(np.mean(resid.astype(np.float64) ** 2))), resid
+
+
+def calloss_np(R: RatingMatrix, W: np.ndarray, H: np.ndarray, *,
+               entity_major: bool) -> float:
+    """Squared training loss over observed entries (calloss)."""
+    r, c, v = R.to_coo()
+    pred = _dots_np(W, H, r, c, entity_major)
+    d = pred - v.astype(np.float64)
+    return float(np.sum(d * d))
 
 
 def calrmse_device(test_i: torch.Tensor, test_j: torch.Tensor,

@@ -1,4 +1,6 @@
-"""Measurement scripts of the port: the card's stream and gather controls.
+"""Measurement and validation scripts of the port: the card's stream and
+gather controls, and the runs that hold the port against the golden
+solvers and the JAX package's records.
 
   * ``panel_floor`` — the read-modify-write and read stream controls (P1)
     beside K1 and K2, at the headline's panel shapes;
@@ -8,7 +10,16 @@
     PyTorch call, at the probe's shapes and at the ELL tail's;
   * ``collective_overhead`` — the host cost of one collective of the
     sharded paths (NCCL and gloo, a world of one rank), idle and behind
-    queued device work.
+    queued device work;
+  * ``run_trajectories`` — the ml-1m-calibrated fixture through text,
+    ``cli/convert``, binfmt and training (dense CCD++, two hybrids, ALS),
+    each RMSE trajectory against the NumPy golden solver and the JAX
+    package's committed records;
+  * ``golden_netflix_scale`` — the NaN-panel hybrid at Netflix-100M (f32
+    and bf16 residuals) against the NumPy golden solver, 3 iterations;
+  * ``yahoo_robustness`` — the hybrid (both stair orientations) and ALS at
+    the reference sweep's Yahoo r1 and c15 geometries: s/iter, share of
+    the card's bound, the profiled split, RMSE beside the JAX records.
 
 Each runs as ``python -m cuda_recommender_tpu_torch.scripts.<name>``, on
 the card unless ``--device cpu`` is given; ``common`` holds what they and

@@ -16,6 +16,10 @@ from ..ops.launches import add_launches, launch_counts
 
 #: the H100 SXM data sheet's HBM rate (700 W); every share is against it
 PEAK_BYTES_S = 3.35e12
+#: the data sheet's f32 rate outside the tensor cores and dense bf16
+#: tensor-core rate (700 W), FLOP/s
+PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 #: bytes that a timing loop cycles through so that its inputs come from
 #: device memory, not the 50 MB L2
 COLD_BYTES = 128 << 20
@@ -32,6 +36,23 @@ def card(device: torch.device) -> dict:
                          text=True, check=True).stdout.strip()
     return {"platform": "gpu", "name": torch.cuda.get_device_name(device),
             "count": torch.cuda.device_count(), "smi": smi}
+
+
+def assembly_bound(nnz: int, slots: int, k: int, precision: str) -> tuple:
+    """(ms, what bounds it): the least time of one ALS outer iteration's
+    gram and rhs assembly (the gathers and the products) at
+    ``precision``. Its inputs are each rating's lane index (int64) and
+    value (f32) on both sides, read once; its output the (k+1)² augmented
+    gram of every slot, f32, written once; its work 2·(k+1)² operations a
+    rating and side, in f32 outside the tensor cores ("highest") or bf16
+    on them (one pass; three for "high")."""
+    nbytes = 2 * nnz * 12 + slots * (k + 1) ** 2 * 4
+    flops = 2 * nnz * 2 * (k + 1) ** 2
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = (flops / PEAK_F32_FLOP_S if precision == "highest" else
+             flops * (3 if precision == "high" else 1) / PEAK_BF16_FLOP_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def time_ms(fn, device: torch.device, reps: int = 20, warmup: int = 3,

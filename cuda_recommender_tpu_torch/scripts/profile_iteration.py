@@ -118,24 +118,29 @@ ALS_PARTS = (("bmm", re.compile(r"gemm|nvjet|xmma|cutlass")),
              ("gj_solve", re.compile(r"gj_")))
 
 
-def als_split(out: dict) -> dict:
-    """ms of ``profile_split``'s kernels by ALS_PARTS, and "other"."""
-    split = {name: 0.0 for name, _ in ALS_PARTS}
-    split["other"] = 0.0
+def kernel_split(out: dict, parts=ALS_PARTS, rest: str = "other") -> dict:
+    """ms of a ``trace_split``'s kernels by ``parts`` ((name, pattern)
+    pairs: a kernel goes to the first whose pattern its name matches), and
+    ``rest``."""
+    split = {name: 0.0 for name, _ in parts}
+    split[rest] = 0.0
     for name, ms, _ in out["kernels"]:
-        part = next((p for p, rx in ALS_PARTS if rx.search(name)), "other")
-        split[part] += ms
+        split[next((p for p, rx in parts if rx.search(name)), rest)] += ms
     return split
+
+
+def profiler(device):
+    """A torch.profiler context tracing the host and, on the card, the
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                   if device.type == "cuda" else [ProfilerActivity.CPU])
 
 
 def profile_split(step, device, warm: int = 2) -> dict:
     """``step`` ``warm`` times untraced, then once under torch.profiler:
-    host wall ms, the device span from the first kernel's start to the last
-    one's end, busy ms (the union of kernel intervals), the idle share of
-    the span, and [name, ms, launches] per kernel name by time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``trace_split`` of that trace."""
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -143,13 +148,21 @@ def profile_split(step, device, warm: int = 2) -> dict:
     for _ in range(warm):
         step()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 if device.type == "cuda" else [ProfilerActivity.CPU]
-                 ) as prof:
+    with profiler(device) as prof:
         t0 = time.perf_counter()
         step()
         sync()
         wall = time.perf_counter() - t0
+    return trace_split(prof, wall)
+
+
+def trace_split(prof, wall: float) -> dict:
+    """Of a finished profiler trace taken over ``wall`` host seconds: host
+    wall ms, the device span from the first kernel's start to the last
+    one's end, busy ms (the union of kernel intervals), the idle share of
+    the span, and [name, ms, launches] per kernel name by time."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     by_name: dict = {}
@@ -207,7 +220,7 @@ def main(argv=None) -> int:
         del step
         report(what, out)
         if which == "als":
-            out["parts_ms"] = als_split(out)
+            out["parts_ms"] = kernel_split(out)
             print("[profile]   by part: " + ", ".join(
                 f"{part} {ms:.3f} ms" for part, ms in
                 out["parts_ms"].items()), flush=True)
