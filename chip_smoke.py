@@ -90,7 +90,14 @@ paths:
   hybrid (K4 and the masked sweeps), the bf16 NaN-panel hybrid (K1, K2)
   and ALS (K5), each iteration's RMSE and golden RMSE held against the JAX
   package's committed records, and each arm against its golden run (dense
-  CCD++ and ALS pass golden_compare, the hybrids' RMSE near the golden's).
+  CCD++ and ALS pass golden_compare, the hybrids' RMSE near the golden's);
+* the measurement scripts (``scripts/sweep.py``, ``sweep_netflix_hybrid``,
+  ``headline_variance``, ``bench_als``, ``scaling_model``): the reference
+  grid at ml1m dims (K4, the masked sweeps, K5; repeats bit-equal), one
+  flagship row on the headline's data (K1, K2; its group-difference s/iter
+  beside the headline's, its RMSE beside the JAX record's), the variance
+  probe on that row's state, the ALS golden at "high" and "default" (K5)
+  and the scaling model anchored to the headline's s/iter.
 
 Each phase prints its wall seconds. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -2810,6 +2817,123 @@ def run_trajectories_phase() -> dict:
     return out
 
 
+#: phase 41: the reference grid at ml1m dims (sweep.py), cut
+SWEEP_SMOKE = dict(ks="5,10", inners="1,3", repeats=2, iters=3)
+SWEEP_SMOKE_DATA = "synthetic:m=6040,n=3706,nnz=900000"
+#: phase 41: the variance probe's counts (A, B groups x size, C), cut
+VARIANCE_SMOKE = dict(n_a=6, b_groups=2, n_c=2)
+
+
+def run_measurement_scripts(device, head) -> dict:
+    """Phase 41: the measurement scripts, each path with the
+    launch counts set to 0 just before it and read just after.
+
+    * ``scripts/sweep.py`` at ml1m dims (CCD++ k 5, 10 x T 1, 3 and ALS,
+      2 repeats at a fixed seed, 3 iterations): every repeat bit-equal,
+      K4, the masked sweeps and K5 launched;
+    * one flagship row (``sweep_netflix_hybrid.run_repeat``: k = 40,
+      6.5e9 cells, the hand stair, T = 1, one repeat) on phase 4's cached
+      data: its group-difference s/iter within BENCH_S_ITER_TOL of phase
+      4's, its RMSE within the script's RMSE_TOL of the JAX record's row;
+    * ``headline_variance.probe`` at VARIANCE_SMOKE's counts on that row's
+      plan and state;
+    * ``bench_als`` part 2 ("high", "default" on the ml1m fixture against
+      the NumPy golden; its ``golden_misses``);
+    * ``scaling_model`` anchored to phase 4's s/iter (N = 1 equal to it)."""
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.ops import launches as lc
+    from cuda_recommender_tpu_torch.scripts import bench_als, sweep
+    from cuda_recommender_tpu_torch.scripts import headline_variance as hv
+    from cuda_recommender_tpu_torch.scripts import scaling_model as sm
+    from cuda_recommender_tpu_torch.scripts import sweep_netflix_hybrid as snh
+
+    paths = {}
+    t0 = time.perf_counter()
+    lc.reset_launch_counts()
+    recs = sweep.run(SWEEP_SMOKE_DATA, None, device=device, **SWEEP_SMOKE)
+    got = lc.launch_counts()
+    _count(got, paths)
+    bad = sweep.repeat_mismatches(recs)
+    if bad or not all(math.isfinite(r["final_rmse"]) for r in recs):
+        raise AssertionError(f"sweep repeats differ or RMSE not finite: "
+                             f"{bad}")
+    for name in ("fused_update_vsweep", "masked_usweep", "masked_vsweep",
+                 "gj_solve"):
+        if not got[name]:
+            raise AssertionError(f"sweep.py: {name} never launched: {got}")
+    print(f"[sweep] {len(recs)} cells at {SWEEP_SMOKE_DATA}, repeats "
+          f"bit-equal; launches { {k: n for k, n in got.items() if n} }; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    row = snh.GRID[snh.HEADLINE_ROW]
+    R, T = synthetic_cached(*snh.DIMS, seed=1, test_fraction=0.02)
+    plan, plan_s = snh.make_plan(R, snh.BUDGETS[row[1]], row[2])
+    rec, st, step = snh.run_repeat(R, T, plan, plan_s, row, device,
+                                   jax=snh.jax_rows())
+    rec["row"] = snh.HEADLINE_ROW
+    del R, T
+    _count(rec["launches"], paths)
+    off = abs(rec["iter_s"] - head["s_iter"]) / head["s_iter"]
+    misses = snh.rmse_misses([rec])
+    print(f"[flagship] row {snh.HEADLINE_ROW}: {rec['iter_s']:.4f} s/iter "
+          f"(pairs {rec['iter_s_pair_samples']}), phase 4's "
+          f"{head['s_iter']:.4f}: {100 * off:.2f}% apart; RMSE "
+          f"{rec['rmse_after_iters']:.6f} (JAX row "
+          f"{rec['rmse_after_iters_jax']}); launches {rec['launches']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if off > BENCH_S_ITER_TOL or misses:
+        raise AssertionError(f"flagship row: {100 * off:.2f}% off phase 4 "
+                             f"(bar {100 * BENCH_S_ITER_TOL:.0f}%); {misses}")
+
+    t0 = time.perf_counter()
+    lc.reset_launch_counts()
+    var = hv.probe(lambda: step(st), device, **VARIANCE_SMOKE)
+    got = lc.launch_counts()
+    _count(got, paths)
+    del st, step
+    torch.cuda.empty_cache()
+    n_it = (VARIANCE_SMOKE["n_a"] + VARIANCE_SMOKE["b_groups"] * hv.B_SIZE
+            + VARIANCE_SMOKE["n_c"])
+    want = want_launches(row[0], n_it, 1, len(plan.panels))
+    if got != want:
+        raise AssertionError(f"variance probe launches {got}, want {want}")
+    print(f"[variance] A {var['per_iter_fenced_samples']}, events "
+          f"{var['per_iter_event_samples']}, B {var['pooled_3x_samples']}, "
+          f"C {var['late_per_iter_fenced_samples']}, idle fence "
+          f"{var['sync_idle_samples']}; spreads {var['spread']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    gold = bench_als.golden_run(dev=device)
+    for prec in bench_als.GOLDEN_PRECISIONS:
+        _count(gold[prec]["launches"], paths)
+    misses = bench_als.golden_misses(gold)
+    print(f"[bench_als] ml1m golden RMSE {gold['golden_rmse']:.6f}; " +
+          "; ".join(f"{prec}: rmse {gold[prec]['rmse']:.6f}, W "
+                    f"{gold[prec]['W'].message()} H "
+                    f"{gold[prec]['H'].message()}"
+                    for prec in bench_als.GOLDEN_PRECISIONS)
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    if misses:
+        raise AssertionError(f"bench_als golden: {misses}")
+
+    lines = [sm.model(n, sm.Terms(s_iter=head["s_iter"]))
+             for n in (1, 2, 4, 8)]
+    if lines[0]["iter_s"] != head["s_iter"]:
+        raise AssertionError(f"scaling model N = 1: {lines[0]}")
+    for line in lines:
+        print("[scaling] " + json.dumps(line), flush=True)
+    return {"launches": paths, "sweep": recs, "flagship": rec,
+            "variance": var, "scaling": lines,
+            "bench_als": {prec: {"rmse": gold[prec]["rmse"],
+                                 "W_err_pct": gold[prec]["W"]
+                                 .error_percentage,
+                                 "H_err_pct": gold[prec]["H"]
+                                 .error_percentage}
+                          for prec in bench_als.GOLDEN_PRECISIONS}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3130,6 +3254,12 @@ def main() -> int:
     traj = run_trajectories_phase()
     for rec in traj.values():
         _count(rec["launches"], paths)
+
+    phase("41 the measurement scripts: the reference grid at ml1m dims, a "
+          "flagship row and the variance probe on phase 4's data, the ALS "
+          "golden at \"high\" and \"default\", the scaling model")
+    meas = run_measurement_scripts(dev, head)
+    _count(meas["launches"], paths)
     phase(None)
     print("[resume] summary " + json.dumps({
         name: {key: rec[key] for key in ("bytes", "save_s", "load_s",
@@ -3161,6 +3291,21 @@ def main() -> int:
               "compiled_train_s": rec["summary"]["compiled_train_s"],
               "launches": rec["launches"]}
         for arm, rec in traj.items()}), flush=True)
+    fl, var = meas["flagship"], meas["variance"]
+    print("[measure] summary " + json.dumps({
+        "sweep_cells": len(meas["sweep"]),
+        "flagship_row": {key: fl[key] for key in (
+            "iter_s", "iter_s_pair_samples", "rmse_after_iters",
+            "rmse_after_iters_jax", "panels", "nnz_light_frac")},
+        "headline_s_iter": head["s_iter"],
+        "variance": {key: var[key] for key in (
+            "per_iter_fenced_median_s", "per_iter_event_median_s",
+            "pooled_median_s", "late_median_s", "sync_idle_median_s",
+            "spread")},
+        "bench_als": meas["bench_als"],
+        "scaling": [{key: x[key] for key in (
+            "n_devices", "iter_s", "efficiency_vs_1_device")}
+            for x in meas["scaling"]], "card": smi}), flush=True)
     print("[phase] summary " + json.dumps({
         "headline_split": phased["split"], "fused_s_iter": head["s_iter"],
         "update_busy_ms": phased["update"]["busy_ms"],

@@ -6,6 +6,8 @@ and each wrapper adds one to its count per collective it issues, as
 just before a run and ``collective_counts()`` just after show that the run
 took the sharded step (the smoke asserts 2·k·T all-reduces per hybrid
 outer iteration, at any world size, world size 1 included).
+``collective_bytes()`` tallies the bytes the rank passed to each kind
+(``scripts/scaling_model.py`` reckons the hybrid's).
 
 The JAX package's collectives map as ``psum`` -> ``all_reduce``,
 ``all_gather(tiled=True)`` -> ``all_gather_rows`` (the ranks' blocks
@@ -24,15 +26,27 @@ import torch.distributed as dist
 
 #: collectives issued per wrapper since the last ``reset_collective_counts()``
 COUNTS = {"all_reduce": 0, "all_gather": 0, "gather": 0}
+#: bytes of the tensors this rank passed to each kind since the reset
+BYTES = {"all_reduce": 0, "all_gather": 0, "gather": 0}
+
+
+def _tally(name: str, x: torch.Tensor) -> None:
+    COUNTS[name] += 1
+    BYTES[name] += x.numel() * x.element_size()
 
 
 def reset_collective_counts() -> None:
     for name in COUNTS:
         COUNTS[name] = 0
+        BYTES[name] = 0
 
 
 def collective_counts() -> dict:
     return dict(COUNTS)
+
+
+def collective_bytes() -> dict:
+    return dict(BYTES)
 
 
 def all_reduce_pair(g: torch.Tensor, h: torch.Tensor, group=None):
@@ -40,7 +54,7 @@ def all_reduce_pair(g: torch.Tensor, h: torch.Tensor, group=None):
     (one collective per half-sweep, as the JAX package's one ``psum`` of
     the pair)."""
     buf = torch.cat([g, h])
-    COUNTS["all_reduce"] += 1
+    _tally("all_reduce", buf)
     dist.all_reduce(buf, group=group)
     return buf[:g.shape[0]], buf[g.shape[0]:]
 
@@ -50,7 +64,7 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     group-rank order, on every rank."""
     x = x.contiguous()
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
-    COUNTS["all_gather"] += 1
+    _tally("all_gather", x)
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     gather(out, x, group=group)
@@ -66,7 +80,7 @@ def gather_rows(x: torch.Tensor, group=None) -> Optional[list]:
     mine = dist.get_rank(group) == 0
     bufs = [torch.empty_like(x) for _ in range(dist.get_world_size(group))] \
         if mine else None
-    COUNTS["gather"] += 1
+    _tally("gather", x)
     dist.gather(x, bufs, dst=root, group=group)
     return [b.cpu().numpy() for b in bufs] if mine else None
 

@@ -20,8 +20,8 @@ its mesh (``"mesh": N`` or ``[a, b]``) and its kind:
   sharded hybrid step ``cfg.maxiter`` times.
 
 Rank 0 writes ``out/<name>.npz`` (factors, per-iteration RMSE and times,
-the collective counts); every rank writes its factors to
-``out/<name>.rank<r>.npz`` where they are the result.
+the collective counts and the bytes it passed to them); every rank writes
+its factors to ``out/<name>.rank<r>.npz`` where they are the result.
 """
 
 from __future__ import annotations
@@ -140,6 +140,8 @@ def main(argv=None) -> int:
         for case in cases:
             res = run_case(case, args.device)
             res["collectives"] = json.dumps(collectives.collective_counts())
+            res["collective_bytes"] = json.dumps(
+                collectives.collective_bytes())
             if rank == 0:
                 np.savez(os.path.join(args.out, case["name"] + ".npz"),
                          **res)

@@ -19,7 +19,21 @@ solvers and the JAX package's records.
     and bf16 residuals) against the NumPy golden solver, 3 iterations;
   * ``yahoo_robustness`` — the hybrid (both stair orientations) and ALS at
     the reference sweep's Yahoo r1 and c15 geometries: s/iter, share of
-    the card's bound, the profiled split, RMSE beside the JAX records.
+    the card's bound, the profiled split, RMSE beside the JAX records;
+  * ``sweep`` — the reference's times.sh grid (CCD++ k x T, ALS k, 3
+    repeats) through ``cli/bench.py``, each cell against the JAX
+    package's ``r2`` records;
+  * ``sweep_netflix_hybrid`` — the flagship sweep: the hybrid at
+    Netflix-100M dims over k x panel budget x stair (hand against auto,
+    in turns), group-difference timing, RMSE beside the JAX records;
+  * ``headline_variance`` — the headline's s/iter spread within one
+    process (fenced, pooled, late samples; CUDA events) and across fresh
+    processes;
+  * ``scaling_model`` — the sharded hybrid's s/iter on N cards, modelled
+    from one card's s/iter, its profile's split and the all-reduces'
+    bytes and host cost;
+  * ``bench_als`` — the ALS step at ml20M dims by gram precision, and the
+    ml1m golden check of "high" and "default".
 
 Each runs as ``python -m cuda_recommender_tpu_torch.scripts.<name>``, on
 the card unless ``--device cpu`` is given; ``common`` holds what they and

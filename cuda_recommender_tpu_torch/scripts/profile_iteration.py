@@ -140,20 +140,26 @@ def profiler(device):
 
 def profile_split(step, device, warm: int = 2) -> dict:
     """``step`` ``warm`` times untraced, then once under torch.profiler:
-    ``trace_split`` of that trace."""
+    ``trace_split`` of that trace, and ``untraced_s``, the host seconds of
+    each untraced call up to ``torch.cuda.synchronize()`` (the first pays
+    the kernels' first launches)."""
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for _ in range(warm):
-        step()
     sync()
+    untraced = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        untraced.append(time.perf_counter() - t0)
     with profiler(device) as prof:
         t0 = time.perf_counter()
         step()
         sync()
         wall = time.perf_counter() - t0
-    return trace_split(prof, wall)
+    return dict(trace_split(prof, wall), untraced_s=untraced)
 
 
 def trace_split(prof, wall: float) -> dict:
