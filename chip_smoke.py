@@ -97,7 +97,17 @@ paths:
   flagship row on the headline's data (K1, K2; its group-difference s/iter
   beside the headline's, its RMSE beside the JAX record's), the variance
   probe on that row's state, the ALS golden at "high" and "default" (K5)
-  and the scaling model anchored to the headline's s/iter.
+  and the scaling model anchored to the headline's s/iter;
+* the fp8 residual and the rank-deferred ELL tail: every fp8 instance of
+  K1-K4 and the masked sweeps (K1 and K4 stored once and delta-first) x
+  NaN / bf16 / int8 masks against its plain version at phase 3's shapes
+  and alignments and the headline's panel 0 (stored bytes bit-equal, a
+  planted sum past 464 stored NaN, repeats bit-identical) and timed; the
+  headline at fp8 (int8 masks; NaN panels with the panel kernels) beside
+  the bf16 run; the quick start, the pallas backend and the no-kernel NaN
+  hybrid at fp8; the headline's stair with ``hybrid_defer_group=8``
+  against G = 0 (W, H within rtol 1e-3, atol 1e-4 at an f32 residual) and
+  at bf16 beside the headline run (its RMSE).
 
 Each phase prints its wall seconds. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -173,6 +183,42 @@ BENCH_AB = (["--panel-widths", "auto"], ["--transpose", "auto"],
 BENCH_S_ITER_TOL = 0.03
 #: no control may read above this share of the card's peak rate
 CONTROL_MAX_SHARE = 1.05
+
+FP8 = torch.float8_e4m3fn
+#: the fp8 instances of K1-K4 and the masked sweeps, each under its own
+#: launch-count name (ops/panel_kernels.py::instance_name) -> what it
+#: replaces: the Pallas call, or for the delta-first instances the XLA
+#: update whose rounding order they store in
+FP8_KERNELS = {
+    "panel_update_vsweep_fp8": KERNELS["panel_update_vsweep"],
+    "panel_update_vsweep_fp8_delta_first":
+        "cuda_recommender_tpu/solvers/ccd_hybrid.py:621",
+    "panel_vsweep_fp8": KERNELS["panel_vsweep"],
+    "panel_usweep_fp8": KERNELS["panel_usweep"],
+    "fused_update_vsweep_fp8": MASKED_KERNELS["fused_update_vsweep"],
+    "fused_update_vsweep_fp8_delta_first":
+        "cuda_recommender_tpu/solvers/ccd_dense.py:96",
+    "masked_vsweep_fp8": MASKED_KERNELS["masked_vsweep"],
+    "masked_usweep_fp8": MASKED_KERNELS["masked_usweep"]}
+ORDERS = ("once", "delta_first")
+#: phase 42: the K1-K3 panel 0 check (the headline's, at fp8)
+FP8_PANEL0 = (330_128, 17_770)
+#: phases 43-44: each iteration's fp8 RMSE within this of the bf16 (f32)
+#: run's at the same iteration (the JAX package's fp8 bar against the
+#: golden run, tests/test_hybrid.py:221-237)
+FP8_RMSE_GAP = 0.05
+#: phase 43: the fp8 hybrid runs' iterations; phase 44's runs'
+FP8_ITERS = 2
+#: phase 45: the rank-deferral group and its bars against the G = 0 run
+#: (the JAX package's tests/test_hybrid.py:345-365: rtol, atol on W and H;
+#: the RMSE an iteration)
+DEFER_G = 8
+DEFER_TOL = dict(rtol=1e-3, atol=1e-4)
+DEFER_RMSE_TOL = 1e-4
+#: phase 45 at the bf16 headline: the largest share of W's and of H's
+#: entries that may lie beyond DEFER_TOL of phase 4's (measured 3.5e-5 of
+#: W's, none of H's; a wrong flush or sign moves most of them)
+DEFER_BEYOND_MAX = 1e-3
 
 #: the H100 SXM data sheet's peaks (700 W): HBM bytes/s and f32 FLOP/s
 #: outside the tensor cores; a kernel's bound is the larger of its bytes
@@ -264,7 +310,8 @@ def random_panel(M, W, dtype, device, seed):
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
-    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    return x.view({torch.bfloat16: torch.int16, FP8: torch.uint8}.get(
+        x.dtype, torch.int32))
 
 
 def _sync(device) -> None:
@@ -874,7 +921,8 @@ def check_masked_kernels(device, shapes, worst=None,
 #: the guard cells' bits: a NaN with a payload that no arithmetic on the
 #: card leaves in place (its NaNs are 0x7FFFFFFF), so a stray store of a
 #: guard cell shows even where it writes back what it read
-GUARD_BITS = {torch.bfloat16: 0x7F81, torch.float32: 0x7F800001}
+GUARD_BITS = {torch.bfloat16: 0x7F81, torch.float32: 0x7F800001,
+              FP8: 0xFF}
 
 
 def _guarded_view(X: torch.Tensor, offset: int):
@@ -1096,10 +1144,11 @@ def run_dense_headline(device, *, m, n, nnz, k, lam, iters,
         if got != want:
             raise AssertionError(f"dense -T {inner}: launches {got}, want "
                                  f"{want}")
+    ref = dict(W=res.ref_W, H=res.ref_H, rmse=rmse_ref, iters=iters)
     del res, res2
     torch.cuda.empty_cache()
     return dict(s_iter=s_iter, rate=rate, peak=peak, launches=total,
-                rmse=rmse, bound_ms=b_ms)
+                rmse=rmse, bound_ms=b_ms, ref=ref)
 
 
 def profile_dense_iteration(device, *, m, n, nnz, k, lam) -> dict:
@@ -2287,32 +2336,66 @@ def run_phase_cli() -> dict:
     return dict(launches=launches)
 
 
-def run_ell(device) -> dict:
-    """Phase 32: the CLI on the pure-ELL backend with the golden check
-    (_check_golden) and --save-model; then in this process 2 iterations
-    with a checkpoint, resumed to 3: W and H bit-equal to the CLI's saved
-    model."""
+def _golden_against(what, W, H, ref) -> list:
+    """The trainer's golden check (core/trainer.py) of (W, H) against the
+    factors of a golden run on the same data, init and settings (``ref``,
+    phase 12's): each PASS! the strict per-entry 10% bar, or PASS with atol
+    1e-3 with every strict miss a rounding miss (_check_misses); the RMSE
+    within 1e-3 of the golden run's is the caller's. Returns the two strict
+    verdicts, as _check_golden."""
+    from cuda_recommender_tpu_torch.core.trainer import GOLDEN_ATOL
+    from cuda_recommender_tpu_torch.eval.metrics import (golden_compare,
+                                                         strict_misses)
+
+    pairs = ((W, ref["W"]), (H, ref["H"]))
+    strict = [golden_compare(A, B) for A, B in pairs]
+    checks = [g.message().removeprefix("Check... ") for g in strict]
+    if all(g.passed for g in strict):
+        return checks
+    near = [golden_compare(A, B, atol=GOLDEN_ATOL).passed for A, B in pairs]
+    if not all(near):
+        raise AssertionError(f"{what} golden check of W and H: {checks}, "
+                             f"with atol {GOLDEN_ATOL}: {near}")
+    _check_misses(what, [strict_misses(A, B) for A, B in pairs])
+    return checks + ["with atol 1e-3 PASS, PASS"]
+
+
+def run_ell(device, ref) -> dict:
+    """Phase 32: the CLI on the pure-ELL backend with --save-model, its
+    model held to phase 12's golden run on the same data and settings
+    (``ref``: _golden_against, and the RMSE within 1e-3 an iteration; the
+    CLI's --golden would run that reference again); then in this process
+    2 iterations with a checkpoint, resumed to 3: W and H bit-equal to the
+    CLI's saved model."""
     from cuda_recommender_tpu_torch import Config, train
     from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
     from cuda_recommender_tpu_torch.data.binfmt import load_model
     from cuda_recommender_tpu_torch.data.datasets import synthetic_from_spec
 
     iters, split = ELL_ITERS
+    if ref["iters"] != iters:
+        raise AssertionError(f"phase 12's golden run has {ref['iters']} "
+                             f"iterations, phase 32 runs {iters}")
     kw = dict(k=DENSE_HEADLINE["k"], lambda_=DENSE_HEADLINE["lam"],
               backend="ell")
     with tempfile.TemporaryDirectory() as tmp:
         model = os.path.join(tmp, "model")
         out = _cli(["--dataset", ML10M_SPEC, "-k", str(kw["k"]), "-t",
                     str(iters), "-l", str(kw["lambda_"]), "--backend", "ell",
-                    "--golden", "--save-model", model])
+                    "--save-model", model])
         if not re.search(r"^\[info\] Backend = ell \|", out, re.M):
             raise AssertionError("the CLI did not run the ell backend")
-        checks = _check_golden("pure-ELL CLI", out)
+        rmse_cli = [float(x) for x in re.findall(
+            r"^\[-INFO-\] iteration num \d+ \trank_time .*RMSE=([0-9.]+)",
+            out, re.M)]
+        _close_rmse("pure-ELL CLI against phase 12's golden run", rmse_cli,
+                    ref["rmse"], 1e-3)
+        W_cli, H_cli = load_model(model, entity_major=False)
+        checks = _golden_against("pure-ELL CLI", W_cli, H_cli, ref)
         rank_s = [float(x) for x in re.findall(
             r"^\[-INFO-\] iteration num \d+ \trank_time ([0-9.]+)\|", out,
             re.M)][:iters]
         s_iter = sum(rank_s[1:]) / len(rank_s[1:])
-        W_cli, H_cli = load_model(model, entity_major=False)
         R, T = synthetic_from_spec(ML10M_SPEC)
         ck = os.path.join(tmp, "ck")
         log = MetricsLog(None)
@@ -2934,6 +3017,388 @@ def run_measurement_scripts(device, head) -> dict:
                           for prec in bench_als.GOLDEN_PRECISIONS}}
 
 
+def _fp8_abs(X: torch.Tensor) -> torch.Tensor:
+    """|X| of an fp8 tensor (its sign bit cleared: exact, NaN stays NaN),
+    one byte a cell."""
+    return (X.view(torch.uint8) & 0x7F).view(FP8)
+
+
+def _fp8_panel(M, W, device, seed, mask_dtype=None):
+    """random_panel (NaN sentinel) or, with ``mask_dtype``, random_masked
+    at bf16, rounded to fp8 (round_to_storage, in row blocks)."""
+    from cuda_recommender_tpu_torch.scripts.sweep_timing import as_residual
+
+    if mask_dtype is None:
+        R, vecs = random_panel(M, W, torch.bfloat16, device, seed)
+        return as_residual(R, FP8), None, vecs
+    R, Mk, vecs = random_masked(M, W, torch.bfloat16, mask_dtype, device,
+                                seed)
+    return as_residual(R, FP8), Mk, vecs
+
+
+def _fp8_cases(R, Mk, vecs) -> list:
+    """(instance name, kernel, plain version, sum(|terms|) of g, panel) of
+    every fp8 instance on one panel: K1 (both orders), K3, K2 on a NaN
+    panel (``Mk`` None), else K4 (both orders), masked_vsweep,
+    masked_usweep beside the mask."""
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    a, b, c, d = vecs
+    cases = []
+    if Mk is None:
+        for order in ORDERS:
+            cases.append((
+                pk.instance_name("panel_update_vsweep", FP8, order),
+                lambda X, o=order: pk.panel_update_vsweep(X, a, b, c, d,
+                                                          order=o),
+                lambda X, o=order: pk.panel_update_vsweep_plain(
+                    X, a, b, c, d, order=o),
+                lambda X: pk.panel_vsweep_plain(_fp8_abs(X), a.abs())[0], R))
+        return cases + [
+            ("panel_vsweep_fp8", lambda X: pk.panel_vsweep(X, b),
+             lambda X: pk.panel_vsweep_plain(X, b),
+             lambda X: pk.panel_vsweep_plain(_fp8_abs(X), b.abs())[0], R),
+            ("panel_usweep_fp8", lambda X: pk.panel_usweep(X, c),
+             lambda X: pk.panel_usweep_plain(X, c),
+             lambda X: pk.panel_usweep_plain(_fp8_abs(X), c.abs())[0], R)]
+    for order in ORDERS:
+        cases.append((
+            pk.instance_name("fused_update_vsweep", FP8, order),
+            lambda X, o=order: ck.fused_update_vsweep(X, Mk, a, b, c, d,
+                                                      order=o),
+            lambda X, o=order: ck.fused_update_vsweep_plain(
+                X, Mk, a, b, c, d, order=o),
+            lambda X: ck.masked_vsweep_plain(_fp8_abs(X), Mk, a.abs())[0],
+            R))
+    return cases + [
+        ("masked_vsweep_fp8", lambda X: ck.masked_vsweep(X, Mk, b),
+         lambda X: ck.masked_vsweep_plain(X, Mk, b),
+         lambda X: ck.masked_vsweep_plain(_fp8_abs(X), Mk, b.abs())[0], R),
+        ("masked_usweep_fp8", lambda X: ck.masked_usweep(X, Mk, c),
+         lambda X: ck.masked_usweep_plain(X, Mk, c),
+         lambda X: ck.masked_usweep_plain(_fp8_abs(X), Mk, c.abs())[0], R)]
+
+
+def check_fp8_overflow(device) -> None:
+    """A planted update whose sum passes 464 must store NaN, as JAX's
+    astype does (PyTorch's cast would saturate at 448): K1 and K4 in both
+    orders, bf16 and int8 masks, against their plain versions. Row 0's
+    first cells hold 1.0 and take a delta of 448, 463, 465 and 800
+    (stored 448, 448, NaN, NaN in either order: 464 ties to 448)."""
+    from cuda_recommender_tpu_torch.ops.densify import FP8_NAN_BITS
+
+    planted = torch.tensor([448.0, 463.0, 465.0, 800.0], device=device)
+    for mdt in (None, torch.bfloat16, torch.int8):
+        R, Mk, (uo, up, vo, vp) = _fp8_panel(50, 70, device, 5, mdt)
+        n = planted.numel()
+        _bits(R)[0, :n] = 0x38                      # 1.0
+        if Mk is not None:
+            Mk[0, :n] = 1
+        uo[0], up[0] = 32.0, 0.0
+        vo[:n] = planted / 32.0
+        for name, kern, plain, _, X in _fp8_cases(R, Mk,
+                                                  (uo, up, vo, vp))[:2]:
+            Rk, Rp = X.clone(), X.clone()
+            kern(Rk)
+            plain(Rp)
+            _sync(device)
+            got = _bits(Rk)[0, :n].tolist()
+            if not torch.equal(_bits(Rk), _bits(Rp)) or \
+                    got[:2] != [0x7E, 0x7E] or \
+                    [x & 0x7F for x in got[2:]] != [FP8_NAN_BITS] * 2:
+                raise AssertionError(f"{name} {mdt}: planted sums stored "
+                                     f"{[hex(x) for x in got]} (want 448, "
+                                     "448, NaN, NaN), kernel and plain "
+                                     "equal: "
+                                     f"{torch.equal(_bits(Rk), _bits(Rp))}")
+    print("[check] fp8 overflow: 1 + 448, 463 store 448; 1 + 465, 800 "
+          "store NaN (K1, K4 in both orders, NaN / bf16 / int8 masks), "
+          "bit-equal to the plain versions", flush=True)
+
+
+def check_fp8(device) -> dict:
+    """Phase 42: every fp8 instance (K1 and K4 in both store orders, K3,
+    K2, the masked sweeps) x NaN / bf16 / int8 masks against its plain
+    version (_hold: stored residual bit-equal, g and h within RTOL of
+    sum(|terms|), repeat runs bit-identical): at phase 3's shapes and row
+    alignments (each small panel also as a view one element into a
+    guarded buffer), and K1-K3 at the headline's panel 0; then the
+    planted overflow (check_fp8_overflow). Returns each instance's
+    largest |g, h error|."""
+    t0 = time.perf_counter()
+    worst, ratios = {name: 0.0 for name in FP8_KERNELS}, []
+    shapes = (list(CHECK_SHAPES) + [(ALIGN_ROWS, w) for w in ALIGN_WIDTHS]
+              + list(ALIGN_EXTRA))
+    runs = [(M, W, mdt) for M, W in shapes
+            for mdt in (None, torch.bfloat16, torch.int8)]
+    runs.append((*FP8_PANEL0, None))
+    for M, W, mdt in runs:
+        R, Mk, vecs = _fp8_panel(M, W, device, M * W + 2, mdt)
+        offsets = (None,) if M * W > 1 << 24 else (None, VIEW_OFFSET)
+        for name, kern, plain, scale, X in _fp8_cases(R, Mk, vecs):
+            for offset in offsets:
+                what = (f"{name} {M}x{W} "
+                        f"{'NaN' if mdt is None else str(mdt)[6:]}"
+                        + (f" view +{offset}" if offset else ""))
+                worst[name] = max(worst[name], _hold(
+                    what, kern, plain, scale, X, offset, ratios))
+        del R, Mk, vecs
+        if M * W > 1 << 24:
+            torch.cuda.empty_cache()
+            print(f"[check] fp8 {M}x{W} {mdt}: bit-equal, repeatable "
+                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    check_fp8_overflow(device)
+    print(f"[check] fp8: {len(runs)} panels (phase 3's shapes and "
+          f"alignments x NaN / bf16 / int8 masks, panel 0 {FP8_PANEL0}) x "
+          f"every instance, views {VIEW_OFFSET} element into guarded "
+          f"buffers: residual bit-equal, guard cells untouched, repeatable;"
+          f" largest error / sum|terms| {max(ratios):.2e} (bar {RTOL}); "
+          f"max|dg|,|dh| { {k: float(f'{v:.3e}') for k, v in worst.items()} }"
+          f" [{time.perf_counter() - t0:.1f} s]", flush=True)
+    return worst
+
+
+def time_fp8() -> dict:
+    """Phase 42's timing, the only timing of the fp8 instances
+    (scripts/sweep_timing.py::nan_sweeps and masked_sweeps at fp8: the
+    calls, their bytes and flops): K1-K3 at panel 0, K4 and the masked
+    sweeps at the ml10M shape beside a bf16 and an int8 mask. Returns {mask: name -> (ms, plain_ms, bound_ms,
+    bound_by)}, mask "nan" for K1-K3."""
+    from cuda_recommender_tpu_torch.scripts import sweep_timing as st
+
+    dev = torch.device("cuda")
+    out = {}
+    calls = st.nan_sweeps(*FP8_PANEL0, dev, seed=7, dtype=FP8)
+    out["nan"] = _sweep_times(calls, f"{FP8_PANEL0[0]}x{FP8_PANEL0[1]} fp8",
+                              5)
+    del calls
+    torch.cuda.empty_cache()
+    M, W = st.MASKED_SHAPE
+    for mdt in (torch.bfloat16, torch.int8):
+        calls = st.masked_sweeps(M, W, FP8, mdt, dev, seed=7)
+        out[str(mdt)[6:]] = _sweep_times(
+            calls, f"{M}x{W} fp8, {str(mdt)[6:]} mask", 5)
+        del calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fp8_want(names, per) -> dict:
+    """Launch counts of a run that launches each of ``names`` ``per`` (a
+    count each) times and nothing else."""
+    from cuda_recommender_tpu_torch.ops.launches import launch_counts
+    want = {name: 0 for name in launch_counts()}
+    want.update(zip(names, per))
+    return want
+
+
+def _fp8_run(what, device, R, T, cfg, want_fn, ref_rmse) -> dict:
+    """train() ``cfg`` on (R, T) with the launch counts set to 0 just
+    before and read just after (``want_fn(P)`` the counts for P panels, P
+    = 1 without a plan); the RMSE finite, falling after iteration 1 and
+    (unless ``ref_rmse`` is None) within FP8_RMSE_GAP of ``ref_rmse`` an
+    iteration. Returns the launches, s/iter, peak device memory, RMSE,
+    plan and factors."""
+    from cuda_recommender_tpu_torch import train
+    from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mf = os.path.join(tmp, "m.jsonl")
+        log = MetricsLog(mf)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lc.reset_launch_counts()
+        try:
+            res = train(cfg, R, T, device=device, log=log)
+        finally:
+            log.close()
+        launches = lc.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        plans = _events(mf, "hybrid_plan")
+    rmse = [st.rmse for st in res.stats]
+    s_iter = _steady(res.stats)
+    P = len(plans[0]["panels"]) if plans else 1
+    print(f"[{what}] {res.backend}: RMSE {rmse} (reference {ref_rmse}); "
+          f"s/iter {[st.rank_time for st in res.stats]}, steady "
+          f"{s_iter:.4f}; peak device memory {peak / 2**30:.2f} GiB; "
+          f"{P} panel(s); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    _check_rmse(what, rmse, cfg.maxiter)
+    gap = max(abs(a - b) for a, b in zip(rmse, ref_rmse or rmse))
+    if gap > FP8_RMSE_GAP:
+        raise AssertionError(f"{what}: RMSE {rmse} off {ref_rmse} by {gap}")
+    want = want_fn(P)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    out = dict(launches=launches, s_iter=s_iter, peak=peak, rmse=rmse,
+               plan=plans[0] if plans else None, W=res.W, H=res.H)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fp8_hybrid(device, data, head) -> dict:
+    """Phase 43: the headline (Netflix-100M dims, k = 40, hand stair under
+    6.5e9 cells) at an fp8 residual, FP8_ITERS iterations through train(),
+    twice: int8 masks (K4 and masked_usweep, delta-first as the JAX einsum
+    path stores) and NaN panels with the panel kernels (K1 once, K2). Each
+    beside phase 4's bf16 run."""
+    from cuda_recommender_tpu_torch import Config
+
+    R, T = data
+    h = HEADLINE
+    base = dict(k=h["k"], lambda_=h["lam"], maxiter=FP8_ITERS,
+                backend="hybrid", residual_dtype="float8_e4m3fn",
+                hybrid_dense_cells=h["budget"],
+                hybrid_panel_widths=h["widths"])
+    per = h["k"] * FP8_ITERS
+    runs = {
+        "int8": _fp8_run(
+            "fp8 hybrid int8 masks", device, R, T,
+            Config(mask_dtype="int8", **base),
+            lambda P: _fp8_want(("fused_update_vsweep_fp8_delta_first",
+                                 "masked_usweep_fp8"), (per * P,) * 2),
+            head["rmse"][:FP8_ITERS]),
+        "nan_kernel": _fp8_run(
+            "fp8 hybrid NaN panels", device, R, T,
+            Config(mask_dtype="nan", hybrid_panel_kernel=True, **base),
+            lambda P: _fp8_want(("panel_update_vsweep_fp8",
+                                 "panel_usweep_fp8"), (per * P,) * 2),
+            head["rmse"][:FP8_ITERS])}
+    for rec in runs.values():
+        rec.pop("W")
+        rec.pop("H")
+    print("[fp8] headline " + json.dumps({
+        "bf16_nan_kernel": {"s_iter": head["s_iter"], "peak": head["peak"],
+                            "rmse": head["rmse"][:FP8_ITERS]},
+        **{f"fp8_{key}": {k: rec[k] for k in ("s_iter", "peak", "rmse")}
+           for key, rec in runs.items()}}), flush=True)
+    return runs
+
+
+def run_fp8_dense(device, dense) -> dict:
+    """Phase 44: the JAX README's quick start (ml10M dims, k = 10; AUTO ->
+    dense, bf16 mask) at an fp8 residual (K4 delta-first, masked_usweep),
+    the pallas backend at fp8 and -T 2 (K4 once, masked_vsweep,
+    masked_usweep), and the NaN-panel hybrid without the panel kernel at
+    fp8, -T 2 (K1 delta-first, K3, K2; phase 29's stair under 3e8 cells),
+    FP8_ITERS iterations each, on phase 12's cached data: the quick start's
+    RMSE within FP8_RMSE_GAP of phase 12's f32 run's, the two -T 2 runs'
+    of each other's."""
+    from cuda_recommender_tpu_torch import Config
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+
+    d = DENSE_HEADLINE
+    R, T = synthetic_cached(d["m"], d["n"], d["nnz"], seed=1)
+    ref = dense["rmse"][:FP8_ITERS]
+    k, it = d["k"], FP8_ITERS
+    fp8 = dict(k=k, lambda_=d["lam"], maxiter=it,
+               residual_dtype="float8_e4m3fn")
+    runs = {
+        "dense": _fp8_run(
+            "fp8 dense quick start", device, R, T, Config(**fp8),
+            lambda P: _fp8_want(("fused_update_vsweep_fp8_delta_first",
+                                 "masked_usweep_fp8"), (k * it,) * 2), ref),
+        "pallas": _fp8_run(
+            "fp8 pallas -T 2", device, R, T,
+            Config(backend="pallas", maxinneriter=2, **fp8),
+            lambda P: _fp8_want(("fused_update_vsweep_fp8",
+                                 "masked_vsweep_fp8", "masked_usweep_fp8"),
+                                (k * it, k * it, 2 * k * it)), None),
+        "hybrid_nan": _fp8_run(
+            "fp8 NaN-panel hybrid -T 2", device, R, T,
+            Config(backend="hybrid", mask_dtype="nan", maxinneriter=2,
+                   hybrid_dense_cells=RESUME_HYBRID["hybrid_dense_cells"],
+                   hybrid_panel_widths=HEADLINE["widths"], **fp8),
+            lambda P: _fp8_want(("panel_update_vsweep_fp8_delta_first",
+                                 "panel_vsweep_fp8", "panel_usweep_fp8"),
+                                (k * it * P, k * it * P, 2 * k * it * P)),
+            None)}
+    a, b = runs["pallas"]["rmse"], runs["hybrid_nan"]["rmse"]
+    if max(abs(x - y) for x, y in zip(a, b)) > FP8_RMSE_GAP:
+        raise AssertionError(f"fp8 -T 2: pallas RMSE {a}, NaN-panel hybrid "
+                             f"{b}")
+    for rec in runs.values():
+        rec.pop("W")
+        rec.pop("H")
+    del R, T
+    return runs
+
+
+def run_defer_group(device, data, head) -> dict:
+    """Phase 45: the headline's stair and dims (NaN panels, K1, K2) with
+    the rank-deferred ELL tail (hybrid_defer_group = DEFER_G, plain torch).
+    At an f32 residual (the JAX package's test of it,
+    tests/test_hybrid.py:345-365, runs f32 panels), FP8_ITERS iterations
+    undeferred and deferred: W and H within DEFER_TOL, the RMSE within
+    DEFER_RMSE_TOL an iteration. At the headline's bf16 residual the two
+    tails' f32 sums, a few ULPs apart, tip some bf16 panel roundings the
+    other way, which the rank recursion carries into the weakly
+    determined factors: that run (HEADLINE's iterations, beside phase 4)
+    holds the RMSE to DEFER_RMSE_TOL and the share of W's and of H's
+    entries beyond DEFER_TOL to DEFER_BEYOND_MAX. K1 and K2 launch as
+    often in every run."""
+    from cuda_recommender_tpu_torch import Config
+
+    R, T = data
+    h = HEADLINE
+    cfg = dict(k=h["k"], lambda_=h["lam"], backend="hybrid",
+               mask_dtype="nan", hybrid_panel_kernel=True,
+               hybrid_dense_cells=h["budget"],
+               hybrid_panel_widths=h["widths"])
+
+    def want(iters):
+        return lambda P: _fp8_want(("panel_update_vsweep", "panel_usweep"),
+                                   (h["k"] * iters * P,) * 2)
+
+    f32 = dict(cfg, residual_dtype="float32", maxiter=FP8_ITERS)
+    ref = head["rmse"][:FP8_ITERS]
+    g0 = _fp8_run("headline f32 G=0", device, R, T, Config(**f32),
+                  want(FP8_ITERS), ref)
+    gd = _fp8_run(f"headline f32 G={DEFER_G}", device, R, T,
+                  Config(hybrid_defer_group=DEFER_G, **f32),
+                  want(FP8_ITERS), ref)
+    for name in "WH":
+        np.testing.assert_allclose(gd[name], g0[name], err_msg=name,
+                                   **DEFER_TOL)
+    off = {name: float(np.abs(gd[name] - g0[name]).max()) for name in "WH"}
+    gap = max(abs(a - b) for a, b in zip(gd["rmse"], g0["rmse"]))
+    if gap > DEFER_RMSE_TOL:
+        raise AssertionError(f"G={DEFER_G}: RMSE {gd['rmse']} against "
+                             f"{g0['rmse']}")
+    print(f"[defer] f32, G={DEFER_G} against G=0: W, H within {DEFER_TOL} "
+          f"(max|diff| {off}), RMSE within {gap:.2e}; s/iter "
+          f"{gd['s_iter']:.4f} against {g0['s_iter']:.4f}", flush=True)
+    bf = _fp8_run(f"headline bf16 G={DEFER_G}", device, R, T,
+                  Config(hybrid_defer_group=DEFER_G, residual_dtype=
+                         "bfloat16", maxiter=h["iters"], **cfg),
+                  want(h["iters"]), head["rmse"])
+    gap_bf = max(abs(a - b) for a, b in zip(bf["rmse"], head["rmse"]))
+    if gap_bf > DEFER_RMSE_TOL:
+        raise AssertionError(f"bf16 G={DEFER_G}: RMSE {bf['rmse']} against "
+                             f"phase 4's {head['rmse']}")
+    beyond = {name: float((~np.isclose(bf[name], head[name], **DEFER_TOL))
+                          .mean()) for name in "WH"}
+    if max(beyond.values()) > DEFER_BEYOND_MAX:
+        raise AssertionError(f"bf16 G={DEFER_G}: shares of W, H entries "
+                             f"beyond {DEFER_TOL} of phase 4's: {beyond} "
+                             f"(bar {DEFER_BEYOND_MAX})")
+    print(f"[defer] bf16, G={DEFER_G} against phase 4: RMSE within "
+          f"{gap_bf:.2e}; W, H entries beyond {DEFER_TOL}: {beyond} (bar "
+          f"{DEFER_BEYOND_MAX}); s/iter "
+          f"{bf['s_iter']:.4f} against {head['s_iter']:.4f}; peak "
+          f"{bf['peak'] / 2**30:.2f} GiB", flush=True)
+    launches = dict(g0["launches"])
+    _count(gd["launches"], launches)
+    _count(bf["launches"], launches)
+    return dict(launches=launches, s_iter=bf["s_iter"], peak=bf["peak"],
+                s_iter_f32=gd["s_iter"], s_iter_f32_g0=g0["s_iter"],
+                max_diff_f32=off, rmse_gap_f32=gap, rmse_gap_bf16=gap_bf,
+                beyond_bf16=beyond)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -2990,6 +3455,7 @@ def main() -> int:
         head = run_headline(dev, metrics_file=os.path.join(
             tmp, "headline.jsonl"), **HEADLINE)
 
+    netflix = head["data"]           # phases 43 and 45 train on it again
     phase("5 kernel checks at the headline's panel shapes and the "
           "transposed stair's panel 0 (odd width)")
     torch.cuda.empty_cache()
@@ -3203,9 +3669,10 @@ def main() -> int:
     phase_cli = run_phase_cli()
     _count(phase_cli["launches"], paths)
 
-    phase("32 pure ELL through the CLI (--backend ell --golden, ml10M dims, "
-          "k=10), then 2 + 1 iterations resumed, bit-equal")
-    ell = run_ell(dev)
+    phase("32 pure ELL through the CLI (--backend ell, ml10M dims, k=10) "
+          "against phase 12's golden run, then 2 + 1 iterations resumed, "
+          "bit-equal")
+    ell = run_ell(dev, dense.pop("ref"))
 
     from cuda_recommender_tpu_torch.parallel import multihost
     phase("33 the sharded hybrid at the headline over one rank (NCCL, "
@@ -3260,6 +3727,34 @@ def main() -> int:
           "golden at \"high\" and \"default\", the scaling model")
     meas = run_measurement_scripts(dev, head)
     _count(meas["launches"], paths)
+
+    phase("42 the fp8 instances of K1-K4 and the masked sweeps (NaN, bf16 "
+          "and int8 masks; once and delta-first) against their plain "
+          "versions, a planted overflow, and their times")
+    fp8_worst = check_fp8(dev)
+    fp8_times = time_fp8()
+    print(f"[timing] card: {smi}", flush=True)
+
+    phase("43 the fp8 hybrid at the headline (train(), 2 iterations): int8 "
+          "masks (K4 delta-first), NaN panels with the panel kernels (K1 "
+          "once)")
+    fp8_hyb = run_fp8_hybrid(dev, netflix, head)
+    for rec in fp8_hyb.values():
+        _count(rec["launches"], paths)
+
+    phase("44 fp8 on the dense quick start (K4 delta-first), the pallas "
+          "backend (K4 once, -T 2) and the NaN-panel hybrid without the "
+          "panel kernel (K1 delta-first, K3, -T 2), ml10M dims")
+    fp8_dense = run_fp8_dense(dev, dense)
+    for rec in fp8_dense.values():
+        _count(rec["launches"], paths)
+
+    phase(f"45 the headline with hybrid_defer_group={DEFER_G}: against G=0 "
+          "at an f32 residual (2 iterations each), and at bf16 beside phase "
+          "4")
+    defer = run_defer_group(dev, netflix, head)
+    _count(defer["launches"], paths)
+    del netflix
     phase(None)
     print("[resume] summary " + json.dumps({
         name: {key: rec[key] for key in ("bytes", "save_s", "load_s",
@@ -3312,6 +3807,22 @@ def main() -> int:
         "update_rmw_bound_ms": phased["update"]["rmw_bound_ms"],
         "ell_s_iter": ell["s_iter"], "card": smi}), flush=True)
 
+    print("[fp8] summary " + json.dumps({
+        "headline_bf16": {"s_iter": head["s_iter"], "peak": head["peak"],
+                          "rmse": head["rmse"]},
+        **{f"headline_fp8_{key}": {k: rec[k] for k in ("s_iter", "peak",
+                                                       "rmse")}
+           for key, rec in fp8_hyb.items()},
+        **{f"ml10m_fp8_{key}": {k: rec[k] for k in ("s_iter", "peak",
+                                                    "rmse")}
+           for key, rec in fp8_dense.items()},
+        "ml10m_f32_dense": {"s_iter": dense["s_iter"], "rmse": dense["rmse"]},
+        f"headline_defer_{DEFER_G}": {k: v for k, v in defer.items()
+                                      if k != "launches"},
+        "kernels_ms": {mask: {name: rec[0] for name, rec in t.items()}
+                       for mask, t in fp8_times.items()},
+        "card": smi}), flush=True)
+
     print(f"\n[done] all phases passed in {time.perf_counter() - t_all:.0f} s",
           flush=True)
     print(smi, flush=True)
@@ -3350,6 +3861,17 @@ def main() -> int:
                      "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")}}
                 for name, (src, replaces) in PROBES.items()]
+    # the fp8 instances: K1-K3 at the headline's panel 0, K4 and the masked
+    # sweeps at the ml10M shape beside the quick start's bf16 mask
+    fp8_rows = dict(fp8_times["nan"], **fp8_times["bfloat16"])
+    kernels += [{"name": name, "route": "cuda",
+                 "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,
+                 "launches": paths.get(name, 0),
+                 "max_abs_err": fp8_worst[name], "ms": fp8_rows[name][0],
+                 "plain_ms": fp8_rows[name][1],
+                 "bound_ms": fp8_rows[name][2],
+                 "bound_by": fp8_rows[name][3], "library_ms": None}
+                for name, replaces in FP8_KERNELS.items()]
     for kern in kernels:
         if kern["launches"] <= 0:
             raise AssertionError(f"{kern['name']} never launched on its "

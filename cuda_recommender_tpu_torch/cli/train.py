@@ -123,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "nccl on cuda, gloo on cpu)")
     p.add_argument("--defer-group", type=int, default=None, metavar="G",
                    dest="defer_group",
-                   help="hybrid ELL-tail rank-deferral group (0 disables; "
-                        "not in the port: ROADMAP.md 'Not ported')")
+                   help="hybrid ELL-tail rank-deferral group G: the "
+                        "tail's residual is updated once every G ranks "
+                        "(0 disables; single-device only)")
     p.add_argument("--fused-iters", type=int, default=1, dest="fused_iters",
                    help="outer iterations enqueued before the loop waits "
                         "for their RMSE readbacks")

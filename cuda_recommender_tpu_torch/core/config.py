@@ -8,11 +8,11 @@ src/extras.cpp:68-141).
 
 The port runs every knob of a run on one device or a mesh: CCD++ on the
 ``dense``, ``pallas``, ``hybrid`` (explicit bfloat16/int8 masks or
-NaN-sentinel panels, the hand-written kernels) and ``ell`` backends, ALS on
-``ell`` at every ``als_precision``, the NumPy ``ref`` backend, checkpoints
-and phase timing. ``core/trainer.py`` raises ``NotImplementedError`` for
-the rest (the fp8 residual, ``hybrid_defer_group``), naming the ROADMAP.md
-entry that says why.
+NaN-sentinel panels, the hand-written kernels) and ``ell`` backends at an
+f32, bf16 or fp8 residual, the hybrid's rank-deferred tail
+(``hybrid_defer_group``, one device), ALS on ``ell`` at every
+``als_precision``, the NumPy ``ref`` backend, checkpoints and phase
+timing. ``core/trainer.py`` raises only what the JAX package refuses too.
 
 Reference quirks preserved deliberately:
   * ``maxinneriter`` defaults to 1 (the code default at src/pmf.h:31, not the

@@ -17,8 +17,9 @@ on dense, hybrid and ell (solvers/phase_loop.py). With a ``mesh``
 (parallel/mesh.py: one rank a process, ``torch.distributed``) the sharded
 trainers of parallel/ run ALS, ell, hybrid and dense (1-D or 2-D); every
 rank returns the same factors, and only rank 0 prints, writes the metrics
-file and checkpoints, and runs the golden check. The knobs ROADMAP.md lists
-as not ported raise ``NotImplementedError`` naming their item.
+file and checkpoints, and runs the golden check. Every knob of the JAX
+package's ``Config`` runs, the fp8 residual and ``hybrid_defer_group``
+included; what raises is the JAX package's own refusals.
 """
 
 from __future__ import annotations
@@ -56,16 +57,18 @@ class TrainResult:
     train_time: float
     ref_stats: Optional[list] = None
     ref_final_rmse: Optional[float] = None
+    ref_W: Optional[np.ndarray] = None      # the golden run's factors
+    ref_H: Optional[np.ndarray] = None
     golden_W: Optional[GoldenResult] = None
     golden_H: Optional[GoldenResult] = None
     validate_time: float = 0.0
 
 
 def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
-    """Raise for a configuration the port does not run:
-    NotImplementedError naming the ROADMAP.md item that ports it, or the
-    JAX package's own refusal (phase timing on pallas, ALS or a mesh; the
-    pallas backend or the transposed stair with a mesh)."""
+    """Raise for a configuration the JAX package refuses too: phase timing
+    on pallas, ALS or a mesh; the pallas backend or the transposed stair
+    with a mesh (NotImplementedError); the dense backend with the NaN
+    sentinel (ValueError)."""
     als = cfg.solver == Solver.ALS
     if als and cfg.phase_timing and backend != Backend.REF:
         raise NotImplementedError(
@@ -95,14 +98,8 @@ def check_supported(cfg: Config, backend: Backend, mesh=None) -> None:
         raise NotImplementedError(
             "hybrid_transpose is single-device-only (the sharded "
             "hybrid plans the classic user-axis stair)")
-    if backend == Backend.HYBRID:
-        from ..solvers.ccd_hybrid import check_supported
-        check_supported(cfg)
     if backend == Backend.DENSE:
         from ..solvers.ccd_dense import check_supported
-        check_supported(cfg)
-    if backend == Backend.PALLAS:
-        from ..solvers.ccd_pallas import check_supported
         check_supported(cfg)
 
 
@@ -386,6 +383,7 @@ def train(cfg: Config, R: RatingMatrix, T: TestCOO, *, device="cuda",
             W_ref, H_ref, ref_stats = _run_reference(cfg, R, W0, H0, T, log)
         log.info("[info] ref Training time: %f s." % (time.perf_counter() - t0))
         result.ref_stats = ref_stats
+        result.ref_W, result.ref_H = W_ref, H_ref
         result.ref_final_rmse = calrmse_np(T, W_ref, H_ref,
                                            entity_major=entity_major)
         log.info("Test RMSE = %f." % result.ref_final_rmse)

@@ -17,7 +17,8 @@
 // the port of the rounding variant of scripts/panel_kernel_variants.py
 // (P2, run_uv_variant with _uv_kernel_astype), a probe, not a training pass.
 //
-// A residual is an (M, W) row-major block, float32 or bfloat16. Its mask is
+// A residual is an (M, W) row-major block, float32, bfloat16 or float8
+// e4m3fn (Fp8 below: bias 7, no infinities, NaN = S.1111.111). Its mask is
 // either the NaN sentinel (unobserved cells hold NaN; no mask array) or an
 // explicit {0,1} array of the same shape, bfloat16 or int8 (unobserved
 // residual cells hold 0). Per rank:
@@ -33,22 +34,24 @@
 //      mode), h[i] = sum_j fl(v[j]^2)*m.
 //
 // What bounds them on an H100: memory. Each cell costs a handful of flops
-// and 2 bytes read (+2 written by an update) at bf16, 4 (+4) at f32, plus 2
-// (bf16) or 1 (int8) mask byte(s) read in explicit-mask mode; a 6.5e9-cell
-// bf16 stair is 13 GB per pass. The design streams every cell once, keeps
-// the factor vectors in registers, and in NaN mode takes the mask from the
-// sentinel in-register, so no mask array exists.
+// and 2 bytes read (+2 written by an update) at bf16, 4 (+4) at f32, 1 (+1)
+// at fp8, plus 2 (bf16) or 1 (int8) mask byte(s) read in explicit-mask
+// mode; a 6.5e9-cell bf16 stair is 13 GB per pass. The design streams every
+// cell once, keeps the factor vectors in registers, and in NaN mode takes
+// the mask from the sentinel in-register, so no mask array exists.
 //
 // The column sweeps (K1, K3, K4, masked_vsweep) move their cells in 16-byte
 // vectors: a block of 32 x 8 threads owns a strip of 256 columns of some
 // rows, each warp one row at a time, each lane 8 consecutive columns of it
-// (16 bytes at bf16, 32 at f32; the mask's 16 or 8), several rows loaded
-// before any store (64 residual bytes a lane). Rows need not start on a
-// 16-byte boundary (W * size is 4 mod 16 at Netflix's 17,770 bf16 columns;
-// an odd W shifts every row; a view may start anywhere), but rows that lie
-// a multiple of 64 rows apart start equally far into their 128-byte lines.
-// So a block takes every 64th row of a band (rows q, q + 64, ...), and
-// shifts its strip left by that many cells onto the rows' 128-byte grid:
+// (16 bytes at bf16, 32 at f32, 8 at fp8, moved in 8-byte vectors; the
+// mask's 16 or 8), several rows loaded before any store (64 residual bytes
+// a lane; 32 at fp8 beside a bf16 mask). Rows need not start on a 16-byte
+// boundary (W * size is 4 mod 16 at Netflix's 17,770 bf16 columns; an odd
+// W shifts every row; a view may start anywhere), but rows that lie a
+// multiple of 64 rows apart (128 at fp8) start equally far into their
+// 128-byte lines. So a block takes every 64th (128th) row of a band (rows
+// q, q + 64, ...), and shifts its strip left by that many cells onto the
+// rows' 128-byte grid:
 // each warp's row segment then covers whole lines, and each lane's run is
 // one or two aligned vectors, loaded and stored whole, with no shuffle and
 // no realignment (K1 ran a fifth slower with segments on a 16- or 32-byte
@@ -80,6 +83,21 @@
 // stored residual is therefore bit-equal to the plain PyTorch versions
 // (ops/panel_kernels.py, ops/ccd_kernels.py) on the same card.
 //
+// The order of the update's roundings is a policy too (fp8 only; f32 and
+// bf16 store once): StoreOnce is the Pallas kernels' order above, the sum
+// rounded once (K1 sweeps the stored value, K4 the unrounded sum);
+// StoreDeltaFirst is the order XLA computes ``Rd + (delta·mask).astype(
+// dtype)`` in (the JAX dense step, the hybrid's einsum panels and its
+// sharded step): R' = round(R + round(delta·mask)), and every sweep, K4's
+// too, reads the stored value. At fp8 the two differ in about a quarter of
+// the observed cells.
+//
+// An fp8 store rounds to nearest even WITHOUT saturating, as JAX's astype
+// does: |x| > 464 (the midpoint above the largest finite value, 448), an
+// infinity or a NaN stores NaN with x's sign. The hardware conversion
+// (cvt.rn.satfinite.e4m3x2.f32) exists only as satfinite, so fp8_encode
+// fixes those inputs up after it.
+//
 // The rounding is a policy of the update's store: RoundCvt, the hardware
 // conversion __float2bfloat16_rn (K1-K4; the analogue of the TPU's astype),
 // or RoundIntRne, the integer round-to-nearest-even on the f32 bits
@@ -103,10 +121,15 @@ constexpr int kColsPerThread = 8; // consecutive columns a lane owns
 constexpr int kStripCols = kColThreadsX * kColsPerThread;  // 256
 constexpr int kBatchBytes = 64;   // residual bytes a lane loads before a store
 constexpr int kLine = 128;        // bytes: strips start on this grid
-constexpr int kInterleave = 64;   // rows a multiple of kInterleave apart
-                                  // start equally far into their lines
-constexpr int kWarpRowStep = kInterleave * kColThreadsY;  // 512 rows
-constexpr int kMaxShift = kLine / 2 - 1;  // cells a strip shifts by (bf16)
+// rows a multiple of kInterleave<T> apart start equally far into their
+// 128-byte lines (kInterleave * W * sizeof(T) is a multiple of kLine for
+// every W): 64 at 2 and 4 bytes a cell, 128 at 1
+template <typename T>
+constexpr int kInterleave = sizeof(T) == 1 ? 128 : 64;
+// cells a strip shifts by at most: kLine / sizeof(T) - 1 at 1 byte; 63 at
+// 2 and 4 (at 4 bytes one strip more than needed, which covers no cell)
+template <typename T>
+constexpr int kMaxShift = sizeof(T) == 1 ? kLine - 1 : kLine / 2 - 1;
 constexpr int kRowWarps = 8;      // rows (one warp each) per u-sweep block
 constexpr int kRowLoads = 8;      // loads in flight per lane in the u-sweep
 constexpr int kReduceThreads = 256;
@@ -114,6 +137,11 @@ constexpr int kReduceThreads = 256;
 // Mask storage: NanMask = no mask array (the residual's NaN sentinel marks
 // unobserved cells); __nv_bfloat16 or int8_t = an explicit {0,1} array.
 struct NanMask {};
+
+// A 1-byte float8 e4m3fn residual cell (its bits).
+struct Fp8 {
+  uint8_t bits;
+};
 
 template <typename MaskT>
 constexpr bool kExplicit = !std::is_same<MaskT, NanMask>::value;
@@ -126,7 +154,44 @@ __device__ __forceinline__ float load_mask(const int8_t* p) {
   return static_cast<float>(*p);
 }
 
+// Two fp8 e4m3fn cells (the low 16 bits of v, the first in the low byte)
+// -> floats, exact (e4m3 fits f16): the hardware conversion to f16x2, then
+// to f32; 0x7F / 0xFF give NaN.
+__device__ __forceinline__ float2 fp8x2_decode(uint32_t v) {
+  const unsigned short pair = static_cast<unsigned short>(v);
+  uint32_t h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(pair));
+  float lo, hi;
+  asm("{\n\t.reg .b16 l, h;\n\tmov.b32 {l, h}, %2;\n\t"
+      "cvt.f32.f16 %0, l;\n\tcvt.f32.f16 %1, h;\n\t}"
+      : "=f"(lo), "=f"(hi)
+      : "r"(h2));
+  return make_float2(lo, hi);
+}
+
+// One fp8 e4m3fn cell (the low 8 bits of b) -> float, exact.
+__device__ __forceinline__ float fp8_decode(uint32_t b) {
+  return fp8x2_decode(b & 0xFFu).x;
+}
+
+// float -> fp8 e4m3fn bits, round to nearest even, not saturating: the
+// hardware conversion (satfinite; x in the low byte), then |x| > 464 (its
+// bits above 464's: infinities and NaN too) -> NaN with x's sign
+__device__ __forceinline__ uint32_t fp8_encode(float x) {
+  unsigned short pair;
+  asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;"
+      : "=h"(pair)
+      : "f"(0.f), "f"(x));
+  const uint32_t bits = __float_as_uint(x);
+  return (bits & 0x7FFFFFFFu) > 0x43E80000u ? 0x7Fu | ((bits >> 24) & 0x80u)
+                                            : pair & 0xFFu;
+}
+
 __device__ __forceinline__ float load_cell(const float* p) { return *p; }
+
+__device__ __forceinline__ float load_cell(const Fp8* p) {
+  return fp8_decode(p->bits);
+}
 
 __device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -135,6 +200,9 @@ __device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
 // Rounding policies of the update's store (see the header).
 struct RoundCvt {};
 struct RoundIntRne {};
+// Store orders of the update (see the header).
+struct StoreOnce {};
+struct StoreDeltaFirst {};
 
 // Round once to the storage type: returns the stored bits (in the low bits)
 // and sets ``back`` to exactly the value stored.
@@ -159,8 +227,16 @@ __device__ __forceinline__ uint32_t round_bits(float x, float& back,
   return __bfloat16_as_ushort(b);
 }
 
+template <typename Round>
+__device__ __forceinline__ uint32_t round_bits(float x, float& back, Fp8*) {
+  const uint32_t b = fp8_encode(x);
+  back = fp8_decode(b);
+  return b;
+}
+
 // A lane's run of kColsPerThread cells of type E (kBytes bytes), moved as
-// aligned units of kUnit bytes: 16, or 8 for an int8 mask, whose run is 8.
+// aligned units of kUnit bytes: 16, or 8 for a 1-byte cell (an int8 mask,
+// an fp8 residual), whose run is 8.
 template <typename E>
 struct Run {
   static constexpr int kSize = static_cast<int>(sizeof(E));
@@ -227,7 +303,12 @@ __device__ __forceinline__ void cells(const uint32_t (&c)[Run<E>::kWords],
                                       float (&x)[kColsPerThread]) {
 #pragma unroll
   for (int e = 0; e < kColsPerThread; ++e) {
-    if constexpr (sizeof(E) == 4) {
+    if constexpr (std::is_same<E, Fp8>::value) {
+      if (e & 1) continue;  // decoded in pairs
+      const float2 p = fp8x2_decode(c[e / 4] >> (8 * (e & 3)));
+      x[e] = p.x;
+      x[e + 1] = p.y;
+    } else if constexpr (sizeof(E) == 4) {
       x[e] = __uint_as_float(c[e]);
     } else if constexpr (sizeof(E) == 2) {
       const uint32_t v = c[e / 2];
@@ -275,11 +356,11 @@ __device__ __forceinline__ void unpack_mask(Loaded<E>& L, int lane,
   cells<E>(c, x);
 }
 
-// A residual run on the 16-byte grid: the kUnits units at ``at``, which
-// hold columns [c0, c0 + kColsPerThread) of a row of W cells. A unit that
-// holds a cell of the row is loaded whole (the units at the row's two ends
-// also hold cells of its neighbours, or lie at the tensor's edge: inside
-// its allocation all the same).
+// A residual run on the 16-byte grid (8-byte at 1 byte a cell): the kUnits
+// units at ``at``, which hold columns [c0, c0 + kColsPerThread) of a row of
+// W cells. A unit that holds a cell of the row is loaded whole (the units at
+// the row's two ends also hold cells of its neighbours, or lie at the
+// tensor's edge: inside its allocation all the same).
 template <typename T>
 __device__ __forceinline__ void load_res(uintptr_t at, int c0, int W,
                                          uint32_t (&w)[Run<T>::kWords]) {
@@ -287,22 +368,29 @@ __device__ __forceinline__ void load_res(uintptr_t at, int c0, int W,
 #pragma unroll
   for (int j = 0; j < Rn::kUnits; ++j) {
     const int first = c0 + j * Rn::kUnitCells;
+    uint32_t* u = w + j * Rn::kUnitWords;
     if (first + Rn::kUnitCells > 0 && first < W) {
-      const uint4 v = *reinterpret_cast<const uint4*>(at + 16 * j);
-      w[4 * j] = v.x;
-      w[4 * j + 1] = v.y;
-      w[4 * j + 2] = v.z;
-      w[4 * j + 3] = v.w;
+      if constexpr (Rn::kUnit == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(at + 16 * j);
+        u[0] = v.x;
+        u[1] = v.y;
+        u[2] = v.z;
+        u[3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(at + 8 * j);
+        u[0] = v.x;
+        u[1] = v.y;
+      }
     } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) w[4 * j + i] = 0u;
+      for (int i = 0; i < Rn::kUnitWords; ++i) u[i] = 0u;
     }
   }
 }
 
 // Stores a residual run (see load_res): a unit whose cells all lie in the
 // row [0, W) whole, one at the row's start or end cell by cell, only the
-// row's own cells (2- or 4-byte stores).
+// row's own cells (1-, 2- or 4-byte stores).
 template <typename T>
 __device__ __forceinline__ void store_res(uintptr_t at, int c0, int W,
                                           const uint32_t (&w)[
@@ -311,42 +399,50 @@ __device__ __forceinline__ void store_res(uintptr_t at, int c0, int W,
 #pragma unroll
   for (int j = 0; j < Rn::kUnits; ++j) {
     const int first = c0 + j * Rn::kUnitCells;
-    const uintptr_t u = at + 16 * j;
+    const uintptr_t u = at + Rn::kUnit * j;
+    const uint32_t* wj = w + j * Rn::kUnitWords;
     if (first >= 0 && first + Rn::kUnitCells <= W) {
-      *reinterpret_cast<uint4*>(u) =
-          make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+      if constexpr (Rn::kUnit == 16)
+        *reinterpret_cast<uint4*>(u) = make_uint4(wj[0], wj[1], wj[2], wj[3]);
+      else
+        *reinterpret_cast<uint2*>(u) = make_uint2(wj[0], wj[1]);
     } else {
 #pragma unroll
       for (int k = 0; k < Rn::kUnitCells; ++k) {
         const int c = first + k;
         if (c < 0 || c >= W) continue;
-        const uint32_t word = w[4 * j + k * Rn::kSize / 4];
+        const uint32_t word = wj[k * Rn::kSize / 4];
         if constexpr (Rn::kSize == 4)
           *reinterpret_cast<uint32_t*>(u + 4 * k) = word;
-        else
+        else if constexpr (Rn::kSize == 2)
           *reinterpret_cast<unsigned short*>(u + 2 * k) =
               static_cast<unsigned short>(word >> (16 * (k & 1)));
+        else
+          *reinterpret_cast<uint8_t*>(u + k) =
+              static_cast<uint8_t>(word >> (8 * (k & 3)));
       }
     }
   }
 }
 
-// Column sweep over one strip of the rows q, q + 64, q + 128, ... of the
-// row band [b*64*rows_per_part, (b+1)*64*rows_per_part), where b =
-// blockIdx.y / 64 and q = blockIdx.y % 64; warp ty takes every eighth of
-// them from q + 64 ty on. Rows a multiple of 64 apart start equally far
-// into their 128-byte lines (64 * W cells are a multiple of 128 bytes), so
-// the block shifts its strip by that many cells, ``shift``, and covers the
-// columns [blockIdx.x * 256 - shift, +256) of each of its rows: every
-// warp's row segment then starts on a line (a segment that straddles lines
-// shared with the next strip costs K1 a fifth of its rate on the card),
-// every lane's run on a 16-byte boundary, and only the units at a row's two
-// ends hold cells of another row. With kUpdate the rank-1 delta is applied
-// and stored first, rounded by the policy Round. Writes the block's
-// per-column partials of g and h into row blockIdx.y of the partials: each
-// column lies in one strip of a row band's residue, and its sum over the
-// block's rows runs in the same order whatever the shift.
-template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt>
+// Column sweep over one strip of the rows q, q + I, q + 2I, ... of the row
+// band [b*I*rows_per_part, (b+1)*I*rows_per_part), where I =
+// kInterleave<T> (64, or 128 at 1 byte a cell), b = blockIdx.y / I and q =
+// blockIdx.y % I; warp ty takes every eighth of them from q + I ty on. Rows
+// a multiple of I apart start equally far into their 128-byte lines (I * W
+// cells are a multiple of 128 bytes), so the block shifts its strip by that
+// many cells, ``shift``, and covers the columns [blockIdx.x * 256 - shift,
+// +256) of each of its rows: every warp's row segment then starts on a line
+// (a segment that straddles lines shared with the next strip costs K1 a
+// fifth of its rate on the card), every lane's run on a 16-byte (8-byte at
+// 1 byte a cell) boundary, and only the units at a row's two ends hold
+// cells of another row. With kUpdate the rank-1 delta is applied and
+// stored first, rounded by the policy Round in the order Order. Writes the
+// block's per-column partials of g and h into row blockIdx.y of the
+// partials: each column lies in one strip of a row band's residue, and its
+// sum over the block's rows runs in the same order whatever the shift.
+template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt,
+          typename Order = StoreOnce>
 __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
     col_sweep_kernel(T* R, const MaskT* __restrict__ Mk,
                      const float* __restrict__ uo,
@@ -357,14 +453,22 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
                      int rows_per_part) {
   // the mask's element type (unused in NaN mode)
   using MaskE = std::conditional_t<kExplicit<MaskT>, MaskT, int8_t>;
-  constexpr int kRows = kBatchBytes / Run<T>::kBytes;  // bf16 4, f32 2
+  // rows a warp loads before it stores: f32 2, bf16 4, fp8 8 (4 beside a
+  // bf16 mask, whose 16-byte units would take twice the registers)
+  constexpr int kRows =
+      (sizeof(T) == 1 && kExplicit<MaskT> && sizeof(MaskE) == 2)
+          ? 4
+          : kBatchBytes / Run<T>::kBytes;
   constexpr int kSize = static_cast<int>(sizeof(T));
+  constexpr int kInter = kInterleave<T>;
+  constexpr int kWarpRowStep = kInter * kColThreadsY;
+  constexpr bool kDeltaFirst = std::is_same<Order, StoreDeltaFirst>::value;
   const int lane = threadIdx.x;
   const int ty = threadIdx.y;
-  const int band = kInterleave * rows_per_part;
-  const int r0 = (blockIdx.y / kInterleave) * band;
+  const int band = kInter * rows_per_part;
+  const int r0 = (blockIdx.y / kInter) * band;
   const int r1 = min(M, r0 + band);
-  const int q = r0 + blockIdx.y % kInterleave;  // the block's first row
+  const int q = r0 + blockIdx.y % kInter;  // the block's first row
   const int shift = static_cast<int>(
       (reinterpret_cast<uintptr_t>(R) +
        static_cast<size_t>(q) * static_cast<size_t>(W) * kSize) &
@@ -392,7 +496,7 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
   // row-at-a-time code would wait out each load's latency behind the
   // previous row's stores. A row is one warp's, so every branch on the row
   // is uniform across the warp and its shuffles.
-  for (int rb = q + kInterleave * ty; rb < r1; rb += kWarpRowStep * kRows) {
+  for (int rb = q + kInter * ty; rb < r1; rb += kWarpRowStep * kRows) {
     uint32_t xs[kRows][Run<T>::kWords];
     Loaded<MaskE> ms[kRows];
     float a[kRows], ap[kRows];
@@ -425,7 +529,16 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
                                     __fmul_rn(ap[b], vp_c[e]));
           float back;
           uint32_t bits;
-          if constexpr (kExplicit<MaskT>) {
+          if constexpr (kDeltaFirst) {
+            // XLA's order: the delta (times the mask) rounded to the
+            // storage type, added, the sum rounded again; the sweep reads
+            // the stored value
+            float dm = d, dr;
+            if constexpr (kExplicit<MaskT>) dm = __fmul_rn(d, mk[e]);
+            round_bits<Round>(dm, dr, R);
+            bits = round_bits<Round>(__fadd_rn(xv, dr), back, R);
+            xv = back;
+          } else if constexpr (kExplicit<MaskT>) {
             // K4: the sweep reads the sum before rounding
             xv = __fadd_rn(xv, __fmul_rn(d, mk[e]));
             bits = round_bits<Round>(xv, back, R);
@@ -436,8 +549,10 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
           }
           if constexpr (sizeof(T) == 4)
             own[e] = bits;
-          else
+          else if constexpr (sizeof(T) == 2)
             own[e / 2] |= bits << (16 * (e & 1));
+          else
+            own[e / 4] |= bits << (8 * (e & 3));
         }
         if (!ok[e]) continue;
         if constexpr (kExplicit<MaskT>) {
@@ -557,23 +672,25 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   }
 }
 
-template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt>
+template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt,
+          typename Order = StoreOnce>
 void launch_col_sweep(void* R, const void* Mk, const void* uo, const void* up,
                       const void* vo, const void* vp, void* gpart,
                       void* hpart, void* g, void* h, int M, int W,
                       int rows_per_part, cudaStream_t stream) {
-  // a strip shifts left by up to kLine / sizeof(T) - 1 cells (the
-  // kernel's ``shift``): one more strip covers the row's end
-  const int band = kInterleave * rows_per_part;
-  const int nparts = kInterleave * ((M + band - 1) / band);
-  const dim3 grid((W + kMaxShift + kStripCols - 1) / kStripCols, nparts);
+  // a strip shifts left by up to kMaxShift<T> cells (the kernel's
+  // ``shift``): one more strip covers the row's end
+  const int band = kInterleave<T> * rows_per_part;
+  const int nparts = kInterleave<T> * ((M + band - 1) / band);
+  const dim3 grid((W + kMaxShift<T> + kStripCols - 1) / kStripCols, nparts);
   const dim3 block(kColThreadsX, kColThreadsY);
-  col_sweep_kernel<T, MaskT, kUpdate, Round><<<grid, block, 0, stream>>>(
-      static_cast<T*>(R), static_cast<const MaskT*>(Mk),
-      static_cast<const float*>(uo), static_cast<const float*>(up),
-      static_cast<const float*>(vo), static_cast<const float*>(vp),
-      static_cast<float*>(gpart), static_cast<float*>(hpart), M, W,
-      rows_per_part);
+  col_sweep_kernel<T, MaskT, kUpdate, Round, Order>
+      <<<grid, block, 0, stream>>>(
+          static_cast<T*>(R), static_cast<const MaskT*>(Mk),
+          static_cast<const float*>(uo), static_cast<const float*>(up),
+          static_cast<const float*>(vo), static_cast<const float*>(vp),
+          static_cast<float*>(gpart), static_cast<float*>(hpart), M, W,
+          rows_per_part);
   col_reduce_kernel<<<(W + kReduceThreads - 1) / kReduceThreads,
                       kReduceThreads, 0, stream>>>(
       static_cast<const float*>(gpart), static_cast<const float*>(hpart),
@@ -593,14 +710,20 @@ void launch_row_sweep(const void* R, const void* Mk, const void* v, void* g,
 // residual dtype codes shared with ops/panel_kernels.py
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat8 = 2;
 // mask codes shared with ops/panel_kernels.py: none (the NaN sentinel; the
 // mask pointer must be null), or an explicit bfloat16 / int8 array
 constexpr int kMaskNone = 0;
 constexpr int kMaskBFloat16 = 1;
 constexpr int kMaskInt8 = 2;
+// store order codes shared with ops/panel_kernels.py (delta-first: fp8
+// only)
+constexpr int kOrderOnce = 0;
+constexpr int kOrderDeltaFirst = 1;
 
 bool bad_args(int dtype, int M, int W) {
-  return (dtype != kFloat32 && dtype != kBFloat16) || M <= 0 || W <= 0;
+  return (dtype != kFloat32 && dtype != kBFloat16 && dtype != kFloat8) ||
+         M <= 0 || W <= 0;
 }
 
 template <typename MaskT>
@@ -623,20 +746,34 @@ bool with_mask(const void* Mk, int mask_dtype, F&& f) {
   return true;
 }
 
-// Column sweep (update or not) for a residual dtype code and mask type.
+// Column sweep (update or not) for a residual dtype code, store order code
+// and mask type; false (nothing launched) for an order the dtype does not
+// take.
 template <typename MaskT, bool kUpdate>
-void col_sweep(int dtype, void* R, const void* Mk, const void* uo,
+bool col_sweep(int dtype, int order, void* R, const void* Mk, const void* uo,
                const void* up, const void* vo, const void* vp, void* gpart,
                void* hpart, void* g, void* h, int M, int W, int rows_per_part,
                cudaStream_t s) {
+  if (order != kOrderOnce && (dtype != kFloat8 || order != kOrderDeltaFirst))
+    return false;
   if (dtype == kFloat32)
     launch_col_sweep<float, MaskT, kUpdate>(R, Mk, uo, up, vo, vp, gpart,
                                             hpart, g, h, M, W, rows_per_part,
                                             s);
-  else
+  else if (dtype == kBFloat16)
     launch_col_sweep<__nv_bfloat16, MaskT, kUpdate>(R, Mk, uo, up, vo, vp,
                                                     gpart, hpart, g, h, M, W,
                                                     rows_per_part, s);
+  else if (order == kOrderOnce)
+    launch_col_sweep<Fp8, MaskT, kUpdate>(R, Mk, uo, up, vo, vp, gpart,
+                                          hpart, g, h, M, W, rows_per_part,
+                                          s);
+  else if constexpr (kUpdate)
+    launch_col_sweep<Fp8, MaskT, kUpdate, RoundCvt, StoreDeltaFirst>(
+        R, Mk, uo, up, vo, vp, gpart, hpart, g, h, M, W, rows_per_part, s);
+  else
+    return false;
+  return true;
 }
 
 template <typename MaskT>
@@ -644,8 +781,10 @@ void row_sweep(int dtype, const void* R, const void* Mk, const void* v,
                void* g, void* h, int M, int W, cudaStream_t s) {
   if (dtype == kFloat32)
     launch_row_sweep<float, MaskT>(R, Mk, v, g, h, M, W, s);
-  else
+  else if (dtype == kBFloat16)
     launch_row_sweep<__nv_bfloat16, MaskT>(R, Mk, v, g, h, M, W, s);
+  else
+    launch_row_sweep<Fp8, MaskT>(R, Mk, v, g, h, M, W, s);
 }
 
 }  // namespace
@@ -654,22 +793,25 @@ void row_sweep(int dtype, const void* R, const void* Mk, const void* v,
 // a refused launch (bad configuration) never runs and is reported only here.
 // ``Mk`` and ``mask_dtype`` select the mask: (null, kMaskNone) for a
 // NaN-sentinel residual (K1-K3), else an explicit mask (K4 and the masked
-// sweeps).
+// sweeps). ``order`` selects the update's store order (kOrderOnce, or at
+// fp8 kOrderDeltaFirst).
 extern "C" {
 
 int crtpu_update_vsweep(void* R, int dtype, const void* Mk, int mask_dtype,
-                        const void* uo, const void* up, const void* vo,
-                        const void* vp, void* gpart, void* hpart, void* g,
-                        void* h, int M, int W, int rows_per_part,
-                        void* stream) {
+                        int order, const void* uo, const void* up,
+                        const void* vo, const void* vp, void* gpart,
+                        void* hpart, void* g, void* h, int M, int W,
+                        int rows_per_part, void* stream) {
   if (bad_args(dtype, M, W) || rows_per_part <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = with_mask(Mk, mask_dtype, [&](auto tag) {
-    col_sweep<typename decltype(tag)::type, true>(dtype, R, Mk, uo, up, vo, vp,
-                                                  gpart, hpart, g, h, M, W,
-                                                  rows_per_part, s);
+  bool ok = false;
+  const bool known = with_mask(Mk, mask_dtype, [&](auto tag) {
+    ok = col_sweep<typename decltype(tag)::type, true>(
+        dtype, order, R, Mk, uo, up, vo, vp, gpart, hpart, g, h, M, W,
+        rows_per_part, s);
   });
-  return ok ? static_cast<int>(cudaGetLastError()) : cudaErrorInvalidValue;
+  return known && ok ? static_cast<int>(cudaGetLastError())
+                     : cudaErrorInvalidValue;
 }
 
 int crtpu_vsweep(const void* R, int dtype, const void* Mk, int mask_dtype,
@@ -680,8 +822,8 @@ int crtpu_vsweep(const void* R, int dtype, const void* Mk, int mask_dtype,
   void* Rw = const_cast<void*>(R);  // the read-only instantiation never stores
   const bool ok = with_mask(Mk, mask_dtype, [&](auto tag) {
     col_sweep<typename decltype(tag)::type, false>(
-        dtype, Rw, Mk, u, nullptr, nullptr, nullptr, gpart, hpart, g, h, M, W,
-        rows_per_part, s);
+        dtype, kOrderOnce, Rw, Mk, u, nullptr, nullptr, nullptr, gpart,
+        hpart, g, h, M, W, rows_per_part, s);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : cudaErrorInvalidValue;
 }

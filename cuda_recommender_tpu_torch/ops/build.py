@@ -3,9 +3,10 @@
 ``nvcc`` compiles each source of ``csrc/`` for Hopper (``sm_90a``) into a
 shared library of its own with a plain C interface, which ctypes loads:
 ``panel_kernels.cu`` (the CCD++ residual passes: K1-K3 over NaN-sentinel
-panels, K4 and the masked sweeps over explicit-mask residuals, and K1's
-integer-rounding probe), ``gj_kernels.cu`` (K5, the ALS batched solve) and
-``probe_kernels.cu`` (the stream and gather probes). The build happens at first
+panels, K4 and the masked sweeps over explicit-mask residuals, each at an
+f32, bf16 or fp8 residual, and K1's integer-rounding probe),
+``gj_kernels.cu`` (K5, the ALS batched solve) and ``probe_kernels.cu``
+(the stream and gather probes). The build happens at first
 use, into ``cuda_recommender_tpu_torch/_build/`` (listed in .gitignore),
 under a name keyed by the source's and the flags' hash, so an edited source
 rebuilds and an unchanged one loads at once. ``build()`` starts one
@@ -36,10 +37,11 @@ _pi = ctypes.POINTER(ctypes.c_int)
 #: error code of its launch (int, 0 = success)
 SIGNATURES = {
     "panel_kernels": {
-        # R, dtype, mask (None for the NaN sentinel), mask code, vectors,
-        # strip partials, g, h, rows, width, rows per strip, stream
-        "crtpu_update_vsweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p,
-                                _p, _i, _i, _i, _p],
+        # R, dtype, mask (None for the NaN sentinel), mask code, store
+        # order, vectors, strip partials, g, h, rows, width, rows per
+        # strip, stream
+        "crtpu_update_vsweep": [_p, _i, _p, _i, _i, _p, _p, _p, _p, _p, _p,
+                                _p, _p, _i, _i, _i, _p],
         "crtpu_vsweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
         "crtpu_usweep": [_p, _i, _p, _i, _p, _p, _p, _i, _i, _p],
         # R, vectors, strip partials, g, h, rows, width, rows per strip,

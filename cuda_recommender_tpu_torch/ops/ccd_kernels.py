@@ -26,6 +26,15 @@ mask bfloat16 or int8 with {0,1} values and the residual's shape; unobserved
 residual cells hold 0 and stay exactly 0. No block padding: the kernels
 mask the ragged edge themselves.
 
+The residual may also be float8 e4m3fn. There K4 stores in one of two
+orders (``order``): "once", the Pallas kernel's (above; the pallas
+backend), or "delta_first", the order of the JAX package's XLA update ``R
++ (delta·M).astype(dtype)`` (the dense backend, the explicit-mask hybrid,
+the sharded hybrid without the panel kernel): R' = round(R + round(delta·M))
+and the sums read R'. An fp8 store never saturates (ops/densify.py::
+round_to_storage); the fp8 instances count under names of their own
+(``panel_kernels.instance_name``).
+
 Each wrapper takes the plain version ONLY for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (on the current stream) or raises, and
 adds one to its count in ``ops/launches.py``.
@@ -35,8 +44,8 @@ from __future__ import annotations
 
 import torch
 
-from .panel_kernels import (_MASK_CODE, _check, _col_sweep, _row_chunks,
-                            _row_sweep)
+from .panel_kernels import (_MASK_CODE, _check, _check_order, _col_sweep,
+                            _row_chunks, _row_sweep, rounded_f32, store)
 
 
 def _check_mask(R: torch.Tensor, M: torch.Tensor) -> None:
@@ -50,16 +59,20 @@ def _check_mask(R: torch.Tensor, M: torch.Tensor) -> None:
 
 def fused_update_vsweep(R: torch.Tensor, M: torch.Tensor,
                         u_add: torch.Tensor, u_sub: torch.Tensor,
-                        v_add: torch.Tensor, v_sub: torch.Tensor):
+                        v_add: torch.Tensor, v_sub: torch.Tensor, *,
+                        order: str = "once"):
     """K4: masked residual update (in place) + v-sweep partials of the
-    unrounded sum. R (m, n) float32/bfloat16, M (m, n) bfloat16/int8, u_*
+    unrounded sum ("once"; of the stored value, "delta_first": fp8 only).
+    R (m, n) float32/bfloat16/float8_e4m3fn, M (m, n) bfloat16/int8, u_*
     (m,) and v_* (n,) float32. Returns (g, h), each (n,) float32."""
     _check(R, (u_add, u_sub), (v_add, v_sub))
     _check_mask(R, M)
+    _check_order(R, order)
     if R.device.type == "cpu":
-        return fused_update_vsweep_plain(R, M, u_add, u_sub, v_add, v_sub)
+        return fused_update_vsweep_plain(R, M, u_add, u_sub, v_add, v_sub,
+                                         order=order)
     return _col_sweep("fused_update_vsweep", R, M, u_add, u_sub, v_add,
-                      v_sub)
+                      v_sub, order)
 
 
 def masked_vsweep(R: torch.Tensor, M: torch.Tensor, u: torch.Tensor):
@@ -82,10 +95,13 @@ def masked_usweep(R: torch.Tensor, M: torch.Tensor, v: torch.Tensor):
 
 # ---- plain PyTorch versions (the CPU path and the kernels' oracle) ----
 
-def fused_update_vsweep_plain(R, M, u_add, u_sub, v_add, v_sub):
+def fused_update_vsweep_plain(R, M, u_add, u_sub, v_add, v_sub, *,
+                              order="once"):
     """Plain version of K4: the delta fl(fl(ua·va) − fl(us·vs)) times the
-    mask, added to the residual in f32; the in-place copy rounds the sum
-    ONCE to the storage dtype, and the sums read the f32 sum itself."""
+    mask, added to the residual in f32. "once": the in-place store rounds
+    the sum ONCE to the storage dtype, and the sums read the f32 sum
+    itself; "delta_first": the delta·mask is rounded to the storage dtype
+    first, the sum stored rounded, and the sums read the stored value."""
     m, n = R.shape
     g = torch.zeros(n, dtype=torch.float32, device=R.device)
     h = torch.zeros_like(g)
@@ -95,8 +111,12 @@ def fused_update_vsweep_plain(R, M, u_add, u_sub, v_add, v_sub):
         s = torch.outer(u_add[r0:r1], v_add)
         s.sub_(torch.outer(u_sub[r0:r1], v_sub))
         s.mul_(mk)
-        s.add_(blk)
-        blk.copy_(s)
+        if order == "delta_first":
+            s = rounded_f32(s, blk.dtype)
+        s.add_(blk.to(torch.float32))
+        store(blk, s)
+        if order == "delta_first":
+            s = blk.to(torch.float32)
         u = u_add[r0:r1]
         g += torch.mv(s.t(), u)
         h += torch.mv(mk.t(), u * u)

@@ -14,7 +14,14 @@ Three kernels, each beside its plain PyTorch version:
     g[i] = Σ_j R[i,j]·v[j]·m, h[i] = Σ_j m·v[j]².
 
 They replace the Pallas kernels of ``cuda_recommender_tpu/ops/
-panel_pallas.py`` (panel_update_vsweep, panel_vsweep, panel_usweep).
+panel_pallas.py`` (panel_update_vsweep, panel_vsweep, panel_usweep). A
+panel is float32, bfloat16 or float8 e4m3fn. At fp8 K1 stores in one of
+two orders (``order``): "once", the Pallas kernel's (the sum rounded once),
+or "delta_first", the order of the JAX package's XLA panel update ``Rd +
+delta.astype(dtype)`` (the delta rounded, then the sum; the hybrid without
+the panel kernel); an fp8 store never saturates (ops/densify.py::
+round_to_storage). The fp8 instances count under names of their own
+(``instance_name``).
 ``panel_update_vsweep_irne`` is K1 at a bfloat16 residual with its store
 rounded by integer round-to-nearest-even on the f32 bits instead of the
 hardware conversion: the port of the rounding variant of ``scripts/
@@ -36,10 +43,13 @@ from __future__ import annotations
 
 import torch
 
+from .densify import FP8, round_to_storage
 from .launches import count
 
 #: storage dtype codes of csrc/panel_kernels.cu
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, FP8: 2}
+#: store order codes of csrc/panel_kernels.cu ("delta_first": fp8 only)
+_ORDER_CODE = {"once": 0, "delta_first": 1}
 #: explicit mask dtype codes of csrc/panel_kernels.cu (0: no mask array,
 #: the NaN sentinel)
 _MASK_CODE = {torch.bfloat16: 1, torch.int8: 2}
@@ -50,15 +60,36 @@ _ROWS_PER_PART = 512
 _MAX_PARTS = 65535                   # CUDA grid.y limit
 #: columns per strip: csrc/panel_kernels.cu's kStripCols (32 lanes x 8
 #: consecutive columns, moved in 16-byte vectors); a strip shifts left by
-#: up to _MAX_SHIFT columns onto the rows' 128-byte grid (kMaxShift)
+#: up to _MAX_SHIFT columns onto the rows' 128-byte grid (kMaxShift; 127
+#: at 1 byte a cell)
 _STRIP_COLS = 256
 _MAX_SHIFT = 63
 #: row strips interleave in bands of this many: strip 64b + q holds the
-#: rows q, q + 64, ... of band b (csrc/panel_kernels.cu's kInterleave)
+#: rows q, q + 64, ... of band b (csrc/panel_kernels.cu's kInterleave; 128
+#: at 1 byte a cell, where 64 rows of an odd width span 64 mod 128 bytes)
 _INTERLEAVE = 64
 
 #: cells per chunk of the plain versions (bounds their f32 temporaries)
 _PLAIN_CHUNK_CELLS = 1 << 26
+
+
+def instance_name(kernel: str, dtype: torch.dtype,
+                  order: str = "once") -> str:
+    """The launch-count name of ``kernel``'s instance at a residual dtype
+    and store order: the kernel's own name at f32 and bf16, else
+    ``<kernel>_fp8`` and, delta-first, ``<kernel>_fp8_delta_first``."""
+    if dtype != FP8:
+        return kernel
+    return kernel + ("_fp8_delta_first" if order == "delta_first" else "_fp8")
+
+
+def _check_order(Rd: torch.Tensor, order: str) -> None:
+    if order not in _ORDER_CODE:
+        raise ValueError(f"store order must be 'once' or 'delta_first', got "
+                         f"{order!r}")
+    if order == "delta_first" and Rd.dtype != FP8:
+        raise ValueError("the delta-first store order is an fp8 order; a "
+                         f"{Rd.dtype} residual stores once")
 
 
 def _check(Rd: torch.Tensor, rows_vecs=(), cols_vecs=()) -> tuple[int, int]:
@@ -66,8 +97,8 @@ def _check(Rd: torch.Tensor, rows_vecs=(), cols_vecs=()) -> tuple[int, int]:
     if Rd.dim() != 2:
         raise ValueError(f"panel must be 2-D, got shape {tuple(Rd.shape)}")
     if Rd.dtype not in _DTYPE_CODE:
-        raise TypeError(f"panel dtype must be float32 or bfloat16, got "
-                        f"{Rd.dtype}")
+        raise TypeError(f"panel dtype must be float32, bfloat16 or "
+                        f"float8_e4m3fn, got {Rd.dtype}")
     if not Rd.is_contiguous():
         raise ValueError("panel must be contiguous (row-major)")
     if Rd.device.type not in ("cpu", "cuda"):
@@ -84,9 +115,14 @@ def _check(Rd: torch.Tensor, rows_vecs=(), cols_vecs=()) -> tuple[int, int]:
     return M, W
 
 
-def _rows_per_part(M: int) -> int:
-    bands = _MAX_PARTS // _INTERLEAVE
-    need = -(-M // (bands * _INTERLEAVE))
+def _interleave(cell_bytes: int) -> int:
+    return 2 * _INTERLEAVE if cell_bytes == 1 else _INTERLEAVE
+
+
+def _rows_per_part(M: int, cell_bytes: int = 2) -> int:
+    inter = _interleave(cell_bytes)
+    bands = _MAX_PARTS // inter
+    need = -(-M // (bands * inter))
     return max(_ROWS_PER_PART, -(-need // 8) * 8)
 
 
@@ -104,21 +140,24 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _sweep_geometry(M: int, W: int) -> tuple[int, int, int]:
+def _sweep_geometry(M: int, W: int,
+                    cell_bytes: int = 2) -> tuple[int, int, int]:
     """(rows per strip, row strips, column strips) of a column sweep over
-    an (M, W) panel: its grid is (column strips, row strips), the row
-    strips _INTERLEAVE to a band of _INTERLEAVE * rows-per-strip rows."""
-    rpp = _rows_per_part(M)
-    band = _INTERLEAVE * rpp
-    return (rpp, _INTERLEAVE * -(-M // band),
-            -(-(W + _MAX_SHIFT) // _STRIP_COLS))
+    an (M, W) panel of ``cell_bytes`` a cell: its grid is (column strips,
+    row strips), the row strips _INTERLEAVE (128 at 1 byte) to a band of
+    that many times rows-per-strip rows."""
+    inter = _interleave(cell_bytes)
+    shift = 2 * _MAX_SHIFT + 1 if cell_bytes == 1 else _MAX_SHIFT
+    rpp = _rows_per_part(M, cell_bytes)
+    band = inter * rpp
+    return (rpp, inter * -(-M // band), -(-(W + shift) // _STRIP_COLS))
 
 
 def _sweep_buffers(Rd: torch.Tensor):
     """(rows per strip, g, h, gpart, hpart): the outputs and the per-strip
     partials of a column sweep over ``Rd``, f32 on its device."""
     M, W = Rd.shape
-    rpp, nparts, _ = _sweep_geometry(M, W)
+    rpp, nparts, _ = _sweep_geometry(M, W, Rd.element_size())
     opts = dict(dtype=torch.float32, device=Rd.device)
     return (rpp, torch.empty(W, **opts), torch.empty(W, **opts),
             torch.empty((nparts, W), **opts), torch.empty((nparts, W),
@@ -131,10 +170,12 @@ def _mask_args(M):
     return (None, 0) if M is None else (_ptr(M), _MASK_CODE[M.dtype])
 
 
-def _col_sweep(name: str, R, M, u_add, u_sub, v_add, v_sub):
+def _col_sweep(name: str, R, M, u_add, u_sub, v_add, v_sub,
+               order: str = "once"):
     """Launch a column sweep on CUDA tensors: with the update (K1, or K4
-    with a mask ``M``) or without it (``u_sub`` None: K3, or masked_vsweep
-    with a mask); counted under ``name``."""
+    with a mask ``M``; stored in ``order``) or without it (``u_sub`` None:
+    K3, or masked_vsweep with a mask); counted under ``name``'s instance
+    (``instance_name``)."""
     from .build import load
     rows, width = R.shape
     lib = load("panel_kernels")
@@ -145,9 +186,9 @@ def _col_sweep(name: str, R, M, u_add, u_sub, v_add, v_sub):
     if u_sub is None:
         _launch(lib.crtpu_vsweep, *head, _ptr(u_add), *tail)
     else:
-        _launch(lib.crtpu_update_vsweep, *head, _ptr(u_add), _ptr(u_sub),
-                _ptr(v_add), _ptr(v_sub), *tail)
-    count(name)
+        _launch(lib.crtpu_update_vsweep, *head, _ORDER_CODE[order],
+                _ptr(u_add), _ptr(u_sub), _ptr(v_add), _ptr(v_sub), *tail)
+    count(instance_name(name, R.dtype, order))
     return g, h
 
 
@@ -161,21 +202,24 @@ def _row_sweep(name: str, R, M, v):
     _launch(load("panel_kernels").crtpu_usweep, _ptr(R),
             _DTYPE_CODE[R.dtype], *_mask_args(M), _ptr(v), _ptr(g), _ptr(h),
             rows, width, _stream(R))
-    count(name)
+    count(instance_name(name, R.dtype))
     return g, h
 
 
 def panel_update_vsweep(Rd: torch.Tensor, u_old: torch.Tensor,
                         u_pend: torch.Tensor, v_old: torch.Tensor,
-                        v_pend: torch.Tensor):
+                        v_pend: torch.Tensor, *, order: str = "once"):
     """K1: fused residual update (in place) + v-sweep partials for one
-    NaN-sentinel panel. Rd (M, W) float32/bfloat16; u_* (M,) and v_* (W,)
-    float32. Returns (g, h), each (W,) float32."""
+    NaN-sentinel panel. Rd (M, W) float32/bfloat16/float8_e4m3fn; u_* (M,)
+    and v_* (W,) float32; ``order`` the store order ("delta_first": fp8
+    only). Returns (g, h), each (W,) float32."""
     _check(Rd, (u_old, u_pend), (v_old, v_pend))
+    _check_order(Rd, order)
     if Rd.device.type == "cpu":
-        return panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend)
+        return panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend,
+                                         order=order)
     return _col_sweep("panel_update_vsweep", Rd, None, u_old, u_pend, v_old,
-                      v_pend)
+                      v_pend, order)
 
 
 def panel_update_vsweep_irne(Rd: torch.Tensor, u_old: torch.Tensor,
@@ -244,12 +288,30 @@ def round_irne(x: torch.Tensor) -> torch.Tensor:
                        r.view(torch.bfloat16))
 
 
+def store(blk: torch.Tensor, s: torch.Tensor, rounding=None) -> None:
+    """blk[...] = the f32 ``s`` rounded once to blk's dtype (by
+    ``rounding``, f32 -> that dtype, when given); an fp8 block through
+    ``round_to_storage``, never the saturating cast."""
+    if rounding is not None:
+        s = rounding(s)
+    elif blk.dtype == FP8:
+        s = round_to_storage(s, FP8)
+    blk.copy_(s)
+
+
+def rounded_f32(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The f32 value of ``x`` (f32) rounded to ``dtype``."""
+    return x if dtype == torch.float32 else round_to_storage(
+        x, dtype).to(torch.float32)
+
+
 def panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend, *,
-                              rounding=None):
-    """Plain version of K1: the same delta fl(fl(uo·vo) − fl(up·vp)), added
-    to the residual in f32 and rounded ONCE to the storage dtype by the
-    in-place copy (or by ``rounding``, f32 -> storage dtype); the sums read
-    the stored values back."""
+                              rounding=None, order="once"):
+    """Plain version of K1: the same delta fl(fl(uo·vo) − fl(up·vp)) added
+    to the residual in f32. "once": the sum rounded ONCE to the storage
+    dtype by the in-place store (or by ``rounding``, f32 -> storage dtype);
+    "delta_first": the delta rounded to the storage dtype first, then the
+    sum. The sums read the stored values back."""
     M, W = Rd.shape
     g = torch.zeros(W, dtype=torch.float32, device=Rd.device)
     h = torch.zeros_like(g)
@@ -257,8 +319,10 @@ def panel_update_vsweep_plain(Rd, u_old, u_pend, v_old, v_pend, *,
         blk = Rd[r0:r1]
         d = torch.outer(u_old[r0:r1], v_old)
         d.sub_(torch.outer(u_pend[r0:r1], v_pend))
-        d.add_(blk)
-        blk.copy_(d if rounding is None else rounding(d))
+        if order == "delta_first":
+            d = rounded_f32(d, blk.dtype)
+        d.add_(blk.to(torch.float32))
+        store(blk, d, rounding)
         del d
         x, m = _masked_f32(blk)
         u = u_old[r0:r1]

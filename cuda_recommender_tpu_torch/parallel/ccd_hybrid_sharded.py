@@ -43,8 +43,9 @@ from ..data.ell import EllPair
 from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.densify import RESIDUAL_DTYPES
-from ..solvers.ccd_hybrid import (HybridPlan, check_supported, device_plan,
-                                  initial_state, make_hybrid_outer_step,
+from ..solvers.ccd_hybrid import (HybridPlan, device_plan, hybrid_store_order,
+                                  initial_state,
+                                  make_hybrid_outer_step,
                                   make_hybrid_phase_fns, plan_hybrid)
 from ..solvers.hybrid_state import (REPLICATED, hybrid_payload_block,
                                     hybrid_state_from_numpy,
@@ -151,13 +152,18 @@ def local_plan_from_shards(mf, shards, csr_ptr: np.ndarray,
 
 
 def make_sharded_hybrid_step(loc: HybridPlan, dplan, mesh, lam: float,
-                             maxinneriter: int, *, nmf: bool = False):
+                             maxinneriter: int, *, order: str,
+                             nmf: bool = False):
     """One outer iteration of the rank's part ``loc`` of the plan, with one
     all-reduce of (g, h) over the mesh per half-sweep; updates the rank's
-    ``HybridState`` in place."""
+    ``HybridState`` in place. ``order``: the panel updates' store order
+    (``solvers/ccd_hybrid.py::hybrid_store_order``: delta-first at fp8
+    without the panel kernel, as the JAX sharded step's XLA update
+    rounds). The sharded step
+    has no deferred tail (the JAX package's reads no defer group)."""
     group = ell_shardings(mesh).group
     return make_hybrid_outer_step(
-        loc, dplan, lam, maxinneriter, nmf=nmf,
+        loc, dplan, lam, maxinneriter, nmf=nmf, order=order,
         reduce=lambda g, h: all_reduce_pair(g, h, group))
 
 
@@ -193,7 +199,6 @@ def ccd_hybrid_train_sharded(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     global payload on rank 0 and None on the others. With
     ``cfg.phase_timing`` the sharded phase functions run, fenced and timed
     apart (``rank_callback(oiter, t, dt, rmse)`` per rank)."""
-    check_supported(cfg)
     if cfg.phase_timing:
         refuse_pending(resume)
     lay = ell_shardings(mesh)
@@ -269,8 +274,9 @@ def ccd_hybrid_train_sharded(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
             ti=ti_np, tj=tj_np, tv=np.asarray(T.val),
             rank_callback=rank_callback, **common)
     else:
-        step = make_sharded_hybrid_step(loc, dplan, mesh, lam, inner,
-                                        nmf=nmf)
+        step = make_sharded_hybrid_step(
+            loc, dplan, mesh, lam, inner, nmf=nmf,
+            order=hybrid_store_order(cfg))
         stats = pipelined_loop(fuse=cfg.fused_outer_iters,
                                do_step=lambda: step(state), **common)
     W = state.W.cpu().numpy()[:, plan.user_pos]

@@ -94,7 +94,8 @@ def _load_hybrid(case: dict, mesh, device) -> dict:
     from ..data.shard_loader import (load_header, load_hybrid_manifest,
                                      load_local_hybrid_shards, load_ptrs)
     from ..ops.densify import RESIDUAL_DTYPES
-    from ..solvers.ccd_hybrid import device_plan, initial_state
+    from ..solvers.ccd_hybrid import (device_plan, hybrid_store_order,
+                                      initial_state)
     from .ccd_hybrid_sharded import (local_plan_from_shards,
                                      make_sharded_hybrid_step)
     from .multihost import rank_device
@@ -112,11 +113,11 @@ def _load_hybrid(case: dict, mesh, device) -> dict:
     loc = local_plan_from_shards(mf, shards, csr_ptr, csc_ptr, shard, N)
     dev = rank_device(device)
     W0, _ = init_factors_np(cfg.k, mf.m, mf.n, seed=cfg.seed)
-    state = initial_state(loc, W0, RESIDUAL_DTYPES[cfg.residual_dtype], dev,
-                          cfg.mask_dtype)
-    step = make_sharded_hybrid_step(loc, device_plan(loc, dev), mesh,
-                                    cfg.lambda_, cfg.maxinneriter,
-                                    nmf=cfg.do_nmf)
+    rdt = RESIDUAL_DTYPES[cfg.residual_dtype]
+    state = initial_state(loc, W0, rdt, dev, cfg.mask_dtype)
+    step = make_sharded_hybrid_step(
+        loc, device_plan(loc, dev), mesh, cfg.lambda_, cfg.maxinneriter,
+        nmf=cfg.do_nmf, order=hybrid_store_order(cfg))
     for _ in range(cfg.maxiter):
         step(state)
     return dict(W=state.W.cpu().numpy(), H=state.H.cpu().numpy(),

@@ -156,7 +156,8 @@ def run_probe(n_iters: int, dev) -> dict:
     t0 = time.perf_counter()
     st = snh.fresh_state(plan, k, dev)
     step = snh.ch.make_hybrid_outer_step(
-        plan, snh.ch.device_plan(plan, dev), snh.LAM, INNER)
+        plan, snh.ch.device_plan(plan, dev), snh.LAM, INNER,
+        order="once")                                   # bf16 stores once
     sync = snh.fence(dev)
     sync()
     setup_s = time.perf_counter() - t0

@@ -57,7 +57,8 @@ def hybrid_step(device):
     W0, _ = init_factors_np(cfg.k, R.rows, R.cols, seed=cfg.seed)
     st = ch.initial_state(plan, W0, torch.bfloat16, device, "nan")
     step = ch.make_hybrid_outer_step(plan, ch.device_plan(plan, device),
-                                     cfg.lambda_, cfg.maxinneriter)
+                                     cfg.lambda_, cfg.maxinneriter,
+                                     order="once")     # bf16 stores once
     return lambda: step(st), f"hybrid {list(plan.panels)}, k={cfg.k}"
 
 
@@ -78,7 +79,7 @@ def dense_step(device, m, n, nnz, k, lam):
                           device=device)
     cnz = torch.as_tensor(np.diff(R.csc_ptr).astype(np.float32),
                           device=device)
-    step = cd.make_outer_step(lam, 1)
+    step = cd.make_outer_step(lam, 1, order="once")     # f32 stores once
     return (lambda: step(st, mask, rnz, cnz),
             f"dense {m}x{n}, k={k}, f32 residual, bf16 mask")
 

@@ -15,8 +15,10 @@ the seed-0 init, k = 10, λ = 0.05, in the JAX script's order:
   against ``ccd_reference``;
 * ``hybrid_bf16_int8``: the hybrid at a bf16 residual and an int8 mask
   (K4 and the masked sweeps), budget 2000 · n cells;
-* ``hybrid_fp8``: the fp8 residual raises in the port (ROADMAP.md "Not
-  ported"); one line says so and no file is written;
+* ``hybrid_fp8``: the hybrid at an fp8 e4m3fn residual and an int8 mask
+  (the fp8 instances of K4, delta-first as the JAX einsum path stores, and
+  of the masked sweeps); its golden check is reported, not required (the
+  JAX record itself misses it: 84.6% / 83.8% of W / H off);
 * ``hybrid_bf16_nan_kernel``: bf16 NaN-sentinel panels with the panel
   kernels (K1 and K2);
 * ``als``: ALS at AUTO (ELL, solver gj: K5) against ``als_reference``.
@@ -33,8 +35,8 @@ iteration by iteration, at the bars in ``BARS``; a
 line per iteration prints both. Each arm is also held to its golden run:
 dense CCD++ passes ``golden_compare`` (atol 1e-3) on W and H, ALS has
 under ``ALS_GOLDEN_PCT`` of entries off, and each bf16 hybrid's RMSE lies
-within ``HYBRID_GOLDEN_GAP`` of the golden's at every iteration. A miss
-exits 1.
+within ``HYBRID_GOLDEN_GAP`` of the golden's at every iteration (the fp8
+arm's gap is printed, not held). A miss exits 1.
 """
 
 from __future__ import annotations
@@ -76,14 +78,17 @@ HYBRIDS = (("bf16_int8", "bfloat16", "int8", False),
 WANT_KERNELS = {
     "ccd": ("fused_update_vsweep", "masked_usweep"),
     "hybrid_bf16_int8": ("fused_update_vsweep", "masked_usweep"),
+    "hybrid_fp8": ("fused_update_vsweep_fp8_delta_first",
+                   "masked_usweep_fp8"),
     "hybrid_bf16_nan_kernel": ("panel_update_vsweep", "panel_usweep"),
     "als": ("gj_solve",)}
 #: |port - JAX record| allowed per iteration: (rmse_compiled, rmse_golden).
 #: The goldens are the same NumPy solver on the same data (1e-6 CCD, 1e-5
 #: ALS); the compiled f32 runs track the JAX run within 1e-3, the bf16
-#: hybrids within the repo's bf16 trajectory bar, 0.02
+#: and fp8 hybrids within the repo's narrow-residual trajectory bar, 0.02
 BARS = {"ccd": (1e-3, 1e-6), "hybrid_bf16_int8": (0.02, 1e-6),
-        "hybrid_bf16_nan_kernel": (0.02, 1e-6), "als": (1e-3, 1e-5)}
+        "hybrid_fp8": (0.02, 1e-6), "hybrid_bf16_nan_kernel": (0.02, 1e-6),
+        "als": (1e-3, 1e-5)}
 #: ALS: the share of W's and of H's entries (%) allowed off golden_compare's
 #: bar, the trainer tests' bar for ALS against its reference
 ALS_GOLDEN_PCT = 1.0
@@ -185,13 +190,8 @@ def run(maxiter: int, work: str, out_dir: str, device="cuda") -> dict:
                        residual_dtype=rdt, mask_dtype=mdt,
                        hybrid_panel_kernel=kern,
                        hybrid_dense_cells=2000 * R.cols)
-        try:
-            Wh, Hh, sh, t_h, cnt = _train(arm, cfg_h, cfg_h.backend, R, W0,
-                                          H0, T, dev)
-        except NotImplementedError as e:
-            print(f"hybrid-{tag} skipped, no record written: {e}",
-                  flush=True)
-            continue
+        Wh, Hh, sh, t_h, cnt = _train(arm, cfg_h, cfg_h.backend, R, W0, H0,
+                                      T, dev)
         gwh = golden_compare(Wh, Wg, atol=1e-3)
         ghh = golden_compare(Hh, Hg, atol=1e-3)
         out[arm] = {"lines": _lines(sh, sg), "launches": cnt,
@@ -251,7 +251,9 @@ def jax_records(path: str = JAX_RECORDS) -> dict:
 def golden_misses(arm: str, rec: dict) -> list:
     """An arm's misses of its own golden run: dense CCD++ must pass
     golden_compare on W and H, ALS have under ALS_GOLDEN_PCT of each off,
-    a bf16 hybrid's RMSE stay within HYBRID_GOLDEN_GAP of the golden's."""
+    a bf16 hybrid's RMSE stay within HYBRID_GOLDEN_GAP of the golden's
+    (the fp8 hybrid's is reported only: an fp8 residual's rounding keeps
+    it 0.078 off at 15 iterations in the JAX record)."""
     misses = []
     if arm == "ccd":
         misses += [f"ccd: golden_{side} {res.message()}"
@@ -261,7 +263,7 @@ def golden_misses(arm: str, rec: dict) -> list:
                    f"(bar {ALS_GOLDEN_PCT}%)"
                    for side, res in rec["golden"].items()
                    if res.error_percentage >= ALS_GOLDEN_PCT]
-    else:
+    elif arm != "hybrid_fp8":
         for line in rec["lines"]:
             gap = round(abs(line["rmse_compiled"] - line["rmse_golden"]), 9)
             if gap > HYBRID_GOLDEN_GAP:

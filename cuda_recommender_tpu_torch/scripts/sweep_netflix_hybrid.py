@@ -33,17 +33,18 @@ widths, T) (``sweep_netflix_hybrid_r5.jsonl`` where it has the row, else
 ``_r4``) within ``RMSE_TOL``, the bf16 trajectory bar; a miss exits 1.
 
 Each line has the JAX script's keys (``device`` is the card's name and
-power limit, ``scripts/common.py::card``; ``defer_group`` is 0) and the
+power limit, ``scripts/common.py::card``) and the
 port's: ``row``, ``launches`` (K1 and K2 must launch on the card),
 ``iter_s_group_samples`` and the JAX row's RMSE and file. Lines are
 printed and appended to ``--out`` (default ``cuda_recommender_tpu_torch/
 results/sweep_netflix_hybrid.jsonl``; none with ``--out ''``).
 
-``CRTPU_DEFER_GROUP`` above 0 (the JAX script's rank-deferred tail) raises
-NotImplementedError: the port does not have it (ROADMAP.md "Not
-ported"). ``CRTPU_BENCH_CPU=1`` with ``--device cpu`` runs the JAX
-script's CPU grid (6,040 x 3,706, 900,000 ratings, k = 8, a 2,000-row
-budget, the (256,) and auto stairs, groups of 2); times are then null.
+``CRTPU_DEFER_GROUP`` (default 0), as in the JAX script, sets every row's
+``hybrid_defer_group``: the rank-deferred ELL tail, the line's
+``defer_group`` (the JAX r4 grid ran G = 8). ``CRTPU_BENCH_CPU=1`` with
+``--device cpu`` runs the JAX script's CPU grid (6,040 x 3,706, 900,000
+ratings, k = 8, a 2,000-row budget, the (256,) and auto stairs, groups of
+2); times are then null.
 """
 
 from __future__ import annotations
@@ -98,14 +99,9 @@ JAX_FILES = ("sweep_netflix_hybrid_r5.jsonl", "sweep_netflix_hybrid_r4.jsonl")
 OUT = os.path.join(OUT_DIR, "sweep_netflix_hybrid.jsonl")
 
 
-def check_defer_group() -> None:
-    """Raise NotImplementedError, in the words of
-    ``ccd_hybrid.check_supported``, if ``CRTPU_DEFER_GROUP`` (the JAX
-    script's rank-deferred tail) is above 0."""
-    defer = int(os.environ.get("CRTPU_DEFER_GROUP", "0"))
-    if defer > 0:
-        ch.check_supported(Config(backend="hybrid",
-                                  hybrid_defer_group=defer))
+def defer_group() -> int:
+    """``CRTPU_DEFER_GROUP``: the rows' rank-deferral group (0: none)."""
+    return int(os.environ.get("CRTPU_DEFER_GROUP", "0"))
 
 
 def shape(cpu: bool) -> dict:
@@ -204,8 +200,10 @@ def run_repeat(R, T, plan, plan_s: float, row: tuple, dev, *, rep: int = 0,
     k, btag, widths, inner = row
     on_card = dev.type == "cuda"
     st = fresh_state(plan, k, dev)
+    defer = defer_group()
     step = ch.make_hybrid_outer_step(plan, ch.device_plan(plan, dev), LAM,
-                                     inner)
+                                     inner, order="once",   # bf16: once
+                                     defer_group=defer)
     sync = fence(dev)
     sync()
     launches.reset_launch_counts()
@@ -235,7 +233,7 @@ def run_repeat(R, T, plan, plan_s: float, row: tuple, dev, *, rep: int = 0,
         "widths": "auto" if widths == "auto" else list(widths),
         "panels": [list(p) for p in plan.panels],
         "nnz_light_frac": round(plan.nnz_light / R.nnz, 4),
-        "defer_group": 0, "repeat": rep, "plan_s": plan_s,
+        "defer_group": defer, "repeat": rep, "plan_s": plan_s,
         "compile_s": first_s if on_card else None,
         "iter_s": dt, "iter_s_pair_samples": tm["iter_s_pair_samples"],
         "iter_s_spread_pct": tm["iter_s_spread_pct"],
@@ -252,7 +250,6 @@ def run_repeat(R, T, plan, plan_s: float, row: tuple, dev, *, rep: int = 0,
 def run(indices: list, dev, cpu: bool, *, out: str | None = None) -> list:
     """The rows ``indices`` of the grid, REPEATS each, in turns; each line
     printed and appended to ``out``."""
-    check_defer_group()
     sh = shape(cpu)
     grid = sh["grid"]
     t0 = time.perf_counter()

@@ -21,7 +21,7 @@ by graph replays of GATHER_REPS calls with the index cycled through 128
 MB of copies (``probe_gather``'s method: a call's device time is below
 the host's cost of issuing it), in turns plain, library, kernel, kernel,
 library, plain.
-``chip_smoke.py`` times its phases 6, 9 and 15 through ``nan_sweeps``,
+``chip_smoke.py`` times its phases 6, 9, 15 and 42 through ``nan_sweeps``,
 ``gj_solves``, ``masked_sweeps`` and ``time_sweeps``, and checks K5 on
 ``spd_systems``, so that one place holds the calls, their bytes and their
 operations. Prints one line per
@@ -74,65 +74,98 @@ def _vectors(M, W, device, seed) -> list:
             for n in (M, M, W, W)]
 
 
-def nan_sweeps(M, W, device, seed) -> dict:
-    """K1, K2 and K3 on an (M, W) bf16 NaN-sentinel panel (30% observed)
-    drawn on the device from ``seed``: name -> (kernel call, plain call,
-    bytes, flops). Bytes: each reads the panel (2 B a cell) and its vectors
-    and writes g and h; K1 also writes the panel back. Flops a cell: 7
-    (K1), 3 (K2, K3)."""
+def as_residual(R, dtype):
+    """R (bf16) rounded to ``dtype``: R itself at bf16; at fp8 row blocks
+    through ``round_to_storage`` (no full-size f32 temporary)."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops.densify import round_to_storage
+
+    if dtype == torch.bfloat16:
+        return R
+    out = torch.empty(R.shape, dtype=dtype, device=R.device)
+    rows = max(1, (1 << 26) // max(1, R.shape[1]))
+    for r0 in range(0, R.shape[0], rows):
+        out[r0:r0 + rows].copy_(round_to_storage(
+            R[r0:r0 + rows].to(torch.float32), dtype))
+    return out
+
+
+def nan_sweeps(M, W, device, seed, dtype=None) -> dict:
+    """K1, K2 and K3 on an (M, W) NaN-sentinel panel of ``dtype`` (default
+    bf16; fp8: K1 in both store orders) (30% observed) drawn on the device
+    from ``seed``: name -> (kernel call, plain call, bytes, flops), the
+    name the instance's (``panel_kernels.instance_name``). Bytes: each
+    reads the panel (its cells' bytes) and its vectors and writes g and h;
+    K1 also writes the panel back. Flops a cell: 7 (K1), 3 (K2, K3)."""
     import torch
 
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     R = torch.randn((M, W), generator=gen, device=device, dtype=torch.bfloat16)
     R.masked_fill_(torch.rand((M, W), generator=gen, device=device,
                               dtype=torch.bfloat16) >= 0.3, float("nan"))
+    R = as_residual(R, dtype)
     uo, up, vo, vp = _vectors(M, W, device, seed + 1)
-    cells = M * W
-    return {
-        "panel_update_vsweep": (
-            lambda: pk.panel_update_vsweep(R, uo, up, vo, vp),
-            lambda: pk.panel_update_vsweep_plain(R, uo, up, vo, vp),
-            4 * cells + 4 * (2 * M + 4 * W), 7 * cells),
-        "panel_usweep": (lambda: pk.panel_usweep(R, vo),
-                         lambda: pk.panel_usweep_plain(R, vo),
-                         2 * cells + 4 * (W + 2 * M), 3 * cells),
-        "panel_vsweep": (lambda: pk.panel_vsweep(R, uo),
-                         lambda: pk.panel_vsweep_plain(R, uo),
-                         2 * cells + 4 * (M + 2 * W), 3 * cells)}
+    cells, rb = M * W, R.element_size()
+    orders = ("once", "delta_first") if rb == 1 else ("once",)
+    out = {pk.instance_name("panel_update_vsweep", dtype, order): (
+        lambda o=order: pk.panel_update_vsweep(R, uo, up, vo, vp, order=o),
+        lambda o=order: pk.panel_update_vsweep_plain(R, uo, up, vo, vp,
+                                                     order=o),
+        2 * rb * cells + 4 * (2 * M + 4 * W), 7 * cells) for order in orders}
+    out[pk.instance_name("panel_usweep", dtype)] = (
+        lambda: pk.panel_usweep(R, vo), lambda: pk.panel_usweep_plain(R, vo),
+        rb * cells + 4 * (W + 2 * M), 3 * cells)
+    out[pk.instance_name("panel_vsweep", dtype)] = (
+        lambda: pk.panel_vsweep(R, uo), lambda: pk.panel_vsweep_plain(R, uo),
+        rb * cells + 4 * (M + 2 * W), 3 * cells)
+    return out
 
 
 def masked_sweeps(M, W, dtype, mask_dtype, device, seed) -> dict:
     """K4 and the masked sweeps on an (M, W) residual of ``dtype`` (30%
-    observed, 0 elsewhere) and its ``mask_dtype`` mask, drawn on the device
-    from ``seed``: name -> (kernel call, plain call, bytes, flops). Bytes:
-    K4 reads and writes the residual and reads the mask, the sweeps read
-    both; each reads its vectors and writes g and h. Flops a cell: 6 (K4,
-    as the Pallas kernel's cost estimate), 4 (the sweeps)."""
+    observed, 0 elsewhere; fp8: K4 in both store orders) and its
+    ``mask_dtype`` mask, drawn on the device from ``seed``: name ->
+    (kernel call, plain call, bytes, flops), the name the instance's.
+    Bytes: K4 reads and writes the residual and reads the mask, the sweeps
+    read both; each reads its vectors and writes g and h. Flops a cell: 6
+    (K4, as the Pallas kernel's cost estimate), 4 (the sweeps)."""
     import torch
 
     from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+    from cuda_recommender_tpu_torch.ops.panel_kernels import instance_name
 
     gen = torch.Generator(device=device).manual_seed(seed)
     keep = torch.rand((M, W), generator=gen, device=device) < 0.3
+    draw = dtype if dtype != torch.float8_e4m3fn else torch.bfloat16
     R = torch.randn((M, W), generator=gen, device=device,
-                    dtype=dtype).masked_fill_(~keep, 0.0)
+                    dtype=draw).masked_fill_(~keep, 0.0)
+    if draw != dtype:
+        R = as_residual(R, dtype)
     Mk = keep.to(mask_dtype)
     del keep
     ua, us, va, vs = _vectors(M, W, device, seed + 1)
     cells, rb, mb = M * W, R.element_size(), Mk.element_size()
-    return {
-        "fused_update_vsweep": (
-            lambda: ck.fused_update_vsweep(R, Mk, ua, us, va, vs),
-            lambda: ck.fused_update_vsweep_plain(R, Mk, ua, us, va, vs),
-            cells * (2 * rb + mb) + 4 * (2 * M + 4 * W), 6 * cells),
-        "masked_usweep": (lambda: ck.masked_usweep(R, Mk, va),
-                          lambda: ck.masked_usweep_plain(R, Mk, va),
-                          cells * (rb + mb) + 4 * (W + 2 * M), 4 * cells),
-        "masked_vsweep": (lambda: ck.masked_vsweep(R, Mk, ua),
-                          lambda: ck.masked_vsweep_plain(R, Mk, ua),
-                          cells * (rb + mb) + 4 * (M + 2 * W), 4 * cells)}
+    orders = ("once", "delta_first") if rb == 1 else ("once",)
+    out = {instance_name("fused_update_vsweep", dtype, order): (
+        lambda o=order: ck.fused_update_vsweep(R, Mk, ua, us, va, vs,
+                                               order=o),
+        lambda o=order: ck.fused_update_vsweep_plain(R, Mk, ua, us, va, vs,
+                                                     order=o),
+        cells * (2 * rb + mb) + 4 * (2 * M + 4 * W), 6 * cells)
+        for order in orders}
+    out[instance_name("masked_usweep", dtype)] = (
+        lambda: ck.masked_usweep(R, Mk, va),
+        lambda: ck.masked_usweep_plain(R, Mk, va),
+        cells * (rb + mb) + 4 * (W + 2 * M), 4 * cells)
+    out[instance_name("masked_vsweep", dtype)] = (
+        lambda: ck.masked_vsweep(R, Mk, ua),
+        lambda: ck.masked_vsweep_plain(R, Mk, ua),
+        cells * (rb + mb) + 4 * (M + 2 * W), 4 * cells)
+    return out
 
 
 def variant_sweeps(M, W, device, seed) -> dict:

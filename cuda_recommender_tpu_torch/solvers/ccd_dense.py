@@ -27,15 +27,21 @@ stream (m, n) f32 temporaries on every pass. At f32 the two schedules are
 the same math: the dense step sweeps the stored residual, K4 the f32 sum it
 stores. At bf16 they differ, and the port follows the pallas schedule, not
 the JAX dense step: that step rounds delta·mask to bf16 before the add and
-sweeps the stored value; K4 rounds the f32 sum once and sweeps that sum.
-On the CPU the same step runs the kernels' plain PyTorch versions.
+sweeps the stored value; K4 rounds the f32 sum once and sweeps that sum
+(one bf16 ULP apart, accepted). At fp8 the two orders differ in about a
+quarter of the observed cells, so there K4 stores in the order of the
+backend it runs for (``order``, ops/densify.py::store_order): the JAX dense
+step's "delta_first" here, the Pallas kernel's "once" for the pallas
+backend (solvers/ccd_pallas.py). On the CPU the same step runs the
+kernels' plain PyTorch versions.
 
 Phase timing (``cfg.phase_timing``, solvers/phase_loop.py) runs the
 reference's plain order per rank instead: add-back, sweeps, immediate
 subtract, each fenced. The sweeps are ``masked_vsweep`` and
 ``masked_usweep``; the add-back and subtract are plain torch
 (``rank1_update``), as XLA computes them in the JAX package, with its
-rounding: the delta·mask is rounded to the residual's dtype, then the sum.
+rounding: the delta·mask is rounded to the residual's dtype, then the sum
+(at fp8 too, where the sum is formed in f32: torch adds no fp8).
 
 Semantics preserved (SURVEY.md §7): H zeroed at entry (src/CCD.cpp:56-60);
 λ scaled by the entity's nnz (src/CCD.cpp:112,120); empty entity → 0
@@ -57,7 +63,9 @@ from ..core.metrics_log import MetricsLog
 from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep
-from ..ops.densify import RESIDUAL_DTYPES, densify_coo_mask
+from ..ops.densify import (FP8, RESIDUAL_DTYPES, densify_coo_mask,
+                           store_order)
+from ..ops.panel_kernels import rounded_f32, store
 from ..parallel.collectives import (all_gather_rows, all_reduce_pair,
                                     gather_arrays)
 from ..parallel.multihost import rank_device
@@ -74,20 +82,13 @@ UPDATE_BLOCK_CELLS = 1 << 28
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for dense knobs the port does not run: NotImplementedError
-    naming the ROADMAP.md item that ports it, ValueError for
-    ``mask_dtype="nan"`` (the dense residual keeps an explicit mask; the
-    JAX package fails there too)."""
+    """Raise ValueError for ``mask_dtype="nan"``: the dense residual keeps
+    an explicit mask (the NaN sentinel is a hybrid-panel layout; the JAX
+    package fails there too)."""
     if cfg.mask_dtype == "nan":
         raise ValueError("the dense backend needs an explicit mask "
                          "(mask_dtype 'bfloat16' or 'int8'); the NaN "
                          "sentinel is a hybrid-panel layout")
-    todo = []
-    if cfg.residual_dtype not in RESIDUAL_DTYPES:
-        todo.append(f"residual_dtype={cfg.residual_dtype!r} (ROADMAP.md "
-                    "'Not ported': the fp8 residual)")
-    if todo:
-        raise NotImplementedError("not in the port yet: " + "; ".join(todo))
 
 
 def _half_sweep(g: torch.Tensor, h: torch.Tensor, lam: float,
@@ -108,14 +109,16 @@ def _no_reduce(g, h):
 
 def make_outer_step(lam: float, maxinneriter: int, *, nmf: bool = False,
                     reduce_v: Callable = _no_reduce,
-                    reduce_u: Callable = _no_reduce,
+                    reduce_u: Callable = _no_reduce, order: str,
                     ) -> Callable[..., torch.Tensor]:
     """One outer iteration over all k ranks (a Python loop), updating the
     state IN PLACE (the JAX step donates it). ``step(state, mask, row_nnz,
-    col_nnz)`` returns the state's W. ``reduce_v(g, h)`` and
-    ``reduce_u(g, h)`` (a sharded residual) sum the v-sweep's and the
-    u-sweep's partials over the ranks that share the block's columns and
-    rows before the division; the state is then this rank's block."""
+    col_nnz)`` returns the state's W. ``order`` is K4's store order
+    ("delta_first": an fp8 residual's on the JAX dense step).
+    ``reduce_v(g, h)`` and ``reduce_u(g, h)`` (a sharded residual) sum the
+    v-sweep's and the u-sweep's partials over the ranks that share the
+    block's columns and rows before the division; the state is then this
+    rank's block."""
 
     def step(st: DenseState, mask, row_nnz, col_nnz) -> torch.Tensor:
         def new_v(u_sweep):
@@ -129,7 +132,7 @@ def make_outer_step(lam: float, maxinneriter: int, *, nmf: bool = False,
             # K4: deferred subtract of rank t-1 + add-back of rank t, and
             # the first v-sweep with the old u, in one residual pass
             v = new_v(fused_update_vsweep(st.Rhat, mask, st.W[t], st.u_pend,
-                                          st.H[t], st.v_pend))
+                                          st.H[t], st.v_pend, order=order))
             u = new_u(v)
             for _ in range(maxinneriter - 1):      # src/CCD.cpp:107-123
                 v = new_v(masked_vsweep(st.Rhat, mask, u))
@@ -152,11 +155,21 @@ def rank1_update(R: torch.Tensor, M: Optional[torch.Tensor],
     does not change a bit. The JAX package's phase-mode update
     (ccd_dense.py::_outer_pass, ccd_hybrid.py::_panel_update): the f32
     delta (·mask) is rounded to R's dtype, then R + delta is rounded again
-    (twice at bf16, where K1 and K4 round once)."""
+    (twice at bf16 and fp8, where K1 and K4 round once). An fp8 residual
+    adds in f32 and stores through ``round_to_storage``."""
     rows = max(1, UPDATE_BLOCK_CELLS // max(1, R.shape[1]))
     us = u * sign                       # exact: sign is ±1
     for r0 in range(0, R.shape[0], rows):
         blk = R[r0:r0 + rows]
+        if R.dtype == FP8:
+            d = torch.outer(us[r0:r0 + rows], v)
+            if M is not None:
+                d.mul_(M[r0:r0 + rows])
+            d = rounded_f32(d, FP8)
+            d.add_(blk.to(torch.float32))
+            store(blk, d)
+            del d
+            continue
         if M is None:
             # the f32 product rounded once, on the store, to R's dtype
             d = torch.mul(us[r0:r0 + rows, None], v, out=torch.empty_like(blk))
@@ -214,6 +227,7 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
                     ckpt_every: int = 0, ckpt_fn=None, resume=None,
                     rank_callback=None, payload_shape=None,
                     log: Optional[MetricsLog] = None,
+                    order: Optional[str] = None,
                     ) -> tuple[np.ndarray, np.ndarray, list[IterStats]]:
     """Train CCD++ with the dense backend on ``device``. Returns (W, H,
     per-iteration stats) in the reference's rank-major layout. ``H0`` is
@@ -227,7 +241,9 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     run after outer iteration ``oiter``. With ``cfg.phase_timing`` the
     phases are fenced and timed apart (``rank_callback(oiter, t, dt,
     rmse)`` per rank). With ``log``, the residual's size and the device
-    set-up time are reported as an info line.
+    set-up time are reported as an info line. ``order`` is K4's store
+    order (default: the JAX dense step's, ``store_order(dtype, False)``;
+    the pallas backend passes "once").
 
     ``shardings`` (``parallel.mesh.dense_ccd_shardings`` or ``_2d``: this
     rank's block) runs the sharded residual (``_train_sharded``)."""
@@ -236,8 +252,10 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
         refuse_pending(resume)
     dev = resolve_device(device)
     rdt = RESIDUAL_DTYPES[cfg.residual_dtype]
+    if order is None:
+        order = store_order(rdt, rounds_once=False)
     if shardings is not None:
-        return _train_sharded(R, W0, T, cfg, shardings, dev, rdt,
+        return _train_sharded(R, W0, T, cfg, shardings, dev, rdt, order,
                               callback=callback, ckpt_every=ckpt_every,
                               ckpt_fn=ckpt_fn, resume=resume, log=log)
     m, n = R.rows, R.cols
@@ -294,7 +312,8 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
             ti=np.asarray(T.row_idx), tj=np.asarray(T.col_idx),
             tv=np.asarray(T.val), rank_callback=rank_callback, **common)
     else:
-        step = make_outer_step(cfg.lambda_, cfg.maxinneriter, nmf=cfg.do_nmf)
+        step = make_outer_step(cfg.lambda_, cfg.maxinneriter, nmf=cfg.do_nmf,
+                               order=order)
         stats = pipelined_loop(
             fuse=cfg.fused_outer_iters,
             do_step=lambda: step(state, mask, row_nnz, col_nnz), **common)
@@ -302,7 +321,8 @@ def ccd_dense_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
 
 
 def _train_sharded(R: RatingMatrix, W0: np.ndarray, T: TestCOO, cfg: Config,
-                   lay, dev, rdt, *, callback=None, ckpt_every: int = 0,
+                   lay, dev, rdt, order, *, callback=None,
+                   ckpt_every: int = 0,
                    ckpt_fn=None, resume=None,
                    log: Optional[MetricsLog] = None):
     """The sharded residual (the JAX package's ccd_dense.py:205-235): each
@@ -359,7 +379,7 @@ def _train_sharded(R: RatingMatrix, W0: np.ndarray, T: TestCOO, cfg: Config,
         return lambda g, h: all_reduce_pair(g, h, group)
 
     step = make_outer_step(
-        cfg.lambda_, cfg.maxinneriter, nmf=cfg.do_nmf,
+        cfg.lambda_, cfg.maxinneriter, nmf=cfg.do_nmf, order=order,
         reduce_v=reduce_over(lay.user_group),
         reduce_u=(reduce_over(lay.item_group)
                   if lay.item_group is not None else _no_reduce))

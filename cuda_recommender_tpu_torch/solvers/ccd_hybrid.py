@@ -27,19 +27,25 @@ with nnz_j the entity's TOTAL degree (src/CCD.cpp:112,120).
 Host half (``HybridPlan``, ``plan_hybrid`` and its search helpers): copied
 from the JAX package with its semantics unchanged, so both packages build
 bit-identical plans. Device half: ``densify_panels``, the outer step and
-``ccd_hybrid_train`` — the JAX package's panel-kernel schedule without the
-rank-deferral option, for both panel layouts. Every part defers the
-subtract of a rank's new outer product to the next rank through the shared
-(u_pend, v_pend) state, so each panel costs one read-modify-write pass (K1,
-or K4 with a mask) and one read pass (K2, or ``masked_usweep``) per rank,
-and each ELL side one gather pass. ``hybrid_panel_kernel=False`` with NaN
-panels runs the same kernels. At an f32 residual the JAX package's einsum
-panel path (ccd_hybrid.py:580-586, 615-626, 654-662, 715-723) is the same
-math. At a bf16 residual it is not: the einsum path rounds the delta (or
-delta·mask) to bf16 before the add, rounds the sum again and sweeps the
-stored value, while the port rounds once and, in a masked panel, K4 sweeps
-the f32 sum before that rounding (the JAX pallas schedule; K1 sweeps the
-stored value, as the JAX panel kernel does).
+``ccd_hybrid_train`` — the JAX package's schedule for both panel layouts,
+with its rank-deferral option (``hybrid_defer_group``). Every part defers
+the subtract of a rank's new outer product to the next rank through the
+shared (u_pend, v_pend) state, so each panel costs one read-modify-write
+pass (K1, or K4 with a mask) and one read pass (K2, or ``masked_usweep``)
+per rank, and each ELL side one gather pass (with G > 0 the tail's values
+stay frozen for G ranks and one flush a group applies the deferred
+deltas). ``hybrid_panel_kernel=False`` with NaN panels runs the same
+kernels. At an f32 residual the JAX package's einsum panel path
+(ccd_hybrid.py:580-586, 615-626, 654-662, 715-723) is the same math. At a
+bf16 residual it is not: the einsum path rounds the delta (or delta·mask)
+to bf16 before the add, rounds the sum again and sweeps the stored value,
+while the port rounds once and, in a masked panel, K4 sweeps the f32 sum
+before that rounding (the JAX pallas schedule; K1 sweeps the stored
+value, as the JAX panel kernel does), one bf16 ULP apart. At an fp8
+residual the two orders differ in about a quarter of the cells, so there
+K1 and K4 store in the JAX path's own order (``ops/densify.py::
+store_order``): delta-first for explicit masks and for NaN panels without
+the panel kernel (the einsum path), once with it (the Pallas kernel).
 
 Phase timing (``cfg.phase_timing``, ``make_hybrid_phase_fns``) runs the
 reference's plain order per rank instead — add-back, sweeps, immediate
@@ -74,9 +80,12 @@ from ..native.groupsort import key_count, perm_gather, stable_perm
 from ..data.sparse import RatingMatrix, TestCOO, from_coo, make_test
 from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.ccd_kernels import fused_update_vsweep, masked_usweep, masked_vsweep
-from ..ops.densify import RESIDUAL_DTYPES, densify_coo_mask, densify_coo_nan
-from ..ops.ell_ops import (extend_zero, fused_sweep, fused_update_sweep,
-                           residual_update, stacked_remap, sweep_partials)
+from ..ops.densify import (RESIDUAL_DTYPES, densify_coo_mask, densify_coo_nan,
+                           store_order)
+from ..ops.ell_ops import (deferred_flush, deferred_sweep, extend_zero,
+                           fused_remap_combine, fused_sweep,
+                           fused_update_sweep, residual_update, stacked_remap,
+                           sweep_partials)
 from ..ops.panel_kernels import (panel_update_vsweep, panel_usweep,
                                  panel_vsweep)
 from .ccd_dense import _half_sweep, rank1_update
@@ -476,19 +485,6 @@ def _finish_plan(R, cfg, materialize_dense, num_shards, panels,
 
 # ---------------------------------------------------------------- device half
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for hybrid knobs outside the port's slice,
-    naming the ROADMAP.md item that ports them."""
-    todo = []
-    if cfg.residual_dtype not in RESIDUAL_DTYPES:
-        todo.append(f"residual_dtype={cfg.residual_dtype!r} (ROADMAP.md "
-                    "'Not ported': the fp8 residual)")
-    if cfg.hybrid_defer_group > 0:
-        todo.append("hybrid_defer_group > 0 (ROADMAP.md 'Not ported')")
-    if todo:
-        raise NotImplementedError("not in the port yet: " + "; ".join(todo))
-
-
 @dataclasses.dataclass(frozen=True)
 class HybridDevicePlan:
     """The plan's index and degree arrays on the training device."""
@@ -565,10 +561,20 @@ def initial_state(plan: HybridPlan, W0: np.ndarray, dtype: torch.dtype,
         u_pend=torch.zeros(m, **zeros), v_pend=torch.zeros(n, **zeros))
 
 
+def hybrid_store_order(cfg: Config) -> str:
+    """K1's and K4's store order for the hybrid ``cfg``, the JAX package's
+    own (``store_order``): "once" with the panel kernels (the Pallas K1),
+    else at fp8 "delta_first" (the XLA einsum path: explicit masks, NaN
+    panels without the kernel); "once" at f32 and bf16."""
+    return store_order(RESIDUAL_DTYPES[cfg.residual_dtype],
+                       rounds_once=cfg.hybrid_panel_kernel)
+
+
 def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
-                           lam: float, maxinneriter: int, *,
+                           lam: float, maxinneriter: int, *, order: str,
                            nmf: bool = False,
                            reduce: Optional[Callable] = None,
+                           defer_group: int = 0,
                            ) -> Callable[[HybridState], torch.Tensor]:
     """One outer iteration over all k ranks (a Python loop), all parts,
     updating ``state`` IN PLACE (the JAX step donates these buffers).
@@ -583,6 +589,22 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
     updates. W[t], H[t] take (u, v), which also become the pending outer
     product. A state with explicit panel masks (``state.masks``) runs K4,
     ``masked_usweep`` and ``masked_vsweep`` in those three places.
+    ``order`` is K1's and K4's store order: "once", or at an fp8 residual
+    "delta_first", the order of the JAX package's einsum panel path
+    (explicit masks, or NaN panels without the panel kernel); a caller
+    with a Config takes it from ``hybrid_store_order``.
+
+    ``defer_group`` G > 0 (the JAX package's rank-deferred ELL tail,
+    ignored without a tail): the tail's residual values stay frozen for G
+    ranks. Each rank's two rank-1 deltas, the deferred subtract of rank
+    t-1 (u_pend, v_pend; sign -1) and the add-back of rank t (u_old, v_old;
+    sign +1), go into columns 2j and 2j+1 (j = t mod G) of the tables U_def
+    (m, 2G) and V_def (n, 2G); every sweep of the tail is ``deferred_sweep``
+    against the frozen values plus ``fused_remap_combine``'s algebraic
+    corrections; and ``deferred_flush`` applies the group's 2G deltas in one
+    pass at t mod G = G - 1 and at the last rank (so a step ends with
+    current values, and checkpoints do not change). The panels take each
+    rank's update through K1/K4 as without G.
 
     ``reduce(g, h) -> (g, h)`` (the sharded step, parallel/
     ccd_hybrid_sharded.py) sums each half-sweep's partials over the ranks
@@ -593,15 +615,35 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
     have_light = plan.nnz_light > 0
     m, n = plan.row_nnz.shape[0], plan.col_nnz.shape[0]
     d = dplan
+    G = int(defer_group) if have_light else 0
+    dsigns = tuple(-1.0 if c % 2 == 0 else 1.0 for c in range(2 * G))
     if reduce is None:
         def reduce(g, h):
             return g, h
 
-    def rank(st: HybridState, t: int) -> None:
+    def flush(st: HybridState, U_def, V_def) -> None:
+        """Apply the group's 2G deferred deltas to both tail sides, then
+        clear the tables. The flush needs slot-space own vectors: the 2G
+        columns are remapped once here."""
+        OV = torch.stack(stacked_remap(V_def.unbind(1), d.ipos_safe))
+        OU = torch.stack(stacked_remap(U_def.unbind(1), d.upos_safe))
+        deferred_flush(d.idx_c, st.vals_c, cols, extend_zero(U_def), OV,
+                       dsigns)
+        deferred_flush(d.idx_r, st.vals_r, rows, extend_zero(V_def), OU,
+                       dsigns)
+        U_def.zero_()
+        V_def.zero_()
+
+    def rank(st: HybridState, t: int, U_def, V_def) -> None:
         u_old, v_old = st.W[t], st.H[t]
         u, v = u_old, v_old
         f32 = dict(dtype=torch.float32, device=st.W.device)
         masks = st.masks or [None] * len(panels)
+        if G:
+            # this rank's two deferred deltas at columns (2j, 2j + 1)
+            j = 2 * (t % G)
+            U_def[:, j], U_def[:, j + 1] = st.u_pend, u_old
+            V_def[:, j], V_def[:, j + 1] = st.v_pend, v_old
         for i in range(maxinneriter):
             # ---- v-sweep (items): panel partials + ELL partials ----
             g, h = torch.zeros(n, **f32), torch.zeros(n, **f32)
@@ -609,8 +651,9 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
                 if i == 0:
                     vecs = (u_old[r0:r1], st.u_pend[r0:r1], v_old[:w],
                             st.v_pend[:w])
-                    gp, hp = (panel_update_vsweep(Rd, *vecs) if Mk is None
-                              else fused_update_vsweep(Rd, Mk, *vecs))
+                    gp, hp = (panel_update_vsweep(Rd, *vecs, order=order)
+                              if Mk is None else
+                              fused_update_vsweep(Rd, Mk, *vecs, order=order))
                 elif Mk is None:
                     gp, hp = panel_vsweep(Rd, u[r0:r1])
                 else:
@@ -618,17 +661,28 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
                 g[:w] += gp
                 h[:w] += hp
             if have_light:
-                if i == 0:
-                    ovp, ovo = stacked_remap((st.v_pend, v_old), d.ipos_safe)
-                    g_l, h_l = fused_update_sweep(
+                if G:
+                    # against the frozen values, corrected for the group's
+                    # recorded deltas in entity space
+                    S0, Sc, h_l = deferred_sweep(
                         d.idx_c, st.vals_c, cols,
-                        extend_zero(torch.stack([st.u_pend, u_old], -1)),
-                        owns=(ovp, ovo), signs=(-1.0, 1.0), sweep_col=1)
+                        extend_zero(torch.cat([u[:, None], U_def], 1)))
+                    g_e, h_e = fused_remap_combine([S0] + Sc, h_l,
+                                                   d.slot_of_ipos, V_def.T,
+                                                   dsigns)
                 else:
-                    g_l, h_l = fused_sweep(
-                        d.idx_c, st.vals_c, cols,
-                        extend_zero(torch.stack([u, u], -1)), sweep_col=0)
-                g_e, h_e = stacked_remap((g_l, h_l), d.slot_of_ipos)
+                    if i == 0:
+                        ovp, ovo = stacked_remap((st.v_pend, v_old),
+                                                 d.ipos_safe)
+                        g_l, h_l = fused_update_sweep(
+                            d.idx_c, st.vals_c, cols,
+                            extend_zero(torch.stack([st.u_pend, u_old], -1)),
+                            owns=(ovp, ovo), signs=(-1.0, 1.0), sweep_col=1)
+                    else:
+                        g_l, h_l = fused_sweep(
+                            d.idx_c, st.vals_c, cols,
+                            extend_zero(torch.stack([u, u], -1)), sweep_col=0)
+                    g_e, h_e = stacked_remap((g_l, h_l), d.slot_of_ipos)
                 g = g + g_e
                 h = h + h_e
             v = _half_sweep(*reduce(g, h), lam, d.col_nnz, nmf)
@@ -641,19 +695,31 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
                 gu[r0:r1] += gp
                 hu[r0:r1] += hp
             if have_light:
-                if i == 0:
-                    # the deferred subtract of rank t-1, the add-back, and
-                    # the sweep with the NEW v in one 3-wide gather pass
-                    oup, ouo = stacked_remap((st.u_pend, u_old), d.upos_safe)
-                    g_lr, h_lr = fused_update_sweep(
+                if G:
+                    S0r, Scr, h_lr = deferred_sweep(
                         d.idx_r, st.vals_r, rows,
-                        extend_zero(torch.stack([st.v_pend, v_old, v], -1)),
-                        owns=(oup, ouo), signs=(-1.0, 1.0), sweep_col=2)
+                        extend_zero(torch.cat([v[:, None], V_def], 1)))
+                    gu_e, hu_e = fused_remap_combine([S0r] + Scr, h_lr,
+                                                     d.slot_of_upos,
+                                                     U_def.T, dsigns)
                 else:
-                    g_lr, h_lr = fused_sweep(
-                        d.idx_r, st.vals_r, rows,
-                        extend_zero(torch.stack([v, v], -1)), sweep_col=0)
-                gu_e, hu_e = stacked_remap((g_lr, h_lr), d.slot_of_upos)
+                    if i == 0:
+                        # the deferred subtract of rank t-1, the add-back,
+                        # and the sweep with the NEW v in one 3-wide gather
+                        # pass
+                        oup, ouo = stacked_remap((st.u_pend, u_old),
+                                                 d.upos_safe)
+                        g_lr, h_lr = fused_update_sweep(
+                            d.idx_r, st.vals_r, rows,
+                            extend_zero(torch.stack([st.v_pend, v_old, v],
+                                                    -1)),
+                            owns=(oup, ouo), signs=(-1.0, 1.0), sweep_col=2)
+                    else:
+                        g_lr, h_lr = fused_sweep(
+                            d.idx_r, st.vals_r, rows,
+                            extend_zero(torch.stack([v, v], -1)),
+                            sweep_col=0)
+                    gu_e, hu_e = stacked_remap((g_lr, h_lr), d.slot_of_upos)
                 gu = gu + gu_e
                 hu = hu + hu_e
             u = _half_sweep(*reduce(gu, hu), lam, d.row_nnz, nmf)
@@ -663,10 +729,17 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
         st.W[t] = u
         st.H[t] = v
         st.u_pend, st.v_pend = u, v
+        if G and (t % G == G - 1 or t == st.W.shape[0] - 1):
+            flush(st, U_def, V_def)
 
     def step(st: HybridState) -> torch.Tensor:
+        U_def = V_def = None
+        if G:
+            f32 = dict(dtype=torch.float32, device=st.W.device)
+            U_def = torch.zeros((m, 2 * G), **f32)
+            V_def = torch.zeros((n, 2 * G), **f32)
         for t in range(st.W.shape[0]):
-            rank(st, t)
+            rank(st, t, U_def, V_def)
         return st.W
 
     return step
@@ -788,7 +861,6 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     them); ``resume`` (such a payload plus its ``oiter``) continues a run.
     With ``cfg.phase_timing`` the phases are fenced and timed apart
     (``rank_callback(oiter, t, dt, rmse)`` per rank)."""
-    check_supported(cfg)
     if cfg.phase_timing:
         refuse_pending(resume)
     dev = resolve_device(device)
@@ -847,6 +919,8 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     lam, inner, nmf = cfg.lambda_, cfg.maxinneriter, cfg.do_nmf
 
     if cfg.phase_timing:
+        # the phase schedule has no deferred tail (the JAX package's
+        # phase functions take no defer group either)
         ab, sw, sub = make_hybrid_phase_fns(plan, dplan, lam, inner, nmf=nmf)
         stats = phased_ccd_loop(
             k=W0.shape[0], device=dev,
@@ -856,7 +930,10 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
             ti=ti_np, tj=tj_np, tv=np.asarray(T.val),
             rank_callback=rank_callback, **common)
     else:
-        step = make_hybrid_outer_step(plan, dplan, lam, inner, nmf=nmf)
+        step = make_hybrid_outer_step(
+            plan, dplan, lam, inner, nmf=nmf,
+            order=hybrid_store_order(cfg),
+            defer_group=cfg.hybrid_defer_group)
         stats = pipelined_loop(fuse=cfg.fused_outer_iters,
                                do_step=lambda: step(state), **common)
 

@@ -17,6 +17,9 @@ what differs in the JAX pallas backend and nothing else:
     the ragged edge, and ``dense_state_from_numpy`` trims a padded payload;
   * its checkpoint payload is padded with zeros to those blocks
     (``payload_shape``), as the JAX pallas backend writes and reads it;
+  * at an fp8 residual K4 stores in the Pallas kernel's order ("once": the
+    sum rounded once, the sweep reading it unrounded), where the dense
+    backend stores delta-first as XLA does (ops/densify.py::store_order);
   * phase timing raises (core/trainer.py::check_supported), as in JAX.
 """
 
@@ -52,16 +55,12 @@ def _bf16_mask(cfg: Config) -> Config:
                                hybrid_panel_kernel=False, phase_timing=False)
 
 
-def check_supported(cfg: Config) -> None:
-    """The dense backend's knob check, with the pallas backend's bf16
-    mask."""
-    ccd_dense.check_supported(_bf16_mask(cfg))
-
-
 def make_pallas_outer_step(lam: float, maxinneriter: int, *,
                            nmf: bool = False) -> Callable:
-    """The pallas schedule's outer step: ``ccd_dense.make_outer_step``."""
-    return ccd_dense.make_outer_step(lam, maxinneriter, nmf=nmf)
+    """The pallas schedule's outer step: ``ccd_dense.make_outer_step``,
+    storing once."""
+    return ccd_dense.make_outer_step(lam, maxinneriter, nmf=nmf,
+                                     order="once")
 
 
 def ccd_pallas_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
@@ -77,4 +76,4 @@ def ccd_pallas_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     return ccd_dense.ccd_dense_train(
         R, W0, H0, T, _bf16_mask(cfg), device=device, callback=callback,
         ckpt_every=ckpt_every, ckpt_fn=ckpt_fn, resume=resume,
-        payload_shape=payload_shape(R.rows, R.cols), log=log)
+        payload_shape=payload_shape(R.rows, R.cols), log=log, order="once")

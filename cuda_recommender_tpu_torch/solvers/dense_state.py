@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .hybrid_state import _to_torch
+from .hybrid_state import _to_torch, residual_from_numpy
 
 
 @dataclasses.dataclass
@@ -59,17 +59,17 @@ def dense_state_from_numpy(payload: dict, shape: tuple[int, int],
         raise ValueError(f"payload cells outside the ({m}, {n}) matrix must "
                          "all be 0")
     return DenseState(
-        Rhat=_to_torch(Rhat[:m, :n], device).to(dtype),
+        Rhat=residual_from_numpy(Rhat[:m, :n], dtype, device),
         W=_to_torch(W[:, :m], device), H=_to_torch(H[:, :n], device),
         u_pend=_to_torch(up[:m], device), v_pend=_to_torch(vp[:n], device))
 
 
 def dense_state_to_numpy(state: DenseState, *, shape=None) -> dict:
     """The port's state as a JAX-package payload of numpy arrays (a
-    bfloat16 residual comes back as its exact float32 values). ``shape``:
-    the (rows, cols) to pad the residual and the factors to with zeros, e.g.
-    the JAX pallas backend's block-padded shape; default: the state's
-    own."""
+    bfloat16 or fp8 residual comes back as its exact float32 values).
+    ``shape``: the (rows, cols) to pad the residual and the factors to with
+    zeros, e.g. the JAX pallas backend's block-padded shape; default: the
+    state's own."""
     def host(x):
         return x.detach().to("cpu", torch.float32, copy=True).numpy()
 

@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from ..ops.densify import densify_coo_mask
+from ..ops.densify import FP8, densify_coo_mask, round_to_storage
 
 
 #: the JAX panel kernels' block shape (rows x cols), read from the same
@@ -60,13 +60,35 @@ class HybridState:
 
 
 def _to_torch(x: np.ndarray, device) -> torch.Tensor:
-    """numpy -> a torch copy on ``device``, bit-exact; bfloat16 payloads
-    (the JAX package's ml_dtypes arrays) travel as their 16-bit patterns."""
+    """numpy -> a torch copy on ``device``, bit-exact; bfloat16 and fp8
+    payloads (the JAX package's ml_dtypes arrays) travel as their bit
+    patterns."""
     x = np.ascontiguousarray(x)
     if x.dtype.name == "bfloat16":
         return torch.from_numpy(x.view(np.int16)).to(device, copy=True).view(
             torch.bfloat16)
+    if x.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(x.view(np.uint8)).to(device, copy=True).view(
+            FP8)
     return torch.from_numpy(x).to(device, copy=True)
+
+
+def residual_from_numpy(x: np.ndarray, dtype, device) -> torch.Tensor:
+    """A payload's residual block on ``device`` in ``dtype`` (None: as it
+    is). A checkpoint stores a bf16 or fp8 residual widened to f32, so the
+    value comes back exactly. An fp8 residual is rounded on the host, in
+    row blocks (``round_to_storage``, as JAX's astype rounds), and ships as
+    its bytes."""
+    if dtype != FP8 or x.dtype.name == "float8_e4m3fn":
+        t = _to_torch(x, device)
+        return t if dtype is None else t.to(dtype)
+    src = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    out = torch.empty(src.shape, dtype=torch.uint8)
+    rows = max(1, (1 << 24) // max(1, src.shape[1]))
+    for r0 in range(0, src.shape[0], rows):
+        out[r0:r0 + rows] = round_to_storage(src[r0:r0 + rows], FP8).view(
+            torch.uint8)
+    return out.to(device).view(FP8)
 
 
 def hybrid_state_from_numpy(payload: dict, plan, device,
@@ -75,8 +97,9 @@ def hybrid_state_from_numpy(payload: dict, plan, device,
     """The JAX package's hybrid state (numpy arrays under its checkpoint
     payload keys) as a port ``HybridState`` on ``device``. Panels are
     trimmed to their true (r1 - r0, w) shape and cast to ``dtype`` when
-    given (a checkpoint stores a bf16 panel widened to f32: exact both
-    ways); raises ValueError if a trimmed cell is not NaN, or not 0 with
+    given (a checkpoint stores a bf16 or fp8 panel widened to f32: exact
+    both ways; ``residual_from_numpy``); raises ValueError if a trimmed
+    cell is not NaN, or not 0 with
     an explicit mask (i.e. was an observed rating). With ``mask_dtype``
     "bfloat16" or "int8" the masks are rebuilt from the plan's panel COO
     (``materialize_dense=False``)."""
@@ -93,8 +116,7 @@ def hybrid_state_from_numpy(payload: dict, plan, device,
         if not (np.isnan(pad).all() if nan else not pad.any()):
             raise ValueError(f"Rd_{i}: cells outside the ({M}, {w}) panel "
                              f"must all be {'NaN' if nan else '0'}")
-        Rd = _to_torch(x[:M, :w], device)
-        Rds.append(Rd if dtype is None else Rd.to(dtype))
+        Rds.append(residual_from_numpy(x[:M, :w], dtype, device))
         if not nan:
             lr, lc, lv = plan.panel_coo[i]
             masks.append(densify_coo_mask(lr, lc, lv, M, w, torch.float32,
@@ -117,10 +139,10 @@ def hybrid_state_from_numpy(payload: dict, plan, device,
 
 def hybrid_state_to_numpy(state: HybridState, *, panel_shapes=None) -> dict:
     """The port's state as a JAX-package payload of numpy arrays (bfloat16
-    panels come back as their exact float32 values). ``panel_shapes``: per
-    panel the (rows, cols) to pad to with NaN (0 with explicit masks), e.g.
-    ``padded_panel_shape`` for the JAX panel-kernel path; default: the
-    panels' own shapes."""
+    and fp8 panels come back as their exact float32 values).
+    ``panel_shapes``: per panel the (rows, cols) to pad to with NaN (0 with
+    explicit masks), e.g. ``padded_panel_shape`` for the JAX panel-kernel
+    path; default: the panels' own shapes."""
     def host(x):
         return x.detach().to("cpu", torch.float32, copy=True).numpy()
 

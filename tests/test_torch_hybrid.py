@@ -118,7 +118,7 @@ def _port_step(R, cfg_kw, inner, payload):
     plan = th.plan_hybrid(R, cfg, materialize_dense=False)
     state = hybrid_state_from_numpy(payload, plan, "cpu")
     step = th.make_hybrid_outer_step(plan, th.device_plan(plan, "cpu"), 0.1,
-                                     inner)
+                                     inner, order="once")
     step(state)
     return plan, state
 

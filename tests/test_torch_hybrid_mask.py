@@ -131,7 +131,7 @@ def test_outer_step_matches_jax(data, case, mask, inner):
     state = hybrid_state_from_numpy(p1, plan, "cpu", mask_dtype=mask)
     assert len(state.masks) == (0 if mask == "nan" else len(plan.panels))
     th.make_hybrid_outer_step(plan, th.device_plan(plan, "cpu"), 0.1,
-                              inner)(state)
+                              inner, order="once")(state)
     got = hybrid_state_to_numpy(state)
     assert sorted(got) == sorted(p2)
     for key in p2:

@@ -14,6 +14,7 @@ import, and moves both caches into the test's directory.
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -246,14 +247,19 @@ def test_flagship_against_jax_script(tmp_path, monkeypatch):
         assert rec["device"] == {"platform": "cpu", "name": "cpu"}
 
 
-def test_flagship_refuses_what_the_port_lacks(monkeypatch, capsys):
-    """CRTPU_DEFER_GROUP above 0 raises in ROADMAP.md's words; the CPU grid
+def test_flagship_refuses_what_the_port_lacks(monkeypatch, capsys,
+                                             tmp_path):
+    """CRTPU_DEFER_GROUP above 0 runs the rank-deferred tail, as the JAX
+    script does (a CPU row: its lines record the group); the CPU grid
     needs --device cpu and the full grid the card (exit 2)."""
     monkeypatch.setenv("CRTPU_BENCH_CPU", "1")
-    monkeypatch.setenv("CRTPU_DEFER_GROUP", "8")
-    with pytest.raises(NotImplementedError, match="hybrid_defer_group > 0 "
-                       r"\(ROADMAP.md 'Not ported'\)"):
-        snh.main(["--device", "cpu", "--out", ""])
+    monkeypatch.setenv("CRTPU_DEFER_GROUP", "2")
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    out = tmp_path / "defer.jsonl"
+    assert snh.main(["rows=0", "--device", "cpu", "--out", str(out)]) == 0
+    recs = _jsonl(out)
+    assert [r["defer_group"] for r in recs] == [2, 2]
+    assert all(math.isfinite(r["rmse_after_iters"]) for r in recs)
     monkeypatch.delenv("CRTPU_DEFER_GROUP")
     assert snh.main(["--out", ""]) == 2
     monkeypatch.delenv("CRTPU_BENCH_CPU")
