@@ -203,6 +203,10 @@ FP8_KERNELS = {
 ORDERS = ("once", "delta_first")
 #: phase 42: the K1-K3 panel 0 check (the headline's, at fp8)
 FP8_PANEL0 = (330_128, 17_770)
+#: phase 42's boundary grid (scripts/fp8_grid.py) at its deltas' own width
+#: (None), and odd widths: every row starts at another byte of its 8-byte
+#: units, so a pair of cells straddles a row's first and last unit
+FP8_GRID_WIDTHS = (None, 1151, 257, 9)
 #: phases 43-44: each iteration's fp8 RMSE within this of the bf16 (f32)
 #: run's at the same iteration (the JAX package's fp8 bar against the
 #: golden run, tests/test_hybrid.py:221-237)
@@ -319,9 +323,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _close(name, got, want, scale, ratios) -> float:
+def _close(name, got, want, scale, ratios, nonfinite=False) -> float:
     """max |got - want|; raises if any entry exceeds RTOL * scale. Appends
-    the largest |got - want| / scale to ``ratios``."""
+    the largest |got - want| / scale to ``ratios``. ``nonfinite``: got may
+    hold NaN and ±inf where want holds the same, and only the entries
+    finite in both (and in ``scale``) are held to the bar."""
+    if nonfinite:
+        same = ((torch.isnan(got) == torch.isnan(want))
+                & (torch.isfinite(got) == torch.isfinite(want))
+                & (torch.isfinite(got) | torch.isnan(got) | (got == want)))
+        if not bool(same.all()):
+            i = int(torch.argmin(same.to(torch.int8)))
+            raise AssertionError(f"{name}: entry {i} got {float(got[i])} "
+                                 f"want {float(want[i])}")
+        fin = torch.isfinite(got) & torch.isfinite(want) & torch.isfinite(
+            scale)
+        if not bool(fin.any()):
+            return 0.0
+        got, want, scale = got[fin], want[fin], scale[fin]
     err = (got - want).abs()
     bad = err > RTOL * scale + 1e-30
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
@@ -516,11 +535,15 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 def _sweep_times(calls, what, reps) -> dict:
     """scripts/sweep_timing.py's time_sweeps on ``calls`` (each kernel
     against its plain version, warm, in turns plain, kernel, kernel, plain)
-    with each one's bound. Returns name -> (ms, plain_ms, bound_ms,
-    bound_by)."""
+    with each one's bound (``_bounded``)."""
     from cuda_recommender_tpu_torch.scripts import sweep_timing as st
 
-    got = st.time_sweeps(calls, what, torch.device("cuda"), reps)
+    return _bounded(st.time_sweeps(calls, what, torch.device("cuda"), reps))
+
+
+def _bounded(got) -> dict:
+    """time_sweeps' records with each one's bound, printed: name -> (ms,
+    plain_ms, bound_ms, bound_by)."""
     out = {}
     for key, rec in got.items():
         b_ms, b_by = bound(rec["bytes"], rec["flops"])
@@ -936,12 +959,14 @@ def _guarded_view(X: torch.Tensor, offset: int):
     return buf, view
 
 
-def _hold(what, kern, plain, scale, X, offset, ratios) -> float:
+def _hold(what, kern, plain, scale, X, offset, ratios,
+          nonfinite=False) -> float:
     """``kern`` against ``plain`` on copies of the panel X (the kernel's in
     a guarded view ``offset`` elements into its buffer, unless None):
     stored residual bit-equal, guard cells untouched, a second kernel run
     bit-identical, g and h within RTOL of sum(|terms|) (``scale`` of the
-    stored panel for g, h itself). Returns the largest |g, h error|."""
+    stored panel for g, h itself; ``nonfinite`` as ``_close``). Returns
+    the largest |g, h error|."""
     n = X.numel()
     if offset is None:
         buf, Rk = None, X.clone()
@@ -956,15 +981,16 @@ def _hold(what, kern, plain, scale, X, offset, ratios) -> float:
     if not torch.equal(_bits(Rk), _bits(Rp)):
         raise AssertionError(f"{what}: stored residual differs in "
                              f"{int((_bits(Rk) != _bits(Rp)).sum())} cells")
-    if not (torch.equal(gk, g2) and torch.equal(hk, h2)
+    if not (torch.equal(_bits(gk), _bits(g2))
+            and torch.equal(_bits(hk), _bits(h2))
             and torch.equal(_bits(Rk), _bits(R2))):
         raise AssertionError(f"{what}: not repeatable")
     if buf is not None and not (
             torch.equal(_bits(buf[:offset]), _bits(guard[:offset])) and
             torch.equal(_bits(buf[offset + n:]), _bits(guard[offset + n:]))):
         raise AssertionError(f"{what}: a guard cell changed")
-    return max(_close(f"{what} g", gk, gp, scale(Rp), ratios),
-               _close(f"{what} h", hk, hp, hp, ratios))
+    return max(_close(f"{what} g", gk, gp, scale(Rp), ratios, nonfinite),
+               _close(f"{what} h", hk, hp, hp, ratios, nonfinite))
 
 
 def check_alignment(device) -> dict:
@@ -3117,6 +3143,40 @@ def check_fp8_overflow(device) -> None:
           "bit-equal to the plain versions", flush=True)
 
 
+def check_fp8_grid(device, worst) -> int:
+    """The fp8 stores (K1 and K4 in both orders) x NaN / bf16 / int8 masks
+    against their plain versions on the boundary grid (scripts/fp8_grid.py:
+    every e4m3 byte against deltas on every rounding boundary) at
+    FP8_GRID_WIDTHS, each panel also as a view one element into a guarded
+    buffer (_hold: stored residual bit-equal, repeats bit-identical; g and
+    h hold NaN and ±inf where the plain version does). The sweeps without
+    a store are held on phase 3's panels: the grid's deltas, NaN and ±inf
+    among them, are no factor vector for them. Updates ``worst``; returns
+    the panels run."""
+    from cuda_recommender_tpu_torch.scripts import fp8_grid
+
+    n = len(fp8_grid.deltas())
+    widths = [n if w is None else w for w in FP8_GRID_WIDTHS]
+    ratios = []
+    for W in widths:
+        for mdt in (None, torch.bfloat16, torch.int8):
+            R, Mk, vecs = fp8_grid.grid(W, device, mdt)
+            for name, kern, plain, scale, X in _fp8_cases(R, Mk,
+                                                          vecs)[:2]:
+                for offset in (None, VIEW_OFFSET):
+                    what = (f"{name} grid {X.shape[0]}x{W} "
+                            f"{'NaN' if mdt is None else str(mdt)[6:]}"
+                            + (f" view +{offset}" if offset else ""))
+                    worst[name] = max(worst[name], _hold(
+                        what, kern, plain, scale, X, offset, ratios,
+                        nonfinite=True))
+    print(f"[check] fp8 boundary grid: every e4m3 byte x {n} deltas "
+          f"(ties, 448-480, ±0, ±inf, NaN) at widths {widths} x NaN / bf16"
+          " / int8 masks x K1, K4 in both orders, views 1 element into "
+          "guarded buffers: residual bit-equal, repeatable", flush=True)
+    return 3 * len(widths)
+
+
 def check_fp8(device) -> dict:
     """Phase 42: every fp8 instance (K1 and K4 in both store orders, K3,
     K2, the masked sweeps) x NaN / bf16 / int8 masks against its plain
@@ -3124,8 +3184,8 @@ def check_fp8(device) -> dict:
     sum(|terms|), repeat runs bit-identical): at phase 3's shapes and row
     alignments (each small panel also as a view one element into a
     guarded buffer), and K1-K3 at the headline's panel 0; then the
-    planted overflow (check_fp8_overflow). Returns each instance's
-    largest |g, h error|."""
+    planted overflow (check_fp8_overflow) and the boundary grid
+    (check_fp8_grid). Returns each instance's largest |g, h error|."""
     t0 = time.perf_counter()
     worst, ratios = {name: 0.0 for name in FP8_KERNELS}, []
     shapes = (list(CHECK_SHAPES) + [(ALIGN_ROWS, w) for w in ALIGN_WIDTHS]
@@ -3149,8 +3209,10 @@ def check_fp8(device) -> dict:
             print(f"[check] fp8 {M}x{W} {mdt}: bit-equal, repeatable "
                   f"[{time.perf_counter() - t0:.1f} s]", flush=True)
     check_fp8_overflow(device)
-    print(f"[check] fp8: {len(runs)} panels (phase 3's shapes and "
-          f"alignments x NaN / bf16 / int8 masks, panel 0 {FP8_PANEL0}) x "
+    grid_panels = check_fp8_grid(device, worst)
+    print(f"[check] fp8: {len(runs) + grid_panels} panels (phase 3's shapes "
+          f"and alignments x NaN / bf16 / int8 masks, panel 0 {FP8_PANEL0}, "
+          f"the boundary grid) x "
           f"every instance, views {VIEW_OFFSET} element into guarded "
           f"buffers: residual bit-equal, guard cells untouched, repeatable;"
           f" largest error / sum|terms| {max(ratios):.2e} (bar {RTOL}); "
@@ -3160,27 +3222,16 @@ def check_fp8(device) -> dict:
 
 
 def time_fp8() -> dict:
-    """Phase 42's timing, the only timing of the fp8 instances
-    (scripts/sweep_timing.py::nan_sweeps and masked_sweeps at fp8: the
-    calls, their bytes and flops): K1-K3 at panel 0, K4 and the masked
-    sweeps at the ml10M shape beside a bf16 and an int8 mask. Returns {mask: name -> (ms, plain_ms, bound_ms,
-    bound_by)}, mask "nan" for K1-K3."""
+    """Phase 42's timing of the fp8 instances: scripts/sweep_timing.py's
+    time_fp8 (K1-K3 at panel 0, K4 and the masked sweeps at the ml10M
+    shape beside a bf16 and an int8 mask; the calls, their bytes and
+    flops), 5 calls a turn. Returns {mask: name -> (ms, plain_ms,
+    bound_ms, bound_by)}, mask "nan" for K1-K3."""
     from cuda_recommender_tpu_torch.scripts import sweep_timing as st
 
-    dev = torch.device("cuda")
-    out = {}
-    calls = st.nan_sweeps(*FP8_PANEL0, dev, seed=7, dtype=FP8)
-    out["nan"] = _sweep_times(calls, f"{FP8_PANEL0[0]}x{FP8_PANEL0[1]} fp8",
-                              5)
-    del calls
+    out = {mask: _bounded(recs) for mask, recs in
+           st.time_fp8(torch.device("cuda"), reps=5).items()}
     torch.cuda.empty_cache()
-    M, W = st.MASKED_SHAPE
-    for mdt in (torch.bfloat16, torch.int8):
-        calls = st.masked_sweeps(M, W, FP8, mdt, dev, seed=7)
-        out[str(mdt)[6:]] = _sweep_times(
-            calls, f"{M}x{W} fp8, {str(mdt)[6:]} mask", 5)
-        del calls
-        torch.cuda.empty_cache()
     return out
 
 

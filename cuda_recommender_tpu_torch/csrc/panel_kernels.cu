@@ -95,8 +95,25 @@
 // An fp8 store rounds to nearest even WITHOUT saturating, as JAX's astype
 // does: |x| > 464 (the midpoint above the largest finite value, 448), an
 // infinity or a NaN stores NaN with x's sign. The hardware conversion
-// (cvt.rn.satfinite.e4m3x2.f32) exists only as satfinite, so fp8_encode
+// (cvt.rn.satfinite.e4m3x2.f32) exists only as satfinite, so fp8_encode8
 // fixes those inputs up after it.
+//
+// The fp8 update is bound by its instructions, not by memory: a cell moves
+// one byte, and each rounding is a conversion. So the fp8 update works on a
+// lane's 8 cells a pair at a time (fp8_update): one
+// cvt.rn.satfinite.e4m3x2.f32 rounds two cells straight into the stored
+// bytes, one cvt.rn.f16x2.e4m3x2 (then two f16 -> f32 moves) gives both
+// stored values back, and the > 464 fix-up is a compare and a predicated
+// OR a cell, with no branch (a branch a row cut the rows' code into blocks
+// the compiler could not interleave). A delta-first store rounds
+// delta·mask so, then adds it to R in f16x2 and rounds the pair from f16x2
+// (fp8x2_add): the f32 round trip in between falls away. An int8 mask cell
+// becomes a float by an integer multiply (a {0,1} byte times the bits of
+// 1.0f), not by I2F. The fp8 sweep (fp8_sweep) adds an observed cell by a
+// predicated FMA and sums the columns outside the row too (the reduction
+// never writes them), where the f32 and bf16 sweeps select each cell and
+// test it against the row's bounds. The stored bits and the sums are the
+// same.
 //
 // The rounding is a policy of the update's store: RoundCvt, the hardware
 // conversion __float2bfloat16_rn (K1-K4; the analogue of the TPU's astype),
@@ -107,10 +124,12 @@
 // the hardware conversion: the sentinel stays NaN, with K1's bits.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace {
@@ -155,12 +174,18 @@ __device__ __forceinline__ float load_mask(const int8_t* p) {
 }
 
 // Two fp8 e4m3fn cells (the low 16 bits of v, the first in the low byte)
-// -> floats, exact (e4m3 fits f16): the hardware conversion to f16x2, then
-// to f32; 0x7F / 0xFF give NaN.
-__device__ __forceinline__ float2 fp8x2_decode(uint32_t v) {
+// -> their f16x2, exact (e4m3 fits f16); 0x7F / 0xFF give NaN.
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
   const unsigned short pair = static_cast<unsigned short>(v);
   uint32_t h2;
   asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(pair));
+  return h2;
+}
+
+// Two fp8 e4m3fn cells (as fp8x2_to_f16x2) -> floats, exact: the hardware
+// conversion to f16x2, then to f32.
+__device__ __forceinline__ float2 fp8x2_decode(uint32_t v) {
+  const uint32_t h2 = fp8x2_to_f16x2(v);
   float lo, hi;
   asm("{\n\t.reg .b16 l, h;\n\tmov.b32 {l, h}, %2;\n\t"
       "cvt.f32.f16 %0, l;\n\tcvt.f32.f16 %1, h;\n\t}"
@@ -174,17 +199,45 @@ __device__ __forceinline__ float fp8_decode(uint32_t b) {
   return fp8x2_decode(b & 0xFFu).x;
 }
 
-// float -> fp8 e4m3fn bits, round to nearest even, not saturating: the
-// hardware conversion (satfinite; x in the low byte), then |x| > 464 (its
-// bits above 464's: infinities and NaN too) -> NaN with x's sign
-__device__ __forceinline__ uint32_t fp8_encode(float x) {
-  unsigned short pair;
-  asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;"
-      : "=h"(pair)
-      : "f"(0.f), "f"(x));
-  const uint32_t bits = __float_as_uint(x);
-  return (bits & 0x7FFFFFFFu) > 0x43E80000u ? 0x7Fu | ((bits >> 24) & 0x80u)
-                                            : pair & 0xFFu;
+// A lane's 8 fp8 cells (packed as in memory: cell e in byte e % 4 of word
+// e / 4) -> floats, exact, a pair per conversion.
+__device__ __forceinline__ void fp8_decode8(const uint32_t (&w)[2],
+                                            float (&x)[kColsPerThread]) {
+#pragma unroll
+  for (int p = 0; p < kColsPerThread / 2; ++p) {
+    const float2 v = fp8x2_decode(w[p / 2] >> (16 * (p & 1)));
+    x[2 * p] = v.x;
+    x[2 * p + 1] = v.y;
+  }
+}
+
+// |x| > 464 (the midpoint above 448), an infinity or a NaN: where JAX's
+// astype stores NaN and the hardware conversion saturates.
+__device__ __forceinline__ bool fp8_over(float x) {
+  return !(fabsf(x) <= 464.f);
+}
+
+// A lane's 8 floats -> their fp8 e4m3fn bits, packed as in memory, rounded
+// to nearest even WITHOUT saturating: the hardware conversion a pair at a
+// time (satfinite, lo in the low byte), then one more bit in the byte of a
+// value past 464. The conversion gives such a value ±448 (0x7E with its
+// sign), which the bit turns into NaN with its sign (0x7F, 0xFF), and a
+// NaN NaN; every NaN that reaches a store here is an arithmetic result,
+// the card's positive 0x7FFFFFFF, stored 0x7F as JAX's astype stores it.
+__device__ __forceinline__ void fp8_encode8(const float (&x)[kColsPerThread],
+                                            uint32_t (&w)[2]) {
+#pragma unroll
+  for (int p = 0; p < kColsPerThread / 2; ++p) {
+    unsigned short pair;
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;"
+        : "=h"(pair)
+        : "f"(x[2 * p + 1]), "f"(x[2 * p]));
+    const uint32_t bits = pair;
+    w[p / 2] = (p & 1) ? w[p / 2] | (bits << 16) : bits;
+  }
+#pragma unroll
+  for (int e = 0; e < kColsPerThread; ++e)
+    if (fp8_over(x[e])) w[e / 4] |= 1u << (8 * (e & 3));
 }
 
 __device__ __forceinline__ float load_cell(const float* p) { return *p; }
@@ -225,13 +278,6 @@ __device__ __forceinline__ uint32_t round_bits(float x, float& back,
   }
   back = __bfloat162float(b);
   return __bfloat16_as_ushort(b);
-}
-
-template <typename Round>
-__device__ __forceinline__ uint32_t round_bits(float x, float& back, Fp8*) {
-  const uint32_t b = fp8_encode(x);
-  back = fp8_decode(b);
-  return b;
 }
 
 // A lane's run of kColsPerThread cells of type E (kBytes bytes), moved as
@@ -297,25 +343,114 @@ __device__ __forceinline__ void realign(uint32_t (&w)[kIn], int off,
 }
 
 // The lane's kColsPerThread cells, as floats, from its words (packed as in
-// memory).
-template <typename E>
+// memory). kMask01: an int8 cell is a {0,1} mask, taken without I2F (a byte
+// b of 0 or 1 times 1.0f's bits is b's float bits).
+template <typename E, bool kMask01 = false>
 __device__ __forceinline__ void cells(const uint32_t (&c)[Run<E>::kWords],
                                       float (&x)[kColsPerThread]) {
+  if constexpr (std::is_same<E, Fp8>::value) {
+    fp8_decode8(c, x);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kColsPerThread; ++e) {
+      if constexpr (sizeof(E) == 4) {
+        x[e] = __uint_as_float(c[e]);
+      } else if constexpr (sizeof(E) == 2) {
+        const uint32_t v = c[e / 2];
+        x[e] = __uint_as_float((e & 1) ? (v & 0xFFFF0000u) : (v << 16));
+      } else if constexpr (kMask01) {
+        x[e] = __uint_as_float(
+            __byte_perm(c[e / 4], 0u, 0x4440u + (e & 3)) * 0x3F800000u);
+      } else {
+        x[e] = static_cast<float>(
+            static_cast<int8_t>((c[e / 4] >> (8 * (e & 3))) & 0xFFu));
+      }
+    }
+  }
+}
+
+// R + round(delta) of two cells, both e4m3 (the low 16 bits of r and of
+// d), rounded to e4m3 as fp8_encode8 rounds: their sum in f16x2, then the
+// hardware conversion from f16x2 (satfinite) and the bit past 464. Both
+// addends are exact in f16, and f16 rounds their sum to 11 bits before
+// the conversion rounds it to 4: a double rounding, innocuous for a sum
+// of two 4-bit floats at 11 >= 2·4 + 1 bits, so the bits are those of the
+// exact sum rounded once (the f32 sum of the plain version). One
+// conversion in, one add and one out for the pair, no f32 in between.
+__device__ __forceinline__ uint32_t fp8x2_add(uint32_t r, uint32_t d) {
+  const uint32_t a = fp8x2_to_f16x2(r), b = fp8x2_to_f16x2(d);
+  __half2 ha, hb;
+  memcpy(&ha, &a, 4);
+  memcpy(&hb, &b, 4);
+  const __half2 s = __hadd2(ha, hb);
+  uint32_t sb;
+  memcpy(&sb, &s, 4);
+  unsigned short pair;
+  asm("cvt.rn.satfinite.e4m3x2.f16x2 %0, %1;" : "=h"(pair) : "r"(sb));
+  // 0xFFFF in each half past 464 (or NaN): its byte's lowest bit
+  const uint32_t over =
+      __hgtu2_mask(__habs2(s), __float2half2_rn(464.f));
+  return static_cast<uint32_t>(pair) | (__byte_perm(over, 0u, 0x4420u) &
+                                        0x0101u);
+}
+
+// The fp8 update of a lane's 8 cells of one row, a pair at a time (see the
+// header): x holds the cells decoded (xw as loaded) and becomes what the
+// sweep reads, own the stored bits. The delta is fl(fl(a vo) - fl(ap vp)),
+// times the mask mk where kMasked; then, by the store order, round(x +
+// delta) (K1 sweeps the stored value, K4 the sum before rounding) or
+// round(x + round(delta)) (the sweep reads the stored value).
+template <bool kMasked, bool kDeltaFirst>
+__device__ __forceinline__ void fp8_update(
+    float (&x)[kColsPerThread], const uint32_t (&xw)[2],
+    const float (&mk)[kColsPerThread], float a, float ap,
+    const float (&vo)[kColsPerThread], const float (&vp)[kColsPerThread],
+    uint32_t (&own)[2]) {
+  float d[kColsPerThread];
 #pragma unroll
   for (int e = 0; e < kColsPerThread; ++e) {
-    if constexpr (std::is_same<E, Fp8>::value) {
-      if (e & 1) continue;  // decoded in pairs
-      const float2 p = fp8x2_decode(c[e / 4] >> (8 * (e & 3)));
-      x[e] = p.x;
-      x[e + 1] = p.y;
-    } else if constexpr (sizeof(E) == 4) {
-      x[e] = __uint_as_float(c[e]);
-    } else if constexpr (sizeof(E) == 2) {
-      const uint32_t v = c[e / 2];
-      x[e] = __uint_as_float((e & 1) ? (v & 0xFFFF0000u) : (v << 16));
-    } else {
-      x[e] = static_cast<float>(
-          static_cast<int8_t>((c[e / 4] >> (8 * (e & 3))) & 0xFFu));
+    d[e] = __fsub_rn(__fmul_rn(a, vo[e]), __fmul_rn(ap, vp[e]));
+    if constexpr (kMasked) d[e] = __fmul_rn(d[e], mk[e]);
+  }
+  if constexpr (kDeltaFirst) {
+    uint32_t dw[2];
+    fp8_encode8(d, dw);
+#pragma unroll
+    for (int p = 0; p < kColsPerThread / 2; ++p) {
+      const int sh = 16 * (p & 1);
+      const uint32_t pair = fp8x2_add(xw[p / 2] >> sh, dw[p / 2] >> sh);
+      own[p / 2] = (p & 1) ? own[p / 2] | (pair << 16) : pair;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kColsPerThread; ++e) x[e] = __fadd_rn(x[e], d[e]);
+    fp8_encode8(x, own);
+  }
+  if constexpr (kDeltaFirst || !kMasked) fp8_decode8(own, x);
+}
+
+// The fp8 sweep of a lane's 8 cells x (and mask mk where kMasked) of one
+// row with factor a into the column sums g, h: the same sums as the f32
+// and bf16 sweeps, in fewer instructions. A cell outside the row is summed
+// too (its column's sums are never written: the reduction writes the
+// row's columns only), and an unobserved cell (NaN) is skipped, which
+// leaves the sums' bits as adding its ±0 would (a sum that starts at +0
+// never becomes -0).
+template <bool kMasked>
+__device__ __forceinline__ void fp8_sweep(const float (&x)[kColsPerThread],
+                                          const float (&mk)[kColsPerThread],
+                                          float a,
+                                          float (&g)[kColsPerThread],
+                                          float (&h)[kColsPerThread]) {
+  const float aa = __fmul_rn(a, a);
+#pragma unroll
+  for (int e = 0; e < kColsPerThread; ++e) {
+    if constexpr (kMasked) {
+      g[e] += a * x[e];
+      h[e] += aa * mk[e];
+    } else if (!isnan(x[e])) {
+      g[e] = __fmaf_rn(a, x[e], g[e]);
+      h[e] = __fadd_rn(h[e], aa);
     }
   }
 }
@@ -342,7 +477,7 @@ __device__ __forceinline__ void load_mask(const E* row, int W, int c0,
     load_unit<Rn::kUnit>(al + Rn::kBytes, start, end, L.w + Rn::kWords);
 }
 
-template <typename E>
+template <typename E, bool kMask01 = false>
 __device__ __forceinline__ void unpack_mask(Loaded<E>& L, int lane,
                                             float (&x)[kColsPerThread]) {
   using Rn = Run<E>;
@@ -353,7 +488,7 @@ __device__ __forceinline__ void unpack_mask(Loaded<E>& L, int lane,
   }
   uint32_t c[Rn::kWords];
   realign(L.w, L.off, c);
-  cells<E>(c, x);
+  cells<E, kMask01>(c, x);
 }
 
 // A residual run on the 16-byte grid (8-byte at 1 byte a cell): the kUnits
@@ -463,6 +598,8 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
   constexpr int kInter = kInterleave<T>;
   constexpr int kWarpRowStep = kInter * kColThreadsY;
   constexpr bool kDeltaFirst = std::is_same<Order, StoreDeltaFirst>::value;
+  constexpr bool kFp8 = std::is_same<T, Fp8>::value;
+  static_assert(!kDeltaFirst || kFp8, "delta-first is an fp8 store order");
   const int lane = threadIdx.x;
   const int ty = threadIdx.y;
   const int band = kInter * rows_per_part;
@@ -517,54 +654,53 @@ __global__ void __launch_bounds__(kColThreadsX* kColThreadsY, 2)
       if (r >= r1) break;
       float x[kColsPerThread], mk[kColsPerThread];
       cells<T>(xs[b], x);
-      if constexpr (kExplicit<MaskT>) unpack_mask(ms[b], lane, mk);
+      if constexpr (kExplicit<MaskT>)
+        unpack_mask<MaskE, kFp8>(ms[b], lane, mk);
       uint32_t own[Run<T>::kWords];
 #pragma unroll
       for (int i = 0; i < Run<T>::kWords; ++i) own[i] = 0u;
+      if constexpr (kFp8) {
+        // the update in pairs, XLA's order included: the delta (times the
+        // mask) rounded to the storage type, added, the sum rounded again
+        if constexpr (kUpdate)
+          fp8_update<kExplicit<MaskT>, kDeltaFirst>(x, xs[b], mk, a[b],
+                                                    ap[b], vo_c, vp_c, own);
+        fp8_sweep<kExplicit<MaskT>>(x, mk, a[b], g, h);
+      } else {
 #pragma unroll
-      for (int e = 0; e < kColsPerThread; ++e) {
-        float xv = x[e];
-        if constexpr (kUpdate) {
-          const float d = __fsub_rn(__fmul_rn(a[b], vo_c[e]),
-                                    __fmul_rn(ap[b], vp_c[e]));
-          float back;
-          uint32_t bits;
-          if constexpr (kDeltaFirst) {
-            // XLA's order: the delta (times the mask) rounded to the
-            // storage type, added, the sum rounded again; the sweep reads
-            // the stored value
-            float dm = d, dr;
-            if constexpr (kExplicit<MaskT>) dm = __fmul_rn(d, mk[e]);
-            round_bits<Round>(dm, dr, R);
-            bits = round_bits<Round>(__fadd_rn(xv, dr), back, R);
-            xv = back;
-          } else if constexpr (kExplicit<MaskT>) {
-            // K4: the sweep reads the sum before rounding
-            xv = __fadd_rn(xv, __fmul_rn(d, mk[e]));
-            bits = round_bits<Round>(xv, back, R);
-          } else {
-            // K1: the sweep reads the stored value
-            bits = round_bits<Round>(__fadd_rn(xv, d), back, R);
-            xv = back;
+        for (int e = 0; e < kColsPerThread; ++e) {
+          float xv = x[e];
+          if constexpr (kUpdate) {
+            const float d = __fsub_rn(__fmul_rn(a[b], vo_c[e]),
+                                      __fmul_rn(ap[b], vp_c[e]));
+            float back;
+            uint32_t bits;
+            if constexpr (kExplicit<MaskT>) {
+              // K4: the sweep reads the sum before rounding
+              xv = __fadd_rn(xv, __fmul_rn(d, mk[e]));
+              bits = round_bits<Round>(xv, back, R);
+            } else {
+              // K1: the sweep reads the stored value
+              bits = round_bits<Round>(__fadd_rn(xv, d), back, R);
+              xv = back;
+            }
+            if constexpr (sizeof(T) == 4)
+              own[e] = bits;
+            else
+              own[e / 2] |= bits << (16 * (e & 1));
           }
-          if constexpr (sizeof(T) == 4)
-            own[e] = bits;
-          else if constexpr (sizeof(T) == 2)
-            own[e / 2] |= bits << (16 * (e & 1));
-          else
-            own[e / 4] |= bits << (8 * (e & 3));
-        }
-        if (!ok[e]) continue;
-        if constexpr (kExplicit<MaskT>) {
-          g[e] += a[b] * xv;
-          h[e] += __fmul_rn(a[b], a[b]) * mk[e];
-        } else {
-          // an unobserved cell adds +-0, which leaves the sums' bits as
-          // skipping it would: selects, not a branch that diverges on a
-          // random mask
-          const bool obs = !isnan(xv);
-          g[e] += a[b] * (obs ? xv : 0.f);
-          h[e] += obs ? a[b] * a[b] : 0.f;
+          if (!ok[e]) continue;
+          if constexpr (kExplicit<MaskT>) {
+            g[e] += a[b] * xv;
+            h[e] += __fmul_rn(a[b], a[b]) * mk[e];
+          } else {
+            // an unobserved cell adds +-0, which leaves the sums' bits as
+            // skipping it would: selects, not a branch that diverges on a
+            // random mask
+            const bool obs = !isnan(xv);
+            g[e] += a[b] * (obs ? xv : 0.f);
+            h[e] += obs ? a[b] * a[b] : 0.f;
+          }
         }
       }
       if constexpr (kUpdate)

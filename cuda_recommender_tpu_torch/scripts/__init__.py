@@ -33,7 +33,15 @@ solvers and the JAX package's records.
     from one card's s/iter, its profile's split and the all-reduces'
     bytes and host cost;
   * ``bench_als`` — the ALS step at ml20M dims by gram precision, and the
-    ml1m golden check of "high" and "default".
+    ml1m golden check of "high" and "default";
+  * ``sass_report`` — the column and row sweeps' machine code per
+    instance: ptxas' registers and spills, conversions a cell, and whether
+    an instance's SASS changed against another checkout's.
+
+``sweep_timing`` and ``fp8_runs`` (each run as a file, with ``--root``)
+time the kernels, and the fp8 training runs of the smoke's phases 43-44,
+of two checkouts in turns; ``fp8_grid`` builds the fp8 store's boundary
+grid that ``chip_smoke.py`` and the tests hold the fp8 stores to.
 
 Each runs as ``python -m cuda_recommender_tpu_torch.scripts.<name>``, on
 the card unless ``--device cpu`` is given; ``common`` holds what they and

@@ -1,0 +1,257 @@
+"""The column and row sweeps' machine code (SASS) and ptxas' report, per
+instance, for one checkout of the port.
+
+    python -m cuda_recommender_tpu_torch.scripts.sass_report [--root DIR]
+        [--out FILE] [--against FILE] [--dump DIR]
+
+Compiles ``csrc/panel_kernels.cu`` of the checkout ``--root`` (default:
+this one) to a cubin with the build's flags (``ops/build.py``), reads
+ptxas' registers, stack and spills of every kernel, disassembles it with
+``cuobjdump -sass`` and counts, for each ``col_sweep_kernel`` and
+``row_sweep_kernel`` instance: its instructions, its conversions by opcode
+(F2F, F2FP, I2F, F2I and their variants: the conversion pipe's work; and
+HADD2.F32, an f16 -> f32 move on the FMA pipe) and a digest of its
+instruction text. A column sweep's loop body handles ``rows`` rows of 8
+cells a lane, so its counts over 8·rows are per cell: for the conversions,
+which lie on the loop's main path, the count each cell executes; for all
+instructions, a static count that includes code only the rare branches
+run. ``--against`` compares with an earlier ``--out`` (another
+checkout's): which instances' SASS is unchanged; ``--dump`` writes each
+kernel's instructions into a file of its own. Needs ``nvcc`` and
+``cuobjdump`` (the CUDA toolkit): without them it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+from ..ops import build
+
+#: opcode prefixes that convert between number formats
+CONVERSIONS = ("F2FP", "F2F", "I2FP", "I2F", "F2IP", "F2I")
+#: the f16 -> f32 move (cvt.f32.f16), which runs on the FMA pipe
+F16_TO_F32 = "HADD2.F32"
+_CELLS_PER_LANE = 8
+
+_FUNC = re.compile(r"Function : (\S+)")
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;")
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(log: str) -> dict:
+    """ptxas ``-v`` output -> mangled name -> {registers, stack,
+    spill_stores, spill_loads}."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> mangled name -> its instructions
+    (text without address and encoding; NOPs dropped)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = _INSTR.search(line)
+        if m and cur is not None and opcode(m.group(1)) != "NOP":
+            cur.append(m.group(1))
+    return out
+
+
+def opcode(instr: str) -> str:
+    """The opcode of an instruction, its predicate guard dropped."""
+    parts = instr.split()
+    if parts and parts[0].startswith("@"):
+        parts = parts[1:]
+    return parts[0] if parts else ""
+
+
+def label(demangled: str) -> str:
+    """``col_sweep_kernel<Fp8, signed char, true, RoundCvt, StoreOnce>``
+    from a demangled name (namespaces, return type and parameter list
+    dropped)."""
+    name = re.sub(r"(\(anonymous namespace\)|<unnamed>|\w+)::", "",
+                  demangled)
+    name = name.replace("(bool)1", "true").replace("(bool)0", "false")
+    name = name.split("(")[0].strip()
+    return name[len("void "):] if name.startswith("void ") else name
+
+
+def rows_per_iteration(name: str) -> int | None:
+    """Rows a column-sweep instance's loop body takes (col_sweep_kernel's
+    kRows: 64 residual bytes a lane, f32 2, bf16 4, fp8 8, or 4 beside a
+    bf16 mask); None for another kernel."""
+    m = re.match(r"col_sweep_kernel<([^,]+), ([^,]+),", name)
+    if not m:
+        return None
+    res, mask = m.group(1).strip(), m.group(2).strip()
+    if res == "float":
+        return 2
+    if res == "__nv_bfloat16":
+        return 4
+    return 4 if mask == "__nv_bfloat16" else 8
+
+
+def summarize(instrs: list, rows: int | None) -> dict:
+    """Instruction and conversion counts of one kernel, per cell where its
+    rows per iteration are known."""
+    ops = [opcode(i) for i in instrs]
+    conv: dict = {}
+    for op in ops:
+        if op.startswith(CONVERSIONS) or op.startswith(F16_TO_F32):
+            conv[op] = conv.get(op, 0) + 1
+    n_conv = sum(n for op, n in conv.items() if op.startswith(CONVERSIONS))
+    n_f16 = sum(n for op, n in conv.items() if op.startswith(F16_TO_F32))
+    rec = {"instructions": len(ops), "conversions": conv,
+           "conversion_count": n_conv, "f16_to_f32_count": n_f16,
+           "branches": sum(op.startswith("BRA") for op in ops),
+           "sha256": hashlib.sha256("\n".join(instrs).encode())
+           .hexdigest()[:16]}
+    if rows:
+        cells = rows * _CELLS_PER_LANE
+        rec.update(rows=rows, per_cell={
+            "conversions": n_conv / cells, "f16_to_f32": n_f16 / cells,
+            "instructions_static": len(ops) / cells})
+    return rec
+
+
+def _tool(name: str) -> str:
+    """A CUDA tool beside nvcc (or on PATH); raises RuntimeError."""
+    path = os.path.join(os.path.dirname(build.nvcc_path()), name)
+    if os.path.exists(path):
+        return path
+    found = shutil.which(name)
+    if found is None:
+        raise RuntimeError(f"{name} not found")
+    return found
+
+
+def _demangle(names: list) -> dict:
+    """mangled -> demangled, by cu++filt (or c++filt); names unchanged
+    where neither exists."""
+    for tool in ("cu++filt", "c++filt"):
+        try:
+            exe = _tool(tool)
+        except RuntimeError:
+            continue
+        out = subprocess.run([exe], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return dict(zip(names, out.stdout.splitlines()))
+    return {n: n for n in names}
+
+
+def report(root: str, dump: str | None = None) -> dict:
+    """label -> record (ptxas' report, ``summarize``) of every sweep
+    kernel of ``root``'s panel_kernels.cu; with ``dump``, each one's SASS
+    also into a file of that directory."""
+    src = os.path.join(root, "cuda_recommender_tpu_torch", "csrc",
+                       "panel_kernels.cu")
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "panel_kernels.cubin")
+        done = subprocess.run([build.nvcc_path(), *flags, "-cubin", "-o",
+                               cubin, src], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{done.stderr[-4000:]}")
+        ptxas = parse_ptxas(done.stdout + done.stderr)
+        sass = parse_sass(subprocess.run(
+            [_tool("cuobjdump"), "-sass", cubin], capture_output=True,
+            text=True, check=True).stdout)
+    names = _demangle(sorted(sass))
+    out = {}
+    for mangled, instrs in sass.items():
+        if not re.search(r"(col|row)_sweep_kernel", mangled):
+            continue
+        name = label(names.get(mangled, mangled))
+        out[name] = {**ptxas.get(mangled, {}),
+                     **summarize(instrs, rows_per_iteration(name))}
+        if dump:
+            os.makedirs(dump, exist_ok=True)
+            fname = re.sub(r"[^A-Za-z0-9_]+", "_", name).strip("_")
+            with open(os.path.join(dump, fname + ".sass"), "w") as f:
+                f.write("\n".join(instrs) + "\n")
+    if not out:
+        raise RuntimeError(f"no sweep kernel among the {len(sass)} "
+                           f"functions of {cubin}: {sorted(names.items())[:3]}")
+    return out
+
+
+def _line(name: str, rec: dict, old: dict | None) -> str:
+    per = rec.get("per_cell", {})
+    text = (f"{name}: {rec.get('registers')} registers, spills "
+            f"{rec.get('spill_stores')}/{rec.get('spill_loads')} B, "
+            f"{rec['instructions']} instructions, "
+            f"{rec['conversion_count']} conversions "
+            f"{dict(sorted(rec['conversions'].items()))}")
+    if per:
+        text += (f"; a cell: {per['conversions']:.3f} conversions, "
+                 f"{per['f16_to_f32']:.3f} f16->f32, "
+                 f"{per['instructions_static']:.2f} instructions (static)")
+    if old is not None:
+        text += ("; SASS unchanged" if old["sha256"] == rec["sha256"] else
+                 f"; SASS differs (was {old['instructions']} instructions, "
+                 f"{old['conversion_count']} conversions, "
+                 f"{old.get('registers')} registers, spills "
+                 f"{old.get('spill_stores')} B)")
+    return text
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="sass_report", description=__doc__
+                                .split("\n")[0])
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    p.add_argument("--out", help="write the records here (JSON)")
+    p.add_argument("--against", help="an earlier --out to compare with")
+    p.add_argument("--dump", help="write each kernel's SASS into this "
+                                  "directory")
+    args = p.parse_args(argv)
+    try:
+        recs = report(os.path.abspath(args.root), args.dump)
+    except RuntimeError as err:
+        print(f"sass_report: {err}", file=sys.stderr)
+        return 2
+    old = {}
+    if args.against:
+        with open(args.against) as f:
+            old = json.load(f)["kernels"]
+    for name, rec in sorted(recs.items()):
+        print(_line(name, rec, old.get(name) if args.against else None),
+              flush=True)
+    out = {"root": os.path.abspath(args.root), "kernels": recs}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,7 @@ version (K5 also against ``torch.linalg.solve``, the gathers against
 that computes each function), for one checkout of the port.
 
     python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
-        [--gathers]
+        [--gathers | --fp8 [--outputs FILE]]
 
 ``--root`` imports the package from another checkout (an unpacked copy of
 another commit; default: the checkout that holds this file), so that one
@@ -21,10 +21,18 @@ by graph replays of GATHER_REPS calls with the index cycled through 128
 MB of copies (``probe_gather``'s method: a call's device time is below
 the host's cost of issuing it), in turns plain, library, kernel, kernel,
 library, plain.
+With ``--fp8`` it times the fp8 instances instead (``time_fp8``: K1 in
+both store orders, K2 and K3 at the headline's panel 0; K4 in both orders
+and the masked sweeps at MASKED_SHAPE beside a bf16 and an int8 mask), and
+with ``--outputs FILE`` it first runs every fp8 instance once on one
+seeded input (``fp8_outputs``) and writes the digests of what each stores
+and sums (R', g, h) to FILE, or, where FILE exists (another checkout's,
+written by an earlier run), holds them bit-equal to it and exits 1 where
+one differs.
 ``chip_smoke.py`` times its phases 6, 9, 15 and 42 through ``nan_sweeps``,
-``gj_solves``, ``masked_sweeps`` and ``time_sweeps``, and checks K5 on
-``spd_systems``, so that one place holds the calls, their bytes and their
-operations. Prints one line per
+``gj_solves``, ``masked_sweeps``, ``time_fp8`` and ``time_sweeps``, and
+checks K5 on ``spd_systems``, so that one place holds the calls, their
+bytes and their operations. Prints one line per
 kernel and a JSON summary (ms, plain ms, GB/s and share of the HBM rate of
 the bytes each call must move) as the last line; on the CPU the times are
 null ("not measured").
@@ -43,6 +51,9 @@ NAN_SHAPES = ((330_128, 17_770), (13_464, 480_189))
 #: K4 and the masked sweeps: the dense quick start's residual (ml10M dims),
 #: f32 and bf16 residual, bf16 and int8 mask
 MASKED_SHAPE = (69_878, 10_677)
+#: the fp8 outputs' seeded input: two row bands of the 1-byte sweep's
+#: interleave (65,536 rows each at the fewest rows a part) and an odd width
+FP8_OUTPUT_SHAPE = (66_001, 1_037)
 #: the rounding variant: the variant matrix's panel and NaN pattern
 VARIANT_SHAPE = (165_376, 18_432)
 #: K5: the ALS headline's rows side (ml20M's users) at k = 10, 40 (the
@@ -91,6 +102,36 @@ def as_residual(R, dtype):
     return out
 
 
+def nan_panel(M, W, device, seed, dtype=None):
+    """An (M, W) NaN-sentinel panel of ``dtype`` (default bf16; 30%
+    observed) and its vectors (uo, up, vo, vp), drawn on the device from
+    ``seed``."""
+    import torch
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    R = torch.randn((M, W), generator=gen, device=device, dtype=torch.bfloat16)
+    R.masked_fill_(torch.rand((M, W), generator=gen, device=device,
+                              dtype=torch.bfloat16) >= 0.3, float("nan"))
+    return as_residual(R, dtype), _vectors(M, W, device, seed + 1)
+
+
+def masked_panel(M, W, dtype, mask_dtype, device, seed):
+    """An (M, W) residual of ``dtype`` (30% observed, 0 elsewhere), its
+    ``mask_dtype`` mask and its vectors (ua, us, va, vs), drawn on the
+    device from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep = torch.rand((M, W), generator=gen, device=device) < 0.3
+    draw = dtype if dtype != torch.float8_e4m3fn else torch.bfloat16
+    R = torch.randn((M, W), generator=gen, device=device,
+                    dtype=draw).masked_fill_(~keep, 0.0)
+    if draw != dtype:
+        R = as_residual(R, dtype)
+    return R, keep.to(mask_dtype), _vectors(M, W, device, seed + 1)
+
+
 def nan_sweeps(M, W, device, seed, dtype=None) -> dict:
     """K1, K2 and K3 on an (M, W) NaN-sentinel panel of ``dtype`` (default
     bf16; fp8: K1 in both store orders) (30% observed) drawn on the device
@@ -98,17 +139,9 @@ def nan_sweeps(M, W, device, seed, dtype=None) -> dict:
     name the instance's (``panel_kernels.instance_name``). Bytes: each
     reads the panel (its cells' bytes) and its vectors and writes g and h;
     K1 also writes the panel back. Flops a cell: 7 (K1), 3 (K2, K3)."""
-    import torch
-
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
 
-    dtype = torch.bfloat16 if dtype is None else dtype
-    gen = torch.Generator(device=device).manual_seed(seed)
-    R = torch.randn((M, W), generator=gen, device=device, dtype=torch.bfloat16)
-    R.masked_fill_(torch.rand((M, W), generator=gen, device=device,
-                              dtype=torch.bfloat16) >= 0.3, float("nan"))
-    R = as_residual(R, dtype)
-    uo, up, vo, vp = _vectors(M, W, device, seed + 1)
+    R, (uo, up, vo, vp) = nan_panel(M, W, device, seed, dtype)
     cells, rb = M * W, R.element_size()
     orders = ("once", "delta_first") if rb == 1 else ("once",)
     out = {pk.instance_name("panel_update_vsweep", dtype, order): (
@@ -133,21 +166,11 @@ def masked_sweeps(M, W, dtype, mask_dtype, device, seed) -> dict:
     Bytes: K4 reads and writes the residual and reads the mask, the sweeps
     read both; each reads its vectors and writes g and h. Flops a cell: 6
     (K4, as the Pallas kernel's cost estimate), 4 (the sweeps)."""
-    import torch
-
     from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
     from cuda_recommender_tpu_torch.ops.panel_kernels import instance_name
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    keep = torch.rand((M, W), generator=gen, device=device) < 0.3
-    draw = dtype if dtype != torch.float8_e4m3fn else torch.bfloat16
-    R = torch.randn((M, W), generator=gen, device=device,
-                    dtype=draw).masked_fill_(~keep, 0.0)
-    if draw != dtype:
-        R = as_residual(R, dtype)
-    Mk = keep.to(mask_dtype)
-    del keep
-    ua, us, va, vs = _vectors(M, W, device, seed + 1)
+    R, Mk, (ua, us, va, vs) = masked_panel(M, W, dtype, mask_dtype, device,
+                                           seed)
     cells, rb, mb = M * W, R.element_size(), Mk.element_size()
     orders = ("once", "delta_first") if rb == 1 else ("once",)
     out = {instance_name("fused_update_vsweep", dtype, order): (
@@ -320,6 +343,91 @@ def time_gathers(device) -> dict:
     return out
 
 
+def time_fp8(device, reps: int = REPS) -> dict:
+    """Every fp8 instance against its plain version (``time_sweeps``): K1
+    (both store orders), K2 and K3 at the headline's panel 0, K4 (both
+    orders) and the masked sweeps at MASKED_SHAPE beside a bf16 and an
+    int8 mask. Returns {"nan" | "bfloat16" | "int8": time_sweeps' dict}."""
+    import torch
+
+    fp8 = torch.float8_e4m3fn
+    (M, W), out = NAN_SHAPES[0], {}
+    calls = nan_sweeps(M, W, device, seed=7, dtype=fp8)
+    out["nan"] = time_sweeps(calls, f"{M}x{W} fp8", device, reps)
+    del calls
+    M, W = MASKED_SHAPE
+    for mdt in (torch.bfloat16, torch.int8):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        calls = masked_sweeps(M, W, fp8, mdt, device, seed=7)
+        out[str(mdt)[6:]] = time_sweeps(
+            calls, f"{M}x{W} fp8, {str(mdt)[6:]} mask", device, reps)
+        del calls
+    return out
+
+
+def fp8_outputs(device, seed: int = 5) -> dict:
+    """Each fp8 instance run once on one seeded input at FP8_OUTPUT_SHAPE
+    (a NaN panel; a masked residual beside a bf16 and an int8 mask): "name
+    mask" -> the sha256 of its stored residual's bytes (the input's for
+    the sweeps), g and h."""
+    import hashlib
+
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    fp8 = torch.float8_e4m3fn
+    M, W = FP8_OUTPUT_SHAPE
+
+    def digest(R, g, h):
+        sha = hashlib.sha256()
+        for x in (R.view(torch.uint8), g, h):
+            sha.update(x.contiguous().cpu().numpy().tobytes())
+        return sha.hexdigest()
+
+    R0, (uo, up, vo, vp) = nan_panel(M, W, device, seed, fp8)
+    out = {}
+    for order in ("once", "delta_first"):
+        R = R0.clone()
+        out[pk.instance_name("panel_update_vsweep", fp8, order) + " nan"] = \
+            digest(R, *pk.panel_update_vsweep(R, uo, up, vo, vp, order=order))
+    out["panel_vsweep_fp8 nan"] = digest(R0, *pk.panel_vsweep(R0, uo))
+    out["panel_usweep_fp8 nan"] = digest(R0, *pk.panel_usweep(R0, vo))
+    for mdt in (torch.bfloat16, torch.int8):
+        what = " " + str(mdt)[6:]
+        R0, Mk, (ua, us, va, vs) = masked_panel(M, W, fp8, mdt, device, seed)
+        for order in ("once", "delta_first"):
+            R = R0.clone()
+            out[pk.instance_name("fused_update_vsweep", fp8, order) + what] = \
+                digest(R, *ck.fused_update_vsweep(R, Mk, ua, us, va, vs,
+                                                  order=order))
+        out["masked_vsweep_fp8" + what] = digest(
+            R0, *ck.masked_vsweep(R0, Mk, ua))
+        out["masked_usweep_fp8" + what] = digest(
+            R0, *ck.masked_usweep(R0, Mk, va))
+    return out
+
+
+def hold_outputs(got: dict, path: str) -> list:
+    """Writes ``got`` (``fp8_outputs``) to ``path``, or where ``path``
+    exists, returns the instances whose digests differ from its."""
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            json.dump(got, f, indent=1)
+        print(f"fp8 outputs: {len(got)} digests written to {path}",
+              flush=True)
+        return []
+    with open(path) as f:
+        want = json.load(f)
+    bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    print(f"fp8 outputs: {len(got) - len(bad)} of {len(got)} instances "
+          f"bit-equal to {path}" + (f"; differ: {bad}" if bad else ""),
+          flush=True)
+    return bad
+
+
 def run(device) -> dict:
     """Times every kernel but the gathers; returns {"kernel shape": rate}."""
     import torch
@@ -358,6 +466,12 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--gathers", action="store_true",
                    help="time P3's gathers instead of the sweeps and K5")
+    p.add_argument("--fp8", action="store_true",
+                   help="time the fp8 instances instead of the sweeps and "
+                        "K5")
+    p.add_argument("--outputs", metavar="FILE",
+                   help="with --fp8: write the fp8 outputs' digests to "
+                        "FILE, or hold them bit-equal to it where it exists")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -369,11 +483,19 @@ def main(argv=None) -> int:
         raise RuntimeError(f"the package came from {pkg.__file__}, not from "
                            f"{root}: run each checkout in a fresh process")
     device = resolve_device(args.device)
+    bad = (hold_outputs(fp8_outputs(device), args.outputs)
+           if args.fp8 and args.outputs else [])
+    if args.gathers:
+        kernels = time_gathers(device)
+    elif args.fp8:
+        kernels = {key: rec for recs in time_fp8(device).values()
+                   for key, rec in recs.items()}
+    else:
+        kernels = run(device)
     out = {"root": root, "device": card(device), "reps": REPS,
-           "kernels": (time_gathers(device) if args.gathers
-                       else run(device))}
+           "kernels": kernels, "outputs_differ": bad}
     print(json.dumps(out), flush=True)
-    return 0
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

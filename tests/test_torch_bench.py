@@ -25,7 +25,7 @@ from cuda_recommender_tpu_torch.cli import bench as cli_bench
 from cuda_recommender_tpu_torch.core.metrics_log import MetricsLog
 from cuda_recommender_tpu_torch.data import datasets
 from cuda_recommender_tpu_torch.ops import launches
-from cuda_recommender_tpu_torch.scripts import panel_floor, \
+from cuda_recommender_tpu_torch.scripts import fp8_runs, panel_floor, \
     panel_kernel_variants, probe_gather, profile_iteration, sweep_timing
 from cuda_recommender_tpu_torch.solvers import ccd_hybrid as ch
 
@@ -298,6 +298,61 @@ def test_sweep_timing_gathers_on_cpu(monkeypatch):
         index = 4 * rows if key.startswith("gather C") else 4 * rows * 128
         assert r["bytes"] == index + 4 * rows * 128 + 4 * S * 128
     assert len(lines) == 1 + len(out["kernels"])
+
+
+def test_sweep_timing_fp8_on_cpu(monkeypatch, tmp_path):
+    """``--fp8``: one line per fp8 instance (K1 in both orders, K2, K3 on a
+    NaN panel; K4 in both orders and the masked sweeps beside each mask);
+    ``--outputs`` writes the digests of (R', g, h) on the seeded input,
+    holds a second run bit-equal to them and exits 1 on a digest that
+    differs."""
+    monkeypatch.setattr(sweep_timing, "NAN_SHAPES", ((70, 33),))
+    monkeypatch.setattr(sweep_timing, "MASKED_SHAPE", (40, 17))
+    monkeypatch.setattr(sweep_timing, "FP8_OUTPUT_SHAPE", (131, 37))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    path = str(tmp_path / "outputs.json")
+    argv = ["--device", "cpu", "--fp8", "--outputs", path]
+    rc, lines = _run(sweep_timing.main, argv)
+    out = json.loads(lines[-1])
+    assert rc == 0 and out["outputs_differ"] == []
+    names = sorted(k.split(" ")[0] for k in out["kernels"])
+    want = ["panel_update_vsweep_fp8", "panel_update_vsweep_fp8_delta_first",
+            "panel_usweep_fp8", "panel_vsweep_fp8"] + 2 * [
+        "fused_update_vsweep_fp8", "fused_update_vsweep_fp8_delta_first",
+        "masked_usweep_fp8", "masked_vsweep_fp8"]
+    assert names == sorted(want)
+    for r in out["kernels"].values():
+        assert r["ms"] is None and r["bytes"] > 0 and r["flops"] > 0
+    with open(path) as f:
+        digests = json.load(f)
+    assert len(digests) == 12 and "masked_usweep_fp8 int8" in digests
+    rc, _ = _run(sweep_timing.main, argv)
+    assert rc == 0
+    digests["panel_vsweep_fp8 nan"] = "0" * 64
+    with open(path, "w") as f:
+        json.dump(digests, f)
+    rc, lines = _run(sweep_timing.main, argv)
+    assert rc == 1
+    assert json.loads(lines[-1])["outputs_differ"] == ["panel_vsweep_fp8 nan"]
+
+
+def test_fp8_runs_needs_the_card(monkeypatch, capsys, tmp_path):
+    """scripts/fp8_runs.py (phases 43-44's fp8 runs for one checkout)
+    exits 2 without a card and prints no result; a process that holds the
+    package from another checkout refuses."""
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    assert fp8_runs.main([]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+    (tmp_path / "chip_smoke.py").write_text("")
+    real = sys.modules.pop("chip_smoke", None)
+    try:
+        with pytest.raises(RuntimeError, match="fresh process"):
+            fp8_runs.main(["--root", str(tmp_path)])
+    finally:
+        sys.modules.pop("chip_smoke", None)
+        if real is not None:
+            sys.modules["chip_smoke"] = real
 
 
 def test_sweep_timing_refuses_a_package_from_elsewhere(monkeypatch,

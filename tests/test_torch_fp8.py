@@ -74,6 +74,7 @@ from cuda_recommender_tpu_torch.ops import panel_kernels as pk
 from cuda_recommender_tpu_torch.ops.densify import (
     FP8, RESIDUAL_DTYPES, densify_coo_mask, densify_coo_nan,
     round_to_storage, store_order)
+from cuda_recommender_tpu_torch.scripts import fp8_grid
 from cuda_recommender_tpu_torch.solvers import ccd_dense as td
 from cuda_recommender_tpu_torch.solvers import ccd_hybrid as th
 from cuda_recommender_tpu_torch.solvers.dense_state import (
@@ -379,6 +380,113 @@ def test_sweep_geometry_fp8(M, W):
     assert nparts % 128 == 0
     bands = nparts // 128
     assert (bands - 1) * 128 * rpp < M <= bands * 128 * rpp
+
+
+# --------------------------------------------------------- the boundary grid
+
+def _grid(mask):
+    """Phase 42's boundary grid at its deltas' width (scripts/fp8_grid.py):
+    R's bytes, the mask (float32, None for the NaN sentinel), the vectors,
+    the delta·mask each cell takes (float32), the panel for the port and
+    for JAX, and the port's mask."""
+    W = fp8_grid.deltas().size
+    Rb, M, vecs = fp8_grid.grid_np(W, mask is not None)
+    dm = np.broadcast_to(vecs[2][None, :], Rb.shape).astype(np.float32)
+    if M is not None:
+        with np.errstate(invalid="ignore"):
+            dm = dm * M                  # ±inf and NaN under a 0: NaN
+    Rj = jnp.asarray(Rb.view(ml_dtypes.float8_e4m3fn))
+    Mt = None if M is None else torch.from_numpy(M).to(getattr(torch, mask))
+    return Rb, M, vecs, dm, Rj, Mt
+
+
+def _grid_plain(Rb, Mt, vecs, order) -> np.ndarray:
+    """The bytes the plain version stores on the grid in ``order``."""
+    Rt = torch.from_numpy(Rb.copy()).view(FP8)
+    tv = [torch.from_numpy(v) for v in vecs]
+    if Mt is None:
+        pk.panel_update_vsweep_plain(Rt, *tv, order=order)
+    else:
+        ck.fused_update_vsweep_plain(Rt, Mt, *tv, order=order)
+    return _bits(Rt)
+
+
+def test_grid_covers_every_boundary():
+    """The grid's deltas hold every fp8 value, every midpoint and one ULP
+    either side, the overflow edge, ±0, ±inf and NaN of both signs; each
+    column meets all 256 bytes, and with a mask every byte meets every
+    delta under a 0 and under a 1; neighbours in a row hold neighbouring
+    bytes (NaN beside a finite cell in one pair)."""
+    d = fp8_grid.deltas()
+    assert d.size % 128 == 0
+    bits = set(d.view(np.uint32).tolist())
+    vals = fp8_grid.fp8_values()
+    np.testing.assert_array_equal(vals.astype(ml_dtypes.float8_e4m3fn)
+                                  .view(np.uint8)[np.isfinite(vals)],
+                                  np.arange(256)[np.isfinite(vals)])
+    fin = np.unique(vals[np.isfinite(vals)])
+    mids = ((fin[:-1].astype(np.float64) + fin[1:]) / 2).astype(np.float32)
+    for arr in (fin, mids, np.nextafter(mids, np.float32(np.inf)),
+                np.nextafter(mids, np.float32(-np.inf))):
+        assert set(arr.view(np.uint32).tolist()) <= bits
+    assert np.isnan(d).sum() >= 4 and np.signbit(d[np.isnan(d)]).any()
+    Rb, M, vecs = fp8_grid.grid_np(d.size, mask=True)
+    assert all(len(set(Rb[:, c])) == 256 for c in (0, 1, 777))
+    for c in (0, 5, 1000):
+        for m in (0.0, 1.0):
+            assert len(set(Rb[M[:, c] == m, c])) == 256
+    row = Rb[3].astype(int)
+    assert np.all(np.diff(row) % 256 == 1)
+    np.testing.assert_array_equal(vecs[0], 1)
+    np.testing.assert_array_equal(vecs[1], 0)
+    np.testing.assert_array_equal(vecs[3], 0)
+
+
+@pytest.mark.parametrize("mask", [None, "bfloat16", "int8"])
+def test_grid_delta_first_matches_xla(mask):
+    """The plain delta-first store (the card's oracle in phase 42) on the
+    boundary grid against XLA's ``R + (delta·mask).astype(fp8)``, jitted
+    and eagerly (the ways the XLA-order steps run): every byte equal."""
+    Rb, M, vecs, _, Rj, Mt = _grid(mask)
+    got = _grid_plain(Rb, Mt, vecs, "delta_first")
+    delta = jnp.asarray(np.broadcast_to(vecs[2][None, :], Rb.shape))
+    Mj = None if mask is None else jnp.asarray(M, getattr(jnp, mask))
+    want = (_xla_update_nan(Rj, delta) if Mj is None
+            else _xla_update(Rj, delta, Mj))
+    np.testing.assert_array_equal(got, np.asarray(want).view(np.uint8))
+    with jax.disable_jit():
+        eager = (Rj + delta.astype(JFP8) if Mj is None
+                 else Rj + (delta * Mj).astype(JFP8))
+    np.testing.assert_array_equal(got, np.asarray(eager).view(np.uint8))
+
+
+@pytest.mark.parametrize("mask", [None, "bfloat16", "int8"])
+def test_grid_once_matches_pallas(mask):
+    """The plain once store on the boundary grid against the Pallas
+    kernels in interpret mode (K1 on the NaN panel, K4 beside the mask):
+    every byte equal, but where R and delta·mask are both NaN: both store
+    NaN there, and IEEE leaves the sign of NaN + NaN open (the CPU keeps
+    the first operand's: the plain version adds R second, the Pallas
+    kernels first; the card makes every arithmetic NaN positive)."""
+    Rb, M, vecs, dm, Rj, _ = _grid(mask)
+    Mt = None if mask is None else torch.from_numpy(M).to(getattr(torch,
+                                                                  mask))
+    got = _grid_plain(Rb, Mt, vecs, "once")
+    jv = [jnp.asarray(v) for v in vecs]
+    if mask is None:
+        want = jp.panel_update_vsweep(Rj, *jv, interpret=True, bm=256,
+                                      bw=128)[0]
+    else:
+        want = jk.fused_update_vsweep(
+            Rj, jnp.asarray(M, getattr(jnp, mask)), *jv, interpret=True,
+            bm=256, bn=128, alias=False)[0]
+    want = np.asarray(want).view(np.uint8)
+    nan_r = (Rb & 0x7F) == 0x7F
+    both = nan_r & np.isnan(dm)
+    np.testing.assert_array_equal(got[~both], want[~both])
+    assert np.all((got[both] & 0x7F) == 0x7F)
+    assert np.all((want[both] & 0x7F) == 0x7F)
+    assert (got != want).sum() < both.sum()
 
 
 # --------------------------------------------------------------------- steps
