@@ -33,8 +33,10 @@ paths:
   the explicit-mask hybrid at Netflix-100M dims with the JAX ``Config``
   defaults, and runs the README's CLI command with no backend flag;
 * the measurement layer: checks the probe kernels (the stream controls
-  stream_rmw and stream_read in the 2-byte tile pattern and in 16-byte
-  vectors, K1's integer-rounding variant, the three gather forms, A and B
+  stream_rmw and stream_read through their ring of bulk copies and in
+  16-byte vectors, on panels from under one 16-byte vector to the scripts'
+  shapes and on views at every even offset off a 16-byte boundary, K1's
+  integer-rounding variant, the three gather forms, A and B
   on both of their paths: the table in shared memory, counted as
   ``gather_smem``, and in L2, counted as ``gather``, at the bench's rows
   tail, at the largest table the card's shared memory takes and one row
@@ -42,7 +44,8 @@ paths:
   versions, runs the port's bench (``python -m
   cuda_recommender_tpu_torch.bench``) at the headline, then with the auto
   stair, the auto orientation and the transposed stair, times the probe
-  kernels at the bench's shapes (gathers A and B at both tail sides),
+  kernels at the bench's shapes (the streams also at the variant
+  matrix's; gathers A and B at both tail sides),
   runs the variant and gather probe scripts and a small ``cli/bench.py``
   grid;
 * serving (``serve/``, ``models/``, ``data/binfmt.py`` and the file and
@@ -157,9 +160,10 @@ PROBES = {
     "gather": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
     "gather_smem": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
 }
-#: probe checks: small and ragged panels, then the scripts' own shapes (the
-#: headline's two panels; the variant matrix's default)
-PROBE_SMALL = ((50, 70), (1537, 300))
+#: probe checks: small and ragged panels (3 x 2 is under one 16-byte
+#: vector), then the scripts' own shapes (the headline's two panels; the
+#: variant matrix's default)
+PROBE_SMALL = ((50, 70), (1537, 300), (3, 2))
 PROBE_SCRIPT_SHAPES = ((330_128, 17_770), (150_061, 4_096),
                        (165_376, 18_432))
 #: gather checks: (table rows, index rows): the probe's shape, a ragged
@@ -1364,19 +1368,33 @@ def run_dense_cli() -> None:
 
 
 def check_probe_kernels(device) -> dict:
-    """stream_rmw (both tile orders, and 16-byte vectors), stream_read
-    (weighted and NaN-skip, the 2-byte tile pattern and 16-byte vectors),
-    panel_update_vsweep_irne and the gather forms against their plain
-    versions on the same inputs, at PROBE_SMALL and the scripts' shapes
-    (the 16-byte streams also on a view one row in, whose rows start off a
-    16-byte boundary): rmw, the rounding variant's stored residual and the
-    gathers bit-equal (the variant's also to K1's), sums within RTOL of
-    sum(|terms|); the gathers through ``check_gathers``. Returns each
-    kernel's largest |kernel - plain|."""
+    """stream_rmw and stream_read (weighted and NaN-skip; the ring and
+    16-byte vectors), panel_update_vsweep_irne and the gather forms against
+    their plain versions on the same inputs, at PROBE_SMALL and the
+    scripts' shapes, the streams also on a view one row in (rows off a
+    16-byte boundary where 2 W is not a multiple of 16) and, at
+    PROBE_SMALL, on views whose first cell lies at every even offset 0-14
+    past a 16-byte boundary: rmw, the rounding variant's stored residual
+    and the gathers bit-equal (the variant's also to K1's), sums within
+    RTOL of sum(|terms|) and bit-equal from one call to the next; the
+    gathers through ``check_gathers``. Returns each kernel's largest
+    |kernel - plain|."""
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
     from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
         pattern_panel
+
+    def views(R, small):
+        """(what, view) pairs of R's cells: R, one row in, and (small)
+        M - 1 rows of the flat cells from every even byte offset 0-14 on
+        (up to W cells in)."""
+        M, W = R.shape
+        out = [("", R)] + ([("one row in", R[1:])] if M > 1 else [])
+        if small and M > 1:
+            flat = R.reshape(-1)
+            out += [(f"{2 * k} bytes in", flat[k:k + (M - 1) * W].view(
+                M - 1, W)) for k in range(min(8, W + 1))]
+        return out
 
     worst = {name: 0.0 for name in PROBES}
     for M, W in PROBE_SMALL + PROBE_SCRIPT_SHAPES:
@@ -1386,45 +1404,41 @@ def check_probe_kernels(device) -> dict:
                                          seed=M + 1)
         R = torch.nan_to_num(R, nan=0.5)      # the P1 panels are NaN-free
         small = (M, W) in PROBE_SMALL
-        for pattern in ("cm", "rm", "vec16") + (("vec16 view",) if small
-                                                 else ()):
+        for vec16 in (False, True):
             Rk, Rp = R.clone(), R.clone()
-            if pattern == "vec16 view":
-                Rk, Rp = Rk[1:], Rp[1:]
-            pr.stream_rmw(Rk, row_major=pattern == "rm",
-                          vec16=pattern.startswith("vec16"))
-            pr.stream_rmw_plain(Rp)
-            _sync(device)
-            if not torch.equal(_bits(Rk), _bits(Rp)):
-                raise AssertionError(f"stream_rmw {M}x{W} {pattern}: "
-                                     f"{int((_bits(Rk) != _bits(Rp)).sum())}"
-                                     " cells differ")
+            for (what, Xk), (_, Xp) in zip(views(Rk, small),
+                                           views(Rp, small)):
+                pr.stream_rmw(Xk, vec16=vec16)
+                pr.stream_rmw_plain(Xp)
+                _sync(device)
+                if not torch.equal(_bits(Rk), _bits(Rp)):
+                    raise AssertionError(
+                        f"stream_rmw{'_vec16' if vec16 else ''} {M}x{W} "
+                        f"{what}: {int((_bits(Rk) != _bits(Rp)).sum())} "
+                        "cells differ")
             del Rk, Rp
-        for name, vec16 in (("stream_read", False),
-                            ("stream_read_vec16", True)):
-            for X, uu in ((R, u),) + (((R[1:], u[1:].contiguous()),)
-                                     if small and vec16 else ()):
-                g = pr.stream_read(X, uu, vec16=vec16)
-                gp = pr.stream_read_plain(X, uu)
-                sg = pr.stream_read_plain(X.abs(), uu.abs())
-                worst[name] = max(worst[name], _close(f"{name} g", g, gp, sg,
-                                                      ratios))
-                if not torch.equal(g, pr.stream_read(X, uu, vec16=vec16)):
-                    raise AssertionError(f"{name} {M}x{W}: not repeatable")
-        del R
-        # the NaN-skip read and the rounding variant on NaN-sentinel panels:
-        # random (30% observed) and, at the variant matrix's shape, its own
-        # pattern
         Rn, _ = random_panel(M, W, torch.bfloat16, device, seed=M + 2)
         if (M, W) == PROBE_SCRIPT_SHAPES[2]:
             del Rn
             Rn = pattern_panel(M, W, device)
         for name, vec16 in (("stream_read", False),
                             ("stream_read_vec16", True)):
-            g = pr.stream_read(Rn, vec16=vec16)
-            worst[name] = max(worst[name], _close(
-                f"{name} (NaN-skip) g", g, pr.stream_read_plain(Rn),
-                pr.stream_read_plain(Rn.abs()), ratios))
+            for X, uu, what in [(X, u[-X.shape[0]:].contiguous(), what)
+                                for what, X in views(R, small)] + \
+                    [(X, None, f"NaN-skip {what}")
+                     for what, X in views(Rn, small)]:
+                g = pr.stream_read(X, uu, vec16=vec16)
+                gp = pr.stream_read_plain(X, uu)
+                sg = pr.stream_read_plain(X.abs(), None if uu is None
+                                          else uu.abs())
+                worst[name] = max(worst[name], _close(
+                    f"{name} {what} g", g, gp, sg, ratios))
+                if not torch.equal(g, pr.stream_read(X, uu, vec16=vec16)):
+                    raise AssertionError(f"{name} {M}x{W} {what}: not "
+                                         "repeatable")
+        del R
+        # the rounding variant on NaN-sentinel panels: random (30%
+        # observed) and, at the variant matrix's shape, its own pattern
         Ra, Rp, R1 = Rn.clone(), Rn.clone(), Rn
         ga, ha = pk.panel_update_vsweep_irne(Ra, u, up, v, vp)
         gp, hp = pk.panel_update_vsweep_irne_plain(Rp, u, up, v, vp)
@@ -1445,13 +1459,47 @@ def check_probe_kernels(device) -> dict:
         del Ra, Rn
         _sync(device)
         torch.cuda.empty_cache()
-        print(f"[check] probes {M:6d}x{W:<6d} bf16: stream_rmw (both orders"
-              f", 16-byte) and the rounding variant's residual bit-equal "
-              f"(also to "
+        print(f"[check] probes {M:6d}x{W:<6d} bf16: stream_rmw (the ring, "
+              f"16-byte; {'every even offset' if small else 'one row in'})"
+              f" and the rounding variant's residual bit-equal (also to "
               f"K1's); sums' largest error / sum|terms| {max(ratios):.2e} "
-              f"(bar {RTOL}) [{time.perf_counter() - t0:.1f} s]", flush=True)
+              f"(bar {RTOL}), repeatable "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    check_ring_refusals(device)
     worst.update(check_gathers(device))
     return worst
+
+
+def check_ring_refusals(device) -> None:
+    """The streams' C entry points refuse a ring of fewer stages than
+    ``stream_plan``'s fewest (a one-stage rmw ring would hang) or more
+    than the kernels take: cudaErrorInvalidValue, before any launch, for
+    a 64 x 64 panel's plan with only the stages changed."""
+    from cuda_recommender_tpu_torch.ops import build
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+
+    lib = build.load("probe_kernels")
+    stream = torch.cuda.current_stream().cuda_stream
+    R = torch.zeros((64, 64), dtype=torch.bfloat16, device=device)
+    g = torch.empty((3, 64), device=device)
+    rmw, read = (pr.stream_plan(64, 64, R.data_ptr() % 16, op=op)
+                 for op in ("rmw", "read"))
+    bad = (0, 1, pr.STREAM_STAGES[0] - 1, 9)
+    for stages in bad:
+        rcs = (lib.crtpu_stream_rmw(R.data_ptr(), 64, 64, 0, rmw["head"],
+                                    rmw["chunk"], stages, rmw["grid"],
+                                    stream),
+               lib.crtpu_stream_read(R.data_ptr(), None, g.data_ptr(), None,
+                                     g[2].data_ptr(), 64, 64, 0,
+                                     read["strip"], read["rows_per_stage"],
+                                     stages, read["grid"], read["per_cta"],
+                                     stream))
+        if rcs != (1, 1):  # cudaErrorInvalidValue
+            raise AssertionError(f"the ring entry points at {stages} stages:"
+                                 f" rc {rcs}, want (1, 1)")
+    _sync(device)
+    print(f"[check] the ring entry points refuse {list(bad)} stages "
+          f"(cudaErrorInvalidValue)", flush=True)
 
 
 def check_gathers(device) -> dict:
@@ -1613,20 +1661,21 @@ def run_bench(extra=(), timeout=900, data=None) -> dict:
 
 def time_probe_kernels(panel, variant_shape, tails, reps=5) -> dict:
     """Each probe kernel against its plain version and, where one exists,
-    its PyTorch call, warm, in turns: stream_rmw (tiles down the columns,
-    the Pallas control's order, and 16-byte vectors; ``R.add_(1)``) and
-    stream_read (weighted; the 2-byte tile pattern and 16-byte vectors;
-    ``torch.mv(R.t(), u)`` with u rounded to bf16) at the bench's panel 0,
-    the rounding variant at the variant matrix's shape, gather forms A and
-    B (and C) at each of the bench's tail sides ``tails`` (by graph
-    replays; ``torch.gather``, ``torch.take``, ``index_select``). Returns
-    name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by); "gather"
-    and "gather_smem" are form B on the side whose path each counts."""
+    its PyTorch call, warm, in turns: the streams (``sweep_timing.
+    time_streams``: the ring and its 16-byte instance of the rmw,
+    ``R.add_(1)``, the u-weighted read, ``torch.mv(R.t(), u)`` with u
+    rounded to bf16, and the NaN-skip read, ``torch.nansum``) at the
+    bench's panel 0 and the variant matrix's shape, the rounding variant
+    at the latter, gather forms A and B (and C) at each of the bench's tail
+    sides ``tails`` (by graph replays; ``torch.gather``, ``torch.take``,
+    ``index_select``). Returns name -> dict(ms, plain_ms, library_ms,
+    bound_ms, bound_by) at panel 0 (every stream record, both shapes,
+    under "streams"); "gather" and "gather_smem" are form B
+    on the side whose path each counts."""
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
     from cuda_recommender_tpu_torch.scripts import sweep_timing as st
-    from cuda_recommender_tpu_torch.scripts.common import device_panel, \
-        time_ms
+    from cuda_recommender_tpu_torch.scripts.common import time_ms
     from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
         pattern_panel
     from cuda_recommender_tpu_torch.scripts.probe_gather import tail_shape
@@ -1648,32 +1697,27 @@ def time_probe_kernels(panel, variant_shape, tails, reps=5) -> dict:
               f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms[-1]:.1f}% of it; "
               f"kernel {nbytes / 1e6 / ms[-1]:.0f} GB/s", flush=True)
 
-    M, W = panel
-    cells = M * W
-    R = device_panel(M, W, "cuda", seed=3)
-    u = torch.randn(M, device="cuda")
-    record("stream_rmw", [lambda: pr.stream_rmw_plain(R),
-                          lambda: R.add_(1),
-                          lambda: pr.stream_rmw(R, row_major=False)],
-           4 * cells, cells, f"{M}x{W} bf16, column-of-tiles order")
-    ms_rm = time_ms(lambda: pr.stream_rmw(R, row_major=True), dev, reps, 0)
-    print(f"[timing] stream_rmw row-of-tiles order: {ms_rm:.3f} ms",
-          flush=True)
-    record("stream_rmw_vec16", [lambda: pr.stream_rmw_plain(R),
-                                lambda: R.add_(1),
-                                lambda: pr.stream_rmw(R, vec16=True)],
-           4 * cells, cells, f"{M}x{W} bf16, 16-byte vectors, flat")
-    # the library call of the weighted read: the matvec u·R in one
-    # torch.mv, with u rounded to the panel's bf16 (torch.mv takes one dtype)
-    u_lib = u.to(R.dtype)
-    for name, vec16 in (("stream_read", False), ("stream_read_vec16", True)):
-        record(name, [lambda: pr.stream_read_plain(R, u),
-                      lambda: torch.mv(R.t(), u_lib),
-                      lambda vec16=vec16: pr.stream_read(R, u, vec16=vec16)],
-               2 * cells + 4 * (-(-M // 512) + W), cells,
-               f"{M}x{W} bf16, u-weighted 512-row blocks"
-               + (", 16-byte vectors" if vec16 else ""))
-    del R, u, u_lib
+    # the streams: the ring and the 16-byte instance share a record's plain
+    # version and PyTorch call (timed in the same turns)
+    streams = st.time_streams(dev, reps, shapes=(panel, variant_shape))
+    for i, (M, W) in enumerate((panel, variant_shape)):
+        for name in ("stream_rmw", "stream_read", "stream_read_nan_skip"):
+            rec = streams[f"{name} {M}x{W}"]
+            b_ms, b_by = bound(rec["bytes"], rec["flops"])
+            row = {}
+            for kern, key in ((name, "ms"), (name + "_vec16", "vec16_ms")):
+                row[kern] = dict(ms=rec[key], plain_ms=rec["plain_ms"],
+                                 library_ms=rec["library_ms"], bound_ms=b_ms,
+                                 bound_by=b_by)
+                print(f"[timing] {kern:28s} {M}x{W}: kernel {rec[key]:.3f} "
+                      f"ms, plain {rec['plain_ms']:.3f}, library "
+                      f"{rec['library_ms']:.3f}; bound {b_ms:.3f} ms "
+                      f"({b_by}), {100 * b_ms / rec[key]:.1f}% of it",
+                      flush=True)
+            for kern, r in row.items():
+                out.setdefault("streams", {})[f"{kern} {M}x{W}"] = r
+                if i == 0 and "nan_skip" not in kern:
+                    out[kern] = r
     torch.cuda.empty_cache()
 
     M, W = variant_shape
@@ -1686,18 +1730,7 @@ def time_probe_kernels(panel, variant_shape, tails, reps=5) -> dict:
         4 * cells + 4 * (2 * M + 4 * W), 7 * cells,
         f"{M}x{W} bf16, the variant matrix's NaN pattern")
     k1 = time_ms(lambda: pk.panel_update_vsweep(R, *vecs), dev, reps, 0)
-    nan_ms = time_turns([lambda: pr.stream_read_plain(R),
-                         lambda: torch.nansum(R, 0, dtype=torch.float32),
-                         lambda: pr.stream_read(R)], dev, reps)
-    print(f"[timing] K1 at the same shape: {k1:.3f} ms; stream_read "
-          f"(NaN-skip) kernel {sum(nan_ms[2]) / 2:.3f} ms, plain "
-          f"{sum(nan_ms[0]) / 2:.3f} ms, torch.nansum "
-          f"{sum(nan_ms[1]) / 2:.3f} ms; bound "
-          f"{bound(2 * cells + 4 * W, cells)[0]:.3f} ms", flush=True)
-    out["stream_read"]["nan_skip"] = dict(
-        shape=[M, W], ms=sum(nan_ms[2]) / 2, plain_ms=sum(nan_ms[0]) / 2,
-        library_ms=sum(nan_ms[1]) / 2,
-        bound_ms=bound(2 * cells + 4 * W, cells)[0])
+    print(f"[timing] K1 at the same shape: {k1:.3f} ms", flush=True)
     out["panel_update_vsweep_irne"]["k1_ms"] = k1
     del R, vecs
     torch.cuda.empty_cache()

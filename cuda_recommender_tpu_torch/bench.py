@@ -22,10 +22,9 @@ along), and the test RMSE is the last iteration's
 
 In the same run, with the run's training state freed, the controls are
 measured on the card: P1's stream controls (``scripts/panel_floor.py``:
-rmw and read in 16-byte vectors, and in the 2-byte tile pattern (K1's
-former layout), the rmw in both tile orders) at each of the run's panel
-shapes, and P3's gathers (``scripts/probe_gather.py``) at each ELL tail
-side's shape. Then
+rmw and read through the streams' ring of bulk copies, and in 16-byte
+vectors) at each of the run's panel shapes, and P3's gathers
+(``scripts/probe_gather.py``) at each ELL tail side's shape. Then
 
 * ``vs_baseline`` = ideal / measured s/iter, the ideal being k · (panel
   cells · 6 B (K1 reads and writes 2 B a cell, K2 reads 2) + the tail's
@@ -35,12 +34,14 @@ side's shape. Then
   (16 B), per slot two own-vectors read and g, h written (16 B), the
   gathered table once. A ratio of the least time to the measured one, so
   never above 1.
-* ``detail.vs_baseline_achievable`` = k · (Σ over panels of the 16-byte
-  rmw control's time and the 16-byte read control's time + Σ over tail
-  sides of the padded lanes at gather form B's measured time per element)
-  / measured s/iter: a diagnostic against what the card's plain streams
-  reach, not a roofline share. The controls in the 2-byte tile pattern
-  ride along in ``detail.controls`` as the access-pattern diagnostic.
+* ``detail.vs_baseline_achievable`` = k · (Σ over panels of the
+  ACHIEVABLE controls' times: the 16-byte-vector rmw ("rmw_vec16", K1's
+  bytes) and read ("read_vec16", K2's bytes) + Σ over tail sides of the
+  padded lanes at gather form B's measured time per element) / measured
+  s/iter: a diagnostic against what the card's plain streams reach, not a
+  roofline share. The ring's controls ("rmw", "read") ride along in
+  ``detail.controls``: at the bench's panel 0 they are slower than the
+  16-byte ones on the H100 (PERF.md §6), so they are not the yardstick.
 
 Without a card the run exits non-zero unless ``--device cpu`` is given;
 a CPU record names the CPU as its device and carries ``vs_baseline: null``
@@ -79,7 +80,8 @@ PANEL_BYTES_PER_CELL = 6
 TAIL_BYTES_PER_LANE = 8 + 4 + 4
 TAIL_BYTES_PER_SLOT = 4 * 4
 #: the panel controls that stand for what the card reaches: K1's bytes
-#: at the 16-byte rmw's time, K2's at the 16-byte read's
+#: at the 16-byte rmw's time, K2's at the 16-byte read's (the faster
+#: design at the bench's panels)
 ACHIEVABLE = ("rmw_vec16", "read_vec16")
 #: floats gathered per lane: rows side (v_pend, v_old, v), cols side
 #: (u_pend, u_old)
@@ -187,7 +189,7 @@ def controls(plan: ch.HybridPlan, sides: dict, dev) -> dict:
 
 
 def achievable_s(k: int, ctl: dict, sides: dict) -> float | None:
-    """Per outer iteration: k · (Σ panels (16-byte rmw + 16-byte read) +
+    """Per outer iteration: k · (Σ panels of the ACHIEVABLE controls' ms +
     Σ sides lanes · form B's time per element), in seconds; None if
     unmeasured."""
     ms = 0.0
@@ -266,8 +268,8 @@ def run(args, data=None) -> dict:
                             "s/iter",
             "vs_baseline_achievable": (achv / dt if on_card and achv
                                        else None),
-            "achievable_def": "k x (per panel: the 16-byte rmw control + "
-                              "the 16-byte read control; per tail side: "
+            "achievable_def": f"k x (per panel: the {' + '.join(ACHIEVABLE)}"
+                              " controls; per tail side: "
                               "padded lanes x gather form B's time per "
                               "element) over the measured s/iter",
             "controls": ctl,

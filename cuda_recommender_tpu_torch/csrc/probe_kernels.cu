@@ -14,12 +14,9 @@
 //
 // Functions, over an (M, W) row-major bfloat16 panel R:
 //   stream_rmw:  R <- bf16(R + 1) in place: one read and one write a cell,
-//     no other work. In the 2-byte tile pattern the grid walks the panel's
-//     512-row x 128-column tiles in column-of-tiles order (down each column
-//     strip, as the Pallas control's grid) or row-of-tiles order (along each
-//     row band, the order in which a 2-D grid runs on the card); in the
-//     16-byte-vector
-//     pattern it walks the cells flat.
+//     no other work. The function is per cell, so both of the Pallas
+//     control's grid orders compute it alike; the kernels walk the cells
+//     flat.
 //   stream_read: g[j] = sum_b w_b * sum_{i in block b} x[i, j] over the
 //     512-row blocks b (the last one ragged). Weighted mode: w_b = u[512 b],
 //     the u at the block's FIRST row (the Pallas body reads u_ref[0, 0]),
@@ -36,22 +33,75 @@
 // bytes and write 4 output bytes an element, plus random 4-byte reads of a
 // table that the 50 MB L2 holds at the probes' shapes.
 //
-// Each stream comes in two load patterns:
-//   * the 2-byte tile pattern (K1's former layout; panel_kernels.cu now
-//     moves 16-byte vectors): a block of 32 x 8 threads owns a 512-row x
-//     128-column tile, each thread loads 4 rows x 4 columns as 2-byte loads
-//     (a warp reads 32 consecutive cells of one row) before any store, so 16
-//     loads are in flight a thread. These measure that access pattern
-//     without arithmetic: the access-pattern diagnostic.
-//   * 16-byte vectors (``vec16``): the rmw walks the panel flat (its function
-//     is per cell, so rows need no alignment), 4 vectors a thread in flight;
-//     the read gives each thread 8 consecutive cells of a row, 4 rows in
-//     flight, realigned from 16-byte-aligned loads where a row does not
-//     start on a 16-byte boundary (W not a multiple of 8). These are the
-//     achievable controls: what a plain stream reaches on the card.
-// The column sums are reduced deterministically in two passes (per-tile
-// partials in a fixed order, then the tiles in tile order; no float
-// atomics).
+// Each stream comes in two designs:
+//   * the ring (the streams' own kernels, counted as stream_rmw and
+//     stream_read): a persistent grid, a few blocks an SM, each with a
+//     ring of shared-memory stages that the bulk copy engine (TMA,
+//     cp.async.bulk) fills from device memory, each completing on its
+//     mbarrier. A block is 8 consumer warps and one producer warp: the
+//     producer issues the copies and the consumers wait only for the data
+//     (full[slot]) and release a slot when done with it (a second
+//     mbarrier a slot), so neither waits for the other's bookkeeping. The
+//     threads spend no registers or instructions on the loads, so the
+//     bytes in flight are bounded by shared memory (stages x stage bytes
+//     a block), not by registers. The geometry is
+//     ops/probe_kernels.py::stream_plan's; the entry points take it and
+//     refuse what does not fit (cudaErrorInvalidValue). A ring wait that
+//     lasts seconds traps: a lost copy is a fault, not a hang.
+//     - rmw: the panel's cells as one flat run; the 16-byte-aligned body
+//       is cut into chunks (a chunk a stage), dealt to the blocks in turn
+//       (chunk c to block c mod grid, so that neighbouring blocks stream
+//       neighbouring bytes). The consumers add 1 to each bf16 pair of a
+//       chunk in shared memory and, after a proxy fence, release it; the
+//       producer writes the stage back by a bulk copy
+//       (cp.async.bulk.global.shared::cta) and commits it, and loads a
+//       stage again only once cp.async.bulk.wait_group.read has released
+//       its write-back, so the loads of later chunks overlap the
+//       write-back of earlier ones. The cells before the first 16-byte
+//       boundary and after the last one (up to 7 each) go one a thread of
+//       block 0.
+//     - read: the panel's W columns are cut into ns = ceil(W / 2048)
+//       strips of equal width ws = ceil(W / ns) (the last one narrower),
+//       and each strip's rows into ranges of per_cta >= 512 rows (one
+//       range where the panel is short); block b takes strip b mod ns and
+//       range b / ns, so that the blocks running side by side read the
+//       strips of the same rows. Consumer thread t owns the strip's
+//       columns t + k * kRingThreads (k < kRingCols) and sums them in
+//       registers in row order. A stage holds ``rows`` rows of the strip,
+//       each copied as the 16-byte-aligned span that covers its segment
+//       into a slot of ``pitch`` bytes (its first cell at the start
+//       address mod 16 in the slot); where one strip spans the panel (ns
+//       = 1), consecutive rows are consecutive bytes, and a stage is one
+//       span. Rounding a span out to 16 bytes stays inside the
+//       allocation: an aligned 16 bytes that hold a cell of the panel lie
+//       inside it (its granules are multiples of 16 bytes). NaN is skipped
+//       by a select. A block writes the partial column sums of each
+//       512-row block of its range, times the block's weight, to that
+//       block's row of ``gpart``; the one piece that begins mid-block (its
+//       range's first, where the range starts off a block boundary) goes
+//       to the block's own row of ``gextra`` instead. A second pass
+//       (ring_reduce_kernel) adds, for each column, the blocks' rows in
+//       block order, each block's ``gextra`` piece after its ``gpart``
+//       one: deterministic, no float atomics.
+//     Why strips of row ranges (balancing the waves): at the variant
+//     matrix's 165,376 x 18,432, whole 512-row blocks would be 323 units
+//     over 132 SMs, 2.45 waves, whose last wave runs half empty; (block,
+//     strip) units, 2,907 over 264 blocks, still leave 11.01 waves (12 for
+//     three blocks, 9% lost). One range a block, ns x ranges <= the
+//     blocks that run at once (9 x 29 = 261 of 264 there), is one wave in
+//     which every block has the same rows to within one; with per_cta >=
+//     512 a (512-row block, strip) piece is split between at most two
+//     blocks, hence the one ``gextra`` row a block.
+//   * 16-byte vectors (``vec16``, counted as stream_rmw_vec16 and
+//     stream_read_vec16; the design the ring is timed against): the rmw
+//     walks the panel flat (its function is per cell, so rows need no
+//     alignment), 4 vectors a thread in flight; the read gives each thread
+//     8 consecutive cells of a row, 4 rows in flight, realigned from
+//     16-byte-aligned loads where a row does not start on a 16-byte
+//     boundary (W not a multiple of 8). A block loads one batch, uses it
+//     and exits; registers bound the bytes in flight. The read's column
+//     sums are reduced in two passes (per-tile partials in a fixed order,
+//     then the tiles in tile order; no float atomics).
 //
 // Gathers A and B walk the index and the output as 16-byte streams over a
 // grid-stride loop: a thread takes a step of 4 (L2 path) or 8 (shared
@@ -106,11 +156,9 @@
 
 namespace {
 
-constexpr int kThreadsX = 32;      // threads across a tile's columns
-constexpr int kThreadsY = 8;       // threads down a tile's rows
-constexpr int kColsPerThread = 4;
+constexpr int kThreadsX = 32;      // threads across a vec16 read tile
+constexpr int kThreadsY = 8;       // threads down its rows
 constexpr int kRowBatch = 4;       // rows loaded per thread before any use
-constexpr int kTileCols = kThreadsX * kColsPerThread;  // 128
 constexpr int kTileRows = 512;     // the Pallas probes' block height (BM)
 constexpr int kReduceThreads = 256;
 constexpr int kGatherThreads = 256;    // form C
@@ -135,6 +183,26 @@ constexpr int kVecElems = 8;       // bf16 cells in a 16-byte vector
 constexpr int kVecUnroll = 4;      // vectors in flight a thread (flat rmw)
 constexpr int kVecThreads = 256;
 constexpr int kVecTileCols = kThreadsX * kVecElems;  // 256, vec16 read
+// the streams' ring (ops/probe_kernels.py mirrors these as STREAM_*):
+// consumer threads a block, the read's columns a thread (a strip is at
+// most their product), the fewest and the most stages, and the bytes
+// before the stages (two mbarriers a stage; the stages start 128-byte
+// aligned). The rmw's producer reloads chunk i's stage only once chunk
+// i + 1 is done, so a ring of one stage never loads its second chunk and
+// hangs; both entry points refuse fewer than the plan's fewest
+// (STREAM_STAGES[0]).
+constexpr int kRingThreads = 256;    // the consumer warps
+constexpr int kRingBlock = kRingThreads + 32;   // and one producer warp
+constexpr int kRingCols = 8;
+constexpr int kRingStrip = kRingThreads * kRingCols;   // 2048 columns
+constexpr int kRingMinStages = 3;
+constexpr int kRingMaxStages = 8;
+constexpr int kRingHead = 128;
+constexpr int kRingReduceThreads = 128;
+constexpr int kRingReduceBatch = 16;   // partials a thread loads at once
+// a ring wait that lasts this many cycles (seconds) traps instead of
+// hanging the card: a copy that never completes is a fault
+constexpr long long kRingTimeout = 1LL << 35;
 
 // bf16(x + 1) of the two bf16 cells packed in ``w`` (low half first).
 __device__ __forceinline__ uint32_t add_one_bf16x2(uint32_t w) {
@@ -148,92 +216,381 @@ __device__ __forceinline__ void add_one_bf16(__nv_bfloat16* p) {
   *p = __float2bfloat16_rn(__fadd_rn(__bfloat162float(*p), 1.f));
 }
 
-// One RMW pass over the tile (ti, tj) of the linear block index: R + 1,
-// rounded once to bf16.
-template <bool kRowMajor>
-__global__ void __launch_bounds__(kThreadsX* kThreadsY)
-    stream_rmw_kernel(__nv_bfloat16* R, int M, int W, int n_row_tiles,
-                      int n_col_tiles) {
-  const int b = blockIdx.x;
-  const int ti = kRowMajor ? b / n_col_tiles : b % n_row_tiles;
-  const int tj = kRowMajor ? b % n_col_tiles : b / n_row_tiles;
-  const int c_base = tj * kTileCols + threadIdx.x;
-  const int r0 = ti * kTileRows;
-  const int r1 = min(M, r0 + kTileRows);
-  for (int rb = r0 + threadIdx.y; rb < r1; rb += kThreadsY * kRowBatch) {
-    float x[kRowBatch][kColsPerThread];
-#pragma unroll
-    for (int k = 0; k < kRowBatch; ++k) {
-      const int r = rb + k * kThreadsY;
-      const size_t roff = static_cast<size_t>(r < r1 ? r : r0) * W;
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        const int c = c_base + q * kThreadsX;
-        x[k][q] = (r < r1 && c < W) ? __bfloat162float(R[roff + c]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRowBatch; ++k) {
-      const int r = rb + k * kThreadsY;
-      if (r >= r1) break;
-      __nv_bfloat16* row = R + static_cast<size_t>(r) * W;
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        const int c = c_base + q * kThreadsX;
-        if (c < W) row[c] = __float2bfloat16_rn(__fadd_rn(x[k][q], 1.f));
-      }
-    }
+// ---- mbarriers and bulk copies (the streams' ring; the gathers' tables) ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// One poll of the mbarrier at ``bar``: whether its phase of ``parity`` has
+// completed.
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try(bar, parity)) {
   }
 }
 
-// First pass of stream_read: tile (blockIdx.y, blockIdx.x)'s column sums,
-// times the tile's weight, into gpart[blockIdx.y, :].
-template <bool kNanSkip>
-__global__ void __launch_bounds__(kThreadsX* kThreadsY)
-    stream_read_kernel(const __nv_bfloat16* __restrict__ R,
-                       const float* __restrict__ u,
-                       float* __restrict__ gpart, int M, int W) {
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int c_base = blockIdx.x * kTileCols + tx;
-  const int r0 = blockIdx.y * kTileRows;
-  const int r1 = min(M, r0 + kTileRows);
-  float s[kColsPerThread] = {0.f, 0.f, 0.f, 0.f};
-  for (int rb = r0 + ty; rb < r1; rb += kThreadsY * kRowBatch) {
-    float x[kRowBatch][kColsPerThread];
-#pragma unroll
-    for (int k = 0; k < kRowBatch; ++k) {
-      const int r = rb + k * kThreadsY;
-      const size_t roff = static_cast<size_t>(r < r1 ? r : r0) * W;
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        const int c = c_base + q * kThreadsX;
-        x[k][q] = (r < r1 && c < W) ? __bfloat162float(R[roff + c]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRowBatch; ++k) {
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        if (!kNanSkip || !isnan(x[k][q])) s[q] += x[k][q];
-      }
-    }
+// mbar_wait bounded by kRingTimeout cycles.
+__device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - t0 > kRingTimeout) __trap();
   }
-  __shared__ float sg[kThreadsY][kTileCols];
-#pragma unroll
-  for (int q = 0; q < kColsPerThread; ++q) sg[ty][tx + q * kThreadsX] = s[q];
+}
+
+// ``bytes`` (a multiple of 16) from the 16-byte-aligned global ``src`` to
+// this block's 16-byte-aligned shared ``dst``, completing ``bytes``
+// transactions on the mbarrier at ``bar``.
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from shared ``src`` to global ``dst``, both
+// 16-byte aligned, in the thread's current bulk async-group.
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src,
+                                         uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Until at most ``kPending`` of the thread's committed bulk groups still
+// read their shared-memory source.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// Until every committed bulk group of the thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The thread's shared-memory writes before it are ordered before the bulk
+// copies (the async proxy) issued after it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- the streams' ring: see the file's head ----
+
+// stream_rmw: ``body`` (``body_bytes``, a multiple of 16, 16-byte aligned)
+// in chunks of ``chunk`` bytes, chunk c to block c mod gridDim.x, through
+// ``stages`` stages of ``chunk`` bytes. The consumer warps wait for a
+// chunk's load (full[slot]), add 1 to its cells in shared memory, fence
+// and arrive on done[slot]; the producer (lane 0 of the last warp) writes
+// each done chunk back, and loads the slot of the chunk before it again
+// once that chunk's write-back has read it. Block 0's consumers also do
+// the ``head`` cells before ``body`` and the ``ntail`` after it, one a
+// thread.
+__global__ void __launch_bounds__(kRingBlock)
+    stream_rmw_ring_kernel(__nv_bfloat16* R, int head, char* body,
+                           long long body_bytes, int chunk, int stages,
+                           int ntail) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t full = sbase, done = sbase + 8u * kRingMaxStages;
+  const long long nchunks = (body_bytes + chunk - 1) / chunk;
+  const long long step = gridDim.x;
+  const long long mine =
+      blockIdx.x < nchunks ? (nchunks - blockIdx.x + step - 1) / step : 0;
+  // this block's i-th chunk: its bytes' offset in ``body``, and how many
+  const auto offset = [&](long long i) {
+    return (blockIdx.x + i * step) * chunk;
+  };
+  const auto nbytes = [&](long long i) {
+    return static_cast<uint32_t>(
+        min(static_cast<long long>(chunk), body_bytes - offset(i)));
+  };
+  const auto stage = [&](int slot) {
+    return sbase + kRingHead + static_cast<uint32_t>(slot) * chunk;
+  };
+  const auto load = [&](long long i, int slot) {
+    mbar_expect_tx(full + 8u * slot, nbytes(i));
+    bulk_g2s(stage(slot), body + offset(i), nbytes(i), full + 8u * slot);
+  };
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8u * s, 1);
+      mbar_init(done + 8u * s, kRingThreads / 32);
+    }
   __syncthreads();
-  if (ty != 0) return;
-  const float w = kNanSkip ? 1.f : u[r0];
-#pragma unroll
-  for (int q = 0; q < kColsPerThread; ++q) {
-    const int c = c_base + q * kThreadsX;
-    if (c >= W) continue;
-    float t = 0.f;
-#pragma unroll
-    for (int y = 0; y < kThreadsY; ++y) t += sg[y][tx + q * kThreadsX];
-    gpart[static_cast<size_t>(blockIdx.y) * W + c] = kNanSkip ? t : t * w;
+  int slot = 0;
+  uint32_t phase = 0;
+  if (threadIdx.x >= kRingThreads) {  // the producer warp
+    if (threadIdx.x != kRingThreads) return;
+    for (int s = 0; s < stages && s < mine; ++s) load(s, s);
+    int prev = stages - 1;
+    for (long long i = 0; i < mine; ++i) {
+      ring_wait(done + 8u * slot, phase);
+      bulk_s2g(body + offset(i), stage(slot), nbytes(i));
+      bulk_commit();
+      // the previous chunk's stage takes the chunk ``stages`` after it
+      // once its write-back has read it (this chunk's may go on)
+      if (i >= 1 && i - 1 + stages < mine) {
+        bulk_wait_read<1>();
+        load(i - 1 + stages, prev);
+      }
+      prev = slot;
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+    bulk_wait_all();
+    return;
   }
+  for (long long i = 0; i < mine; ++i) {
+    ring_wait(full + 8u * slot, phase);
+    const uint32_t n = nbytes(i);
+    uint4* p = reinterpret_cast<uint4*>(
+        smem + kRingHead + static_cast<size_t>(slot) * chunk);
+    for (uint32_t v = threadIdx.x; v < n / 16; v += kRingThreads) {
+      const uint4 x = p[v];
+      p[v] = make_uint4(add_one_bf16x2(x.x), add_one_bf16x2(x.y),
+                        add_one_bf16x2(x.z), add_one_bf16x2(x.w));
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(done + 8u * slot);
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+  if (blockIdx.x == 0) {
+    if (static_cast<int>(threadIdx.x) < head) add_one_bf16(R + threadIdx.x);
+    if (static_cast<int>(threadIdx.x) < ntail)
+      add_one_bf16(reinterpret_cast<__nv_bfloat16*>(body + body_bytes) +
+                   threadIdx.x);
+  }
+}
+
+// A stream_read piece's partial column sums (strip ps, 512-row block pb),
+// times the block's weight, into gpart's row pb or, where the piece began
+// mid-block, into this block's gextra row; then zeroes them.
+template <bool kNanSkip>
+__device__ __forceinline__ void flush_piece(float (&acc)[kRingCols],
+                                            float* __restrict__ gpart,
+                                            float* __restrict__ gextra,
+                                            const float* __restrict__ u,
+                                            int W, int ws, int ps, int pb,
+                                            bool pextra) {
+  const int w = min(ws, W - ps * ws);
+  float* dst = pextra ? gextra + static_cast<size_t>(blockIdx.x) * ws
+                      : gpart + static_cast<size_t>(pb) * W +
+                            static_cast<size_t>(ps) * ws;
+  const float wt = kNanSkip ? 1.f : u[static_cast<size_t>(pb) * kTileRows];
+#pragma unroll
+  for (int j = 0; j < kRingCols; ++j) {
+    const int c = threadIdx.x + j * kRingThreads;
+    if (c < w) dst[c] = kNanSkip ? acc[j] : acc[j] * wt;
+    acc[j] = 0.f;
+  }
+}
+
+// stream_read's first pass: see the file's head. Block b takes strip
+// s = b mod ns and the rows [k * per_cta, min(M, (k + 1) * per_cta)) of
+// it, k = b / ns, ``rows`` a stage (at most 32 where ns > 1: a lane of the
+// producer warp copies a row's segment). The producer warp waits for a
+// slot's consumers to release it (empty[slot]) and loads the next stage
+// into it (full[slot]); the consumer warps sum a stage's rows and release
+// the slot, a warp at a time.
+template <bool kNanSkip>
+__global__ void __launch_bounds__(kRingBlock)
+    stream_read_ring_kernel(const __nv_bfloat16* __restrict__ R,
+                            const float* __restrict__ u,
+                            float* __restrict__ gpart,
+                            float* __restrict__ gextra, int M, int W, int ws,
+                            int rows, int stages, int per_cta) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t full = sbase, empty = sbase + 8u * kRingMaxStages;
+  const int ns = (W + ws - 1) / ws;
+  const bool flat = ns == 1;  // a stage's rows are one span
+  const uint32_t pitch = ((2u * ws + 15u) & ~15u) + 16u;
+  const uint32_t stage_bytes = static_cast<uint32_t>(rows) * pitch;
+  const int s = blockIdx.x % ns;
+  const int c0 = s * ws;  // the strip's first column, and its width
+  const int w = min(ws, W - c0);
+  const int r0 = static_cast<int>(blockIdx.x / ns) * per_cta;
+  const int r1 = min(M, r0 + per_cta);
+  const int nstage = (r1 - r0 + rows - 1) / rows;
+  // the address of the strip's first cell in row r
+  const auto cell = [&](int r) {
+    return reinterpret_cast<uintptr_t>(R) +
+           2u * (static_cast<uintptr_t>(r) * W + c0);
+  };
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  if (t == 0)
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(full + 8u * k, 1);
+      mbar_init(empty + 8u * k, kRingThreads / 32);
+    }
+  __syncthreads();
+  int slot = 0;
+  uint32_t phase = 0;
+
+  if (t >= kRingThreads) {  // the producer warp: lane k copies row k
+    for (int i = 0; i < nstage; ++i) {
+      if (i >= stages) ring_wait(empty + 8u * slot, phase ^ 1u);
+      const int r = r0 + i * rows;
+      const int n = min(rows, r1 - r);
+      const uint32_t bar = full + 8u * slot;
+      const uint32_t dst = sbase + kRingHead + slot * stage_bytes;
+      if (flat) {
+        if (lane == 0) {
+          const uintptr_t a0 = cell(r);
+          const uintptr_t a = a0 & ~static_cast<uintptr_t>(15);
+          const uintptr_t e =
+              (a0 + 2u * static_cast<uintptr_t>(n) * W + 15u) &
+              ~static_cast<uintptr_t>(15);
+          mbar_expect_tx(bar, static_cast<uint32_t>(e - a));
+          bulk_g2s(dst, reinterpret_cast<const void*>(a),
+                   static_cast<uint32_t>(e - a), bar);
+        }
+      } else {
+        const uintptr_t a0 = cell(r + min(lane, n - 1));
+        const uintptr_t a = a0 & ~static_cast<uintptr_t>(15);
+        const uintptr_t e = (a0 + 2u * static_cast<uintptr_t>(w) + 15u) &
+                            ~static_cast<uintptr_t>(15);
+        const uint32_t bytes = lane < n ? static_cast<uint32_t>(e - a) : 0u;
+        const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
+        if (lane == 0) mbar_expect_tx(bar, total);
+        __syncwarp();
+        if (lane < n)
+          bulk_g2s(dst + lane * pitch, reinterpret_cast<const void*>(a),
+                   bytes, bar);
+      }
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+    return;
+  }
+
+  // the piece being summed: its 512-row block, whether it began mid-block
+  // (the range's first piece goes to gextra then), and whether it has
+  // rows yet
+  int pb = r0 / kTileRows;
+  bool pextra = r0 % kTileRows != 0, live = false;
+  float acc[kRingCols];
+#pragma unroll
+  for (int j = 0; j < kRingCols; ++j) acc[j] = 0.f;
+  for (int i = 0; i < nstage; ++i) {
+    ring_wait(full + 8u * slot, phase);
+    const int rs = r0 + i * rows;
+    const int n = min(rows, r1 - rs);
+    const unsigned char* st = smem + kRingHead + slot * stage_bytes;
+    // flat: the stage's first cell's place in its span
+    const uint32_t off0 = static_cast<uint32_t>(cell(rs)) & 15u;
+    for (int k = 0; k < n; ++k) {
+      const int r = rs + k;
+      if (r % kTileRows == 0) {  // a new piece: a 512-row block begins
+        if (live)
+          flush_piece<kNanSkip>(acc, gpart, gextra, u, W, ws, s, pb, pextra);
+        pb = r / kTileRows;
+        pextra = live = false;
+      }
+      const uint32_t off =
+          flat ? off0 + 2u * static_cast<uint32_t>(k) * W
+               : k * pitch + (static_cast<uint32_t>(cell(r)) & 15u);
+      const __nv_bfloat16* row =
+          reinterpret_cast<const __nv_bfloat16*>(st + off);
+#pragma unroll
+      for (int j = 0; j < kRingCols; ++j) {
+        const int c = t + j * kRingThreads;
+        if (c < w) {
+          const float x = __bfloat162float(row[c]);
+          acc[j] += kNanSkip && isnan(x) ? 0.f : x;
+        }
+      }
+      live = true;
+    }
+    __syncwarp();  // the warp has read the stage: release it
+    if (lane == 0) mbar_arrive(empty + 8u * slot);
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+  if (live)
+    flush_piece<kNanSkip>(acc, gpart, gextra, u, W, ws, s, pb, pextra);
+}
+
+// stream_read's second pass after the ring: column c's (block, strip)
+// pieces in block order, each block's gextra piece (from the grid's block
+// whose row range of the strip starts inside it, if any) after its gpart
+// one.
+__global__ void __launch_bounds__(kRingReduceThreads)
+    ring_reduce_kernel(const float* __restrict__ gpart,
+                       const float* __restrict__ gextra,
+                       float* __restrict__ g, int nparts, int M, int W,
+                       int ws, int per_cta) {
+  const int c = blockIdx.x * kRingReduceThreads + threadIdx.x;
+  if (c >= W) return;
+  const int ns = (W + ws - 1) / ws;
+  const int s = c / ws;
+  const int j = c - s * ws;
+  float t = 0.f;
+  for (int p0 = 0; p0 < nparts; p0 += kRingReduceBatch) {
+    float x[kRingReduceBatch];
+#pragma unroll
+    for (int k = 0; k < kRingReduceBatch; ++k)
+      x[k] = p0 + k < nparts ? gpart[static_cast<size_t>(p0 + k) * W + c]
+                             : 0.f;
+#pragma unroll
+    for (int k = 0; k < kRingReduceBatch; ++k) {
+      const int p = p0 + k;
+      if (p >= nparts) break;
+      t += x[k];
+      const int lo = p * kTileRows, hi = min(M, lo + kTileRows);
+      const int range = lo / per_cta + 1;  // the first that starts after lo
+      if (range * per_cta < hi)
+        t += gextra[(static_cast<size_t>(range) * ns + s) * ws + j];
+    }
+  }
+  g[c] = t;
 }
 
 // stream_rmw with 16-byte vectors over the panel's n cells as one flat run:
@@ -437,35 +794,6 @@ __device__ __forceinline__ float ld_table(const float* p, uint64_t pol) {
       : "=f"(v)
       : "l"(p), "l"(pol));
   return v;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // ``bytes`` (a multiple of 16) from the 16-byte-aligned global ``src`` to
@@ -740,16 +1068,55 @@ __global__ void __launch_bounds__(kGatherThreads)
 // a refused launch (bad configuration) never runs and is reported only here.
 extern "C" {
 
-// ``mode`` 0: the 2-byte tiles in column-of-tiles order; 1: row-of-tiles
-// order;
-// 2: 16-byte vectors over the panel as one flat run.
-int crtpu_stream_rmw(void* R, int M, int W, int mode, void* stream) {
-  if (M <= 0 || W <= 0 || mode < 0 || mode > 2) return cudaErrorInvalidValue;
+// The largest dynamic shared memory a block may opt in to, and the SMs, of
+// ``device``.
+int crtpu_gather_limits(int device, int* smem_optin, int* sms) {
+  cudaError_t err = cudaDeviceGetAttribute(
+      smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"
+
+namespace {
+
+// The current device's opt-in shared memory a block, with the ring
+// kernels allowed all of it (set once a device).
+cudaError_t ring_setup(int* optin) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = static_cast<cudaError_t>(crtpu_gather_limits(dev, optin, &sms));
+  static bool set[kMaxDevices] = {};
+  if (err != cudaSuccess || (dev < kMaxDevices && set[dev])) return err;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  err = cudaFuncSetAttribute(stream_rmw_ring_kernel, attr, *optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stream_read_ring_kernel<false>, attr, *optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stream_read_ring_kernel<true>, attr, *optin);
+  if (err == cudaSuccess && dev < kMaxDevices) set[dev] = true;
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// ``mode`` 0: the ring, with ``head`` cells before the 16-byte-aligned body,
+// chunks of ``chunk`` bytes, ``stages`` stages and ``grid`` blocks
+// (ops/probe_kernels.py::stream_plan); 1: 16-byte vectors over the panel as
+// one flat run (the last four arguments unused).
+int crtpu_stream_rmw(void* R, int M, int W, int mode, int head, int chunk,
+                     int stages, int grid, void* stream) {
+  if (M <= 0 || W <= 0 || mode < 0 || mode > 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* Rb = static_cast<__nv_bfloat16*>(R);
-  if (mode == 2) {
-    const long long n = static_cast<long long>(M) * W;
-    const uintptr_t addr = reinterpret_cast<uintptr_t>(R);
+  const long long n = static_cast<long long>(M) * W;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(R);
+  if (mode == 1) {
     const int head = static_cast<int>(
         n < 8 ? n : static_cast<long long>((16 - (addr & 15)) & 15) / 2);
     const long long nvec = (n - head) / kVecElems;
@@ -765,52 +1132,84 @@ int crtpu_stream_rmw(void* R, int M, int W, int mode, void* stream) {
                                                      tail, ntail);
     return static_cast<int>(cudaGetLastError());
   }
-  const int nr = (M + kTileRows - 1) / kTileRows;
-  const int nc = (W + kTileCols - 1) / kTileCols;
-  const dim3 block(kThreadsX, kThreadsY);
-  if (mode == 1)
-    stream_rmw_kernel<true><<<nr * nc, block, 0, s>>>(Rb, M, W, nr, nc);
-  else
-    stream_rmw_kernel<false><<<nr * nc, block, 0, s>>>(Rb, M, W, nr, nc);
+  if (head < 0 || head >= kVecElems || head > n || chunk < 16 ||
+      chunk % 16 != 0 || stages < kRingMinStages ||
+      stages > kRingMaxStages || grid < 1)
+    return cudaErrorInvalidValue;
+  const long long body_bytes = (2 * (n - head)) & ~15LL;
+  if (body_bytes > 0 && ((addr + 2u * head) & 15) != 0)
+    return cudaErrorInvalidValue;
+  int optin = 0;
+  cudaError_t err = ring_setup(&optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long smem = kRingHead + static_cast<long long>(stages) * chunk;
+  if (smem > optin) return cudaErrorInvalidValue;
+  stream_rmw_ring_kernel<<<grid, kRingBlock, static_cast<size_t>(smem),
+                           s>>>(Rb, head, reinterpret_cast<char*>(Rb + head),
+                                body_bytes, chunk, stages,
+                                static_cast<int>(n - head - body_bytes / 2));
   return static_cast<int>(cudaGetLastError());
 }
 
-// ``u`` null selects the NaN-skip mode (unweighted), else the weighted one;
-// ``vec16`` the 16-byte-vector pattern (256-column tiles), else the 2-byte
-// tile pattern.
-int crtpu_stream_read(const void* R, const void* u, void* gpart, void* g,
-                      int M, int W, int vec16, void* stream) {
+// ``u`` null selects the NaN-skip mode (unweighted), else the weighted one.
+// ``mode`` 0: the ring, over ns = ceil(W / strip) column strips of
+// ``strip`` columns cut into row ranges of ``per_cta`` rows, a block each
+// (``grid`` = ns x the ranges), ``rows`` rows a stage, ``stages`` stages
+// (ops/probe_kernels.py::stream_plan), with ``gextra`` (grid x strip
+// floats; may be null for one range a strip); 1: 16-byte vectors in
+// 256-column tiles (the last six arguments unused). ``gpart`` holds
+// ceil(M / 512) x W floats.
+int crtpu_stream_read(const void* R, const void* u, void* gpart, void* gextra,
+                      void* g, int M, int W, int mode, int strip, int rows,
+                      int stages, int grid, long long per_cta, void* stream) {
   const int nr = (M + kTileRows - 1) / kTileRows;
-  if (M <= 0 || W <= 0 || nr > kMaxGridY) return cudaErrorInvalidValue;
+  if (M <= 0 || W <= 0 || nr > kMaxGridY || mode < 0 || mode > 1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tile_cols = vec16 ? kVecTileCols : kTileCols;
-  const dim3 grid((W + tile_cols - 1) / tile_cols, nr);
-  const dim3 block(kThreadsX, kThreadsY);
   const __nv_bfloat16* Rb = static_cast<const __nv_bfloat16*>(R);
   const float* uf = static_cast<const float*>(u);
   float* gp = static_cast<float*>(gpart);
-  if (vec16 && u == nullptr)
-    stream_read_vec_kernel<true><<<grid, block, 0, s>>>(Rb, uf, gp, M, W);
-  else if (vec16)
-    stream_read_vec_kernel<false><<<grid, block, 0, s>>>(Rb, uf, gp, M, W);
-  else if (u == nullptr)
-    stream_read_kernel<true><<<grid, block, 0, s>>>(Rb, uf, gp, M, W);
+  float* gx = static_cast<float*>(gextra);
+  if (mode == 1) {
+    const dim3 tiles((W + kVecTileCols - 1) / kVecTileCols, nr);
+    const dim3 block(kThreadsX, kThreadsY);
+    if (u == nullptr)
+      stream_read_vec_kernel<true><<<tiles, block, 0, s>>>(Rb, uf, gp, M, W);
+    else
+      stream_read_vec_kernel<false><<<tiles, block, 0, s>>>(Rb, uf, gp, M, W);
+    tile_reduce_kernel<<<(W + kReduceThreads - 1) / kReduceThreads,
+                         kReduceThreads, 0, s>>>(gp, static_cast<float*>(g),
+                                                 nr, W);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (strip < 1 || strip > kRingStrip || per_cta < 1 || per_cta > M)
+    return cudaErrorInvalidValue;
+  const int ns = (W + strip - 1) / strip;
+  const long long ranges = (M + per_cta - 1) / per_cta;  // a strip's
+  if (rows < 1 || (ns > 1 && rows > 32) || stages < kRingMinStages ||
+      stages > kRingMaxStages || grid != ns * ranges ||
+      (ranges > 1 && (per_cta < kTileRows || gextra == nullptr)))
+    return cudaErrorInvalidValue;
+  const long long pitch = ((2LL * strip + 15) & ~15LL) + 16;
+  const long long smem =
+      kRingHead + static_cast<long long>(stages) * rows * pitch;
+  int optin = 0;
+  cudaError_t err = ring_setup(&optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > optin) return cudaErrorInvalidValue;
+  if (u == nullptr)
+    stream_read_ring_kernel<true><<<grid, kRingBlock,
+                                    static_cast<size_t>(smem), s>>>(
+        Rb, uf, gp, gx, M, W, strip, rows, stages, static_cast<int>(per_cta));
   else
-    stream_read_kernel<false><<<grid, block, 0, s>>>(Rb, uf, gp, M, W);
-  tile_reduce_kernel<<<(W + kReduceThreads - 1) / kReduceThreads,
-                       kReduceThreads, 0, s>>>(gp, static_cast<float*>(g), nr,
-                                               W);
+    stream_read_ring_kernel<false><<<grid, kRingBlock,
+                                     static_cast<size_t>(smem), s>>>(
+        Rb, uf, gp, gx, M, W, strip, rows, stages, static_cast<int>(per_cta));
+  ring_reduce_kernel<<<(W + kRingReduceThreads - 1) / kRingReduceThreads,
+                       kRingReduceThreads, 0, s>>>(
+      gp, gx, static_cast<float*>(g), nr, M, W, strip,
+      static_cast<int>(per_cta));
   return static_cast<int>(cudaGetLastError());
-}
-
-// The largest dynamic shared memory a block may opt in to, and the SMs, of
-// ``device``.
-int crtpu_gather_limits(int device, int* smem_optin, int* sms) {
-  cudaError_t err = cudaDeviceGetAttribute(
-      smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  return static_cast<int>(err);
 }
 
 // ``mode`` 0, 1, 2: forms A, B, C; ``n_tab`` the table's rows S; ``path``

@@ -1,18 +1,17 @@
 """Stream and gather probes: the card's measurement controls.
 
 Three kernels (``csrc/probe_kernels.cu``), each beside its plain PyTorch
-version, the two streams in two load patterns each: the 2-byte tile
-pattern (K1's former layout: 512 x 128 tiles and 2-byte loads; the
-access-pattern diagnostic) or, with ``vec16=True``, 16-byte
-vectors (the achievable control; counted apart, as ``stream_rmw_vec16``
-and ``stream_read_vec16``):
+version, the two streams in two designs each: a ring of shared-memory
+stages filled by bulk asynchronous copies (TMA), the streams' own kernels,
+whose geometry ``stream_plan`` computes; or, with ``vec16=True``, 16-byte
+vectors loaded a batch a thread (the design the ring is timed against;
+counted apart, as ``stream_rmw_vec16`` and ``stream_read_vec16``):
 
   * ``stream_rmw`` — ``R <- bf16(R + 1)`` IN PLACE over an (M, W) bfloat16
-    panel: the read-modify-write control, in the 2-byte tiles walked in
-    column-of-tiles (``row_major=False``) or row-of-tiles order, or in
-    16-byte vectors over the cells as one flat run. Replaces ``rmw_call``
-    of ``scripts/panel_floor.py`` (P1) and the rmw floor of
-    ``scripts/panel_kernel_variants.py`` (P2).
+    panel: the read-modify-write control, its cells walked flat (the
+    function is per cell, so the Pallas control's two grid orders compute
+    it alike). Replaces ``rmw_call`` of ``scripts/panel_floor.py`` (P1)
+    and the rmw floor of ``scripts/panel_kernel_variants.py`` (P2).
   * ``stream_read`` — the read control: with ``u``, g[j] = Σ_b u[512·b] ·
     Σ_{i in block b} R[i, j] over 512-row blocks (the weight is u at each
     block's FIRST row, as the Pallas body reads ``u_ref[0, 0]``; the last
@@ -69,6 +68,33 @@ GATHER_SMEM_RESERVE = 32
 #: plan assumes (``gather_limits``)
 H100_SMEM_OPTIN = 232_448
 H100_SMS = 132
+#: shared memory the card keeps for itself a block: an SM holds the opt-in
+#: plus this (233,472 bytes on the H100), shared by its blocks
+SMEM_BLOCK_RESERVE = 1024
+
+#: the streams' ring (csrc/probe_kernels.cu mirrors these as kRing*): the
+#: consumer threads a block, and the block with its producer warp; the
+#: read's columns a consumer, so that a column strip is at most
+#: STREAM_STRIP columns; bytes before the stages (two mbarriers a stage);
+#: the most row segments a stage of several strips (a producer lane
+#: copies one)
+STREAM_THREADS = 256
+STREAM_BLOCK = STREAM_THREADS + 32
+STREAM_COLS_PER_THREAD = 8
+STREAM_STRIP = STREAM_THREADS * STREAM_COLS_PER_THREAD
+STREAM_SMEM_HEAD = 128
+STREAM_MAX_SEGMENT_ROWS = 32
+#: the plan's choices: the rmw's bytes a stage (a chunk), the read's bytes a
+#: stage (whole row segments up to it), blocks an SM, and the stages a block
+#: wants (as many as fit its share of the SM's shared memory, between these;
+#: the kernels refuse fewer than the first and take at most 8)
+STREAM_CHUNK = 32 << 10
+STREAM_STAGE_BYTES = 32 << 10
+STREAM_CTAS_PER_SM = 2
+STREAM_STAGES = (3, 6)
+#: a read block's fewest rows (per_cta) where a strip has several ranges:
+#: a (512-row block, strip) piece is then split between at most two blocks
+STREAM_MIN_RANGE_ROWS = BLOCK_ROWS
 
 _limits: dict = {}
 
@@ -84,18 +110,113 @@ def _check_panel(R: torch.Tensor) -> tuple[int, int]:
     return R.shape
 
 
-def stream_rmw(R: torch.Tensor, *, row_major: bool = False,
-               vec16: bool = False) -> torch.Tensor:
-    """P1/P2 rmw: R += 1 in bfloat16, in place; returns R."""
+def _stages(stage_bytes: int, smem_optin: int) -> tuple[int, int]:
+    """(blocks an SM, stages a block) of a ring of ``stage_bytes`` stages:
+    STREAM_CTAS_PER_SM blocks, each with as many stages as fit its share
+    of the SM's shared memory (at most the upper bound of STREAM_STAGES).
+    Raises ValueError where that share holds fewer than the lower bound
+    (the H100's holds 3 of the largest stage, 32 KB)."""
+    lo, hi = STREAM_STAGES
+    cps = STREAM_CTAS_PER_SM
+    share = (smem_optin + SMEM_BLOCK_RESERVE) // cps - SMEM_BLOCK_RESERVE
+    stages = min(hi, (share - STREAM_SMEM_HEAD) // stage_bytes)
+    if stages < lo:
+        raise ValueError(f"{cps} blocks an SM of {lo} stages of {stage_bytes}"
+                         f" bytes do not fit {smem_optin} bytes of opt-in "
+                         f"shared memory a block")
+    return cps, stages
+
+
+def stream_plan(M: int, W: int, offset: int = 0,
+                smem_optin: int = H100_SMEM_OPTIN, sms: int = H100_SMS, *,
+                op: str = "rmw") -> dict:
+    """How the ring kernels (``crtpu_stream_rmw``, ``crtpu_stream_read``
+    at mode 0) stream an (M, W) bfloat16 panel whose first cell lies
+    ``offset`` bytes past a 16-byte boundary (even, 0-14), on a device with
+    ``smem_optin`` bytes of opt-in shared memory a block and ``sms`` SMs.
+    Pure arithmetic, which the C side takes as given and checks.
+
+    ``op="rmw"``: the cells as one flat run: ``head`` cells up to the first
+    16-byte boundary (all of them where fewer than 8 reach it), a body of
+    ``body_bytes`` (a multiple of 16) cut into ``chunks`` of ``chunk``
+    bytes (the last shorter), chunk c to block c mod ``grid``, and ``tail``
+    cells after it (fewer than 8).
+
+    ``op="read"``: the columns cut into ``strips`` strips of ``strip``
+    columns (the last narrower; at most STREAM_STRIP), each strip's M rows
+    into ``ranges`` ranges of ``per_cta`` rows (the last fewer; at least
+    STREAM_MIN_RANGE_ROWS where there are several), a block each: ``grid`` =
+    strips x ranges blocks, block b taking strip b mod strips and range
+    b // strips, at most ``ctas_per_sm`` x ``sms`` of them where the strips
+    allow; ``rows_per_stage`` rows a stage (at most
+    STREAM_MAX_SEGMENT_ROWS with several strips), each row's segment in a
+    slot of ``pitch`` bytes (its 16-byte-aligned span), or, with one
+    strip, the stage's rows as one span; ``blocks`` = ceil(M / 512) rows
+    of partials.
+
+    Both: ``stages`` of ``stage_bytes`` a block, ``smem_bytes`` of dynamic
+    shared memory (STREAM_SMEM_HEAD + stages x stage_bytes), ``threads``
+    a block (STREAM_THREADS consumers and a producer warp).
+    """
+    if offset % 2 or not 0 <= offset < 16:
+        raise ValueError(f"a bfloat16 panel starts at an even offset mod 16, "
+                         f"got {offset}")
+    if M <= 0 or W <= 0:
+        raise ValueError(f"empty panel {M} x {W}")
+    if op == "rmw":
+        cps, stages = _stages(STREAM_CHUNK, smem_optin)
+        n = M * W
+        head = min(n, (16 - offset) % 16 // 2)
+        body = 2 * (n - head) // 16 * 16
+        chunks = -(-body // STREAM_CHUNK)
+        return {"op": op, "head": head, "body_bytes": body,
+                "chunk": STREAM_CHUNK, "chunks": chunks,
+                "tail": n - head - body // 2,
+                "grid": max(1, min(chunks, cps * sms)), "ctas_per_sm": cps,
+                "stages": stages, "stage_bytes": STREAM_CHUNK,
+                "smem_bytes": STREAM_SMEM_HEAD + stages * STREAM_CHUNK,
+                "threads": STREAM_BLOCK}
+    if op != "read":
+        raise ValueError(f"op must be 'rmw' or 'read', got {op!r}")
+    strips = -(-W // STREAM_STRIP)
+    strip = -(-W // strips)
+    pitch = -(-2 * strip // 16) * 16 + 16
+    rows = max(1, STREAM_STAGE_BYTES // pitch)
+    if strips > 1:
+        rows = min(rows, STREAM_MAX_SEGMENT_ROWS)
+    cps, stages = _stages(rows * pitch, smem_optin)
+    ranges = max(1, min(cps * sms // strips, M // STREAM_MIN_RANGE_ROWS))
+    per_cta = -(-M // ranges)
+    ranges = -(-M // per_cta)
+    return {"op": op, "strip": strip, "strips": strips, "pitch": pitch,
+            "rows_per_stage": rows, "per_cta": per_cta, "ranges": ranges,
+            "grid": strips * ranges,
+            "blocks": -(-M // BLOCK_ROWS), "ctas_per_sm": cps,
+            "stages": stages, "stage_bytes": rows * pitch,
+            "smem_bytes": STREAM_SMEM_HEAD + stages * rows * pitch,
+            "threads": STREAM_BLOCK}
+
+
+def _ring_plan(R: torch.Tensor, op: str) -> dict:
+    M, W = R.shape
+    smem_optin, sms = gather_limits(R.device)
+    return stream_plan(M, W, R.data_ptr() % 16, smem_optin, sms, op=op)
+
+
+def stream_rmw(R: torch.Tensor, *, vec16: bool = False) -> torch.Tensor:
+    """P1/P2 rmw: R += 1 in bfloat16, in place; returns R. The ring
+    (``stream_plan``), or with ``vec16`` 16-byte vectors."""
     M, W = _check_panel(R)
-    if vec16 and row_major:
-        raise ValueError("the 16-byte pattern walks the cells flat; it has "
-                         "no tile order")
+    plan = None if vec16 else _ring_plan(R, "rmw")
     if R.device.type == "cpu":
         return stream_rmw_plain(R)
     from .build import load
-    _launch(load("probe_kernels").crtpu_stream_rmw, _ptr(R), M, W,
-            2 if vec16 else int(row_major), _stream(R))
+    fn = load("probe_kernels").crtpu_stream_rmw
+    if vec16:
+        _launch(fn, _ptr(R), M, W, 1, 0, 0, 0, 0, _stream(R))
+    else:
+        _launch(fn, _ptr(R), M, W, 0, plan["head"], plan["chunk"],
+                plan["stages"], plan["grid"], _stream(R))
     count("stream_rmw_vec16" if vec16 else "stream_rmw")
     return R
 
@@ -103,21 +224,30 @@ def stream_rmw(R: torch.Tensor, *, row_major: bool = False,
 def stream_read(R: torch.Tensor, u: torch.Tensor | None = None, *,
                 vec16: bool = False) -> torch.Tensor:
     """P1 read (with ``u``, (M,) float32) or P2's NaN-skip read floor
-    (without). Returns g, (W,) float32."""
+    (without); the ring (``stream_plan``), or with ``vec16`` 16-byte
+    vectors. Returns g, (W,) float32."""
     M, W = _check_panel(R)
     if u is not None and (u.dtype != torch.float32 or u.shape != (M,)
                           or u.device != R.device or not u.is_contiguous()):
         raise ValueError(f"u must be contiguous float32 of shape ({M},) on "
                          f"{R.device}")
+    plan = None if vec16 else _ring_plan(R, "read")
     if R.device.type == "cpu":
         return stream_read_plain(R, u)
     from .build import load
-    nparts = -(-M // BLOCK_ROWS)
     opts = dict(dtype=torch.float32, device=R.device)
-    g, gpart = torch.empty(W, **opts), torch.empty((nparts, W), **opts)
-    _launch(load("probe_kernels").crtpu_stream_read, _ptr(R),
-            None if u is None else _ptr(u), _ptr(gpart), _ptr(g), M, W,
-            int(vec16), _stream(R))
+    g = torch.empty(W, **opts)
+    gpart = torch.empty((-(-M // BLOCK_ROWS), W), **opts)
+    args = [_ptr(R), None if u is None else _ptr(u), _ptr(gpart)]
+    if vec16:
+        args += [None, _ptr(g), M, W, 1, 0, 0, 0, 0, 0]
+    else:
+        gextra = (torch.empty((plan["grid"], plan["strip"]), **opts)
+                  if plan["ranges"] > 1 else None)
+        args += [None if gextra is None else _ptr(gextra), _ptr(g), M, W, 0,
+                 plan["strip"], plan["rows_per_stage"], plan["stages"],
+                 plan["grid"], plan["per_cta"]]
+    _launch(load("probe_kernels").crtpu_stream_read, *args, _stream(R))
     count("stream_read_vec16" if vec16 else "stream_read")
     return g
 
@@ -187,10 +317,10 @@ def gather_plan(S: int, L: int, n_idx: int, smem_limit: int, *,
 
 
 def gather_limits(device: torch.device) -> tuple[int, int]:
-    """(opt-in shared memory a block, SMs) that ``gather_plan`` takes for
-    ``device``: a CUDA device's, read once a device through the kernel
-    library; the H100's for the CPU (whose plain version has no limit of
-    its own)."""
+    """(opt-in shared memory a block, SMs) that ``gather_plan`` and
+    ``stream_plan`` take for ``device``: a CUDA device's, read once a
+    device through the kernel library; the H100's for the CPU (whose plain
+    version has no limit of its own)."""
     if device.type != "cuda":
         return H100_SMEM_OPTIN, H100_SMS
     index = device.index if device.index is not None else \

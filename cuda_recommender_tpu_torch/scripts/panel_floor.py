@@ -8,17 +8,16 @@ Per bfloat16 panel (the headline stair's two panels at their true shapes;
 the port has no block padding), each mode's ms per call, GB/s and share of
 3.35 TB/s:
 
-  rmw_cm     diagnostic: R <- R + 1 in place, in the 2-byte tile pattern
-             (K1's former layout: 512 x 128 tiles, 2-byte loads), no other
-             work, the tiles walked down each column strip (the Pallas
-             control's grid order);
-  rmw_rm     the same walked along each row band (a 2-D grid's order on
-             the card): isolates the order;
-  read_cm    diagnostic: the tiles' u-weighted column sums, the same
-             pattern's reads;
-  rmw_vec16  control: the same rmw in 16-byte vectors, the cells walked
-             flat: what a read-modify-write stream reaches on the card;
-  read_vec16 control: the same read in 16-byte vectors;
+  rmw        control: R <- R + 1 in place, no other work, through the
+             streams' ring (bulk copies into shared-memory stages; the
+             cells walked flat, so the Pallas control's grid order is no
+             parameter);
+  read       control: the u-weighted column sums of 512-row blocks, the
+             same ring's reads;
+  rmw_vec16  the same rmw in 16-byte vectors, a batch a thread: on the
+             H100 the faster of the two, what a read-modify-write stream
+             reaches (the bench's yardstick, ``bench.ACHIEVABLE``);
+  read_vec16 the same read in 16-byte vectors (likewise);
   uv         K1, panel_update_vsweep (2 + 2 B/cell);
   us         K2, panel_usweep (2 B/cell).
 
@@ -49,9 +48,9 @@ from .common import PEAK_BYTES_S, card, cold_copies, cycling, device_panel, \
 #: hand stair (4096, 2048) under 6.5e9 cells
 HEADLINE_PANELS = ((330128, 17770), (150061, 4096))
 #: bytes each mode moves per panel cell
-BYTES_PER_CELL = {"rmw_cm": 4, "rmw_rm": 4, "read_cm": 2, "rmw_vec16": 4,
-                  "read_vec16": 2, "uv": 4, "us": 2}
-CONTROLS = ("rmw_cm", "rmw_rm", "read_cm", "rmw_vec16", "read_vec16")
+BYTES_PER_CELL = {"rmw": 4, "read": 2, "rmw_vec16": 4, "read_vec16": 2,
+                  "uv": 4, "us": 2}
+CONTROLS = ("rmw", "read", "rmw_vec16", "read_vec16")
 #: timed launches per mode, after WARMUP untimed ones
 REPS, WARMUP = 20, 3
 #: the headline's rank, for the implied time per outer iteration
@@ -68,9 +67,8 @@ def panel_modes(shapes, device, *, modes=CONTROLS) -> list:
         u1, u2 = (device_vector(M, device, 100 + j) for j in (0, 1))
         v1, v2 = (device_vector(W, device, 200 + j) for j in (0, 1))
         calls = {
-            "rmw_cm": lambda R: pr.stream_rmw(R, row_major=False),
-            "rmw_rm": lambda R: pr.stream_rmw(R, row_major=True),
-            "read_cm": lambda R: pr.stream_read(R, u1),
+            "rmw": lambda R: pr.stream_rmw(R),
+            "read": lambda R: pr.stream_read(R, u1),
             "rmw_vec16": lambda R: pr.stream_rmw(R, vec16=True),
             "read_vec16": lambda R: pr.stream_read(R, u1, vec16=True),
             "uv": lambda R: pk.panel_update_vsweep(R, u1, u2, v1, v2),

@@ -9,12 +9,12 @@ pattern (cell (r, c) observed, value 1, where (7r + 13c) % 41 == 0; NaN
 elsewhere), each run timed by CUDA events over REPS chained launches
 after one warm-up launch:
 
-  rmw_floor  the read-modify-write floor: R <- R + 1, no sweep, in the
-             2-byte tile pattern (K1's former layout: 512 x 128 tiles,
-             2-byte loads)
-  rmw_floor_vec16   the same in 16-byte vectors (the achievable floor)
-  read_floor the read floor: g = column sums with NaN read as 0, in the
-             2-byte tile pattern
+  rmw_floor  the read-modify-write floor: R <- R + 1, no sweep, through
+             the streams' ring (bulk copies into shared-memory stages)
+  rmw_floor_vec16   the same in 16-byte vectors, a batch a thread
+  read_floor the read floor: g = column sums with NaN read as 0, through
+             the ring (column strips, a thread's columns summed in
+             registers)
   read_floor_vec16  the same in 16-byte vectors, rows realigned by shuffles
   rmw_add_   ``R.add_(1)``, the one PyTorch call that does rmw_floor's work
   read_nansum  ``torch.nansum(R, 0)``, the one PyTorch call that does
@@ -25,8 +25,8 @@ after one warm-up launch:
              initial panel through as many chained launches as A0
   B0         K2, panel_usweep
 
-The floors run in turns with their PyTorch call (2-byte, 16-byte, call,
-call, 16-byte, 2-byte; ``sweep_timing.time_turns``) on one panel each; then
+The floors run in turns with their PyTorch call (ring, 16-byte, call,
+call, 16-byte, ring; ``sweep_timing.time_turns``) on one panel each; then
 A1 against A0: the stored residuals' bit mismatches (0 expected: both
 round to nearest even) and max |g diff|. Prints one line per run and a
 JSON summary with the launch counts.

@@ -1,11 +1,14 @@
-"""The column and row sweeps' machine code (SASS) and ptxas' report, per
-instance, for one checkout of the port.
+"""The column and row sweeps' (or the streams') machine code (SASS) and
+ptxas' report, per instance, for one checkout of the port.
 
     python -m cuda_recommender_tpu_torch.scripts.sass_report [--root DIR]
-        [--out FILE] [--against FILE] [--dump DIR]
+        [--source panel_kernels|probe_kernels] [--out FILE]
+        [--against FILE] [--dump DIR]
 
-Compiles ``csrc/panel_kernels.cu`` of the checkout ``--root`` (default:
-this one) to a cubin with the build's flags (``ops/build.py``), reads
+Compiles ``csrc/panel_kernels.cu`` (or, with ``--source probe_kernels``,
+``csrc/probe_kernels.cu``, whose stream kernels and their reductions it
+reports) of the checkout ``--root`` (default: this one) to a cubin with
+the build's flags (``ops/build.py``), reads
 ptxas' registers, stack and spills of every kernel, disassembles it with
 ``cuobjdump -sass`` and counts, for each ``col_sweep_kernel`` and
 ``row_sweep_kernel`` instance: its instructions, its conversions by opcode
@@ -47,6 +50,10 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+#: source -> the kernels of it that the report covers (a regex of the
+#: mangled name)
+KERNELS = {"panel_kernels": r"(col|row)_sweep_kernel",
+           "probe_kernels": r"stream_\w+_kernel|(ring|tile)_reduce_kernel"}
 
 
 def parse_ptxas(log: str) -> dict:
@@ -167,16 +174,17 @@ def _demangle(names: list) -> dict:
     return {n: n for n in names}
 
 
-def report(root: str, dump: str | None = None) -> dict:
-    """label -> record (ptxas' report, ``summarize``) of every sweep
-    kernel of ``root``'s panel_kernels.cu; with ``dump``, each one's SASS
-    also into a file of that directory."""
+def report(root: str, dump: str | None = None,
+           source: str = "panel_kernels") -> dict:
+    """label -> record (ptxas' report, ``summarize``) of every kernel of
+    ``root``'s ``source``.cu that KERNELS names; with ``dump``, each one's
+    SASS also into a file of that directory."""
     src = os.path.join(root, "cuda_recommender_tpu_torch", "csrc",
-                       "panel_kernels.cu")
+                       f"{source}.cu")
     flags = [f for f in build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "panel_kernels.cubin")
+        cubin = os.path.join(tmp, f"{source}.cubin")
         done = subprocess.run([build.nvcc_path(), *flags, "-cubin", "-o",
                                cubin, src], capture_output=True, text=True)
         if done.returncode != 0:
@@ -188,7 +196,7 @@ def report(root: str, dump: str | None = None) -> dict:
     names = _demangle(sorted(sass))
     out = {}
     for mangled, instrs in sass.items():
-        if not re.search(r"(col|row)_sweep_kernel", mangled):
+        if not re.search(KERNELS[source], mangled):
             continue
         name = label(names.get(mangled, mangled))
         out[name] = {**ptxas.get(mangled, {}),
@@ -199,8 +207,9 @@ def report(root: str, dump: str | None = None) -> dict:
             with open(os.path.join(dump, fname + ".sass"), "w") as f:
                 f.write("\n".join(instrs) + "\n")
     if not out:
-        raise RuntimeError(f"no sweep kernel among the {len(sass)} "
-                           f"functions of {cubin}: {sorted(names.items())[:3]}")
+        raise RuntimeError(f"no {source} kernel among the {len(sass)} "
+                           f"functions of {cubin}: "
+                           f"{sorted(names.items())[:3]}")
     return out
 
 
@@ -229,13 +238,15 @@ def main(argv=None) -> int:
                                 .split("\n")[0])
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
+    p.add_argument("--source", default="panel_kernels", choices=KERNELS,
+                   help="the source whose kernels to report")
     p.add_argument("--out", help="write the records here (JSON)")
     p.add_argument("--against", help="an earlier --out to compare with")
     p.add_argument("--dump", help="write each kernel's SASS into this "
                                   "directory")
     args = p.parse_args(argv)
     try:
-        recs = report(os.path.abspath(args.root), args.dump)
+        recs = report(os.path.abspath(args.root), args.dump, args.source)
     except RuntimeError as err:
         print(f"sass_report: {err}", file=sys.stderr)
         return 2

@@ -5,7 +5,7 @@ version (K5 also against ``torch.linalg.solve``, the gathers against
 that computes each function), for one checkout of the port.
 
     python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
-        [--gathers | --fp8 [--outputs FILE]]
+        [--gathers | --fp8 [--outputs FILE] | --streams]
 
 ``--root`` imports the package from another checkout (an unpacked copy of
 another commit; default: the checkout that holds this file), so that one
@@ -29,8 +29,15 @@ seeded input (``fp8_outputs``) and writes the digests of what each stores
 and sums (R', g, h) to FILE, or, where FILE exists (another checkout's,
 written by an earlier run), holds them bit-equal to it and exits 1 where
 one differs.
-``chip_smoke.py`` times its phases 6, 9, 15 and 42 through ``nan_sweeps``,
-``gj_solves``, ``masked_sweeps``, ``time_fp8`` and ``time_sweeps``, and
+With ``--streams`` it times P1/P2's streams instead (``time_streams``: the
+rmw, the u-weighted read and the NaN-skip read at STREAM_SHAPES, each the
+checkout's own kernel, ``stream_rmw(R)`` / ``stream_read(R[, u])``, beside
+its 16-byte instance, its plain version and its PyTorch call, in turns);
+the names are the same in older checkouts, so that one script times the
+parent's streams and this one's.
+``chip_smoke.py`` times its phases 6, 9, 15, 19 and 42 through
+``nan_sweeps``, ``gj_solves``, ``masked_sweeps``, ``time_streams``,
+``time_fp8`` and ``time_sweeps``, and
 checks K5 on ``spd_systems``, so that one place holds the calls, their
 bytes and their operations. Prints one line per
 kernel and a JSON summary (ms, plain ms, GB/s and share of the HBM rate of
@@ -56,6 +63,11 @@ MASKED_SHAPE = (69_878, 10_677)
 FP8_OUTPUT_SHAPE = (66_001, 1_037)
 #: the rounding variant: the variant matrix's panel and NaN pattern
 VARIANT_SHAPE = (165_376, 18_432)
+#: the streams: the bench's panel 0 (a NaN-sentinel panel, 30% observed),
+#: the variant matrix's panel and the bench's panel 1 (the variant
+#: matrix's NaN pattern)
+STREAM_SHAPES = (NAN_SHAPES[0], VARIANT_SHAPE, (150_061, 4_096))
+STREAM_REPS = 5
 #: K5: the ALS headline's rows side (ml20M's users) at k = 10, 40 (the
 #: headline) and 128 (the kernel's widest)
 GJ_S = 138_493
@@ -366,6 +378,76 @@ def time_fp8(device, reps: int = REPS) -> dict:
     return out
 
 
+def time_streams(device, reps: int = STREAM_REPS, shapes=None) -> dict:
+    """P1/P2's streams at each of ``shapes`` (default STREAM_SHAPES; the
+    first a NaN-sentinel panel, the others the variant matrix's NaN
+    pattern): the rmw (``R.add_(1)``),
+    the u-weighted read (``torch.mv(R.t(), u)``, u rounded to bf16) and the
+    NaN-skip read (``torch.nansum``), each in turns plain, PyTorch call,
+    16-byte instance, the checkout's kernel, and back (``time_turns``).
+    Returns {"stream_... MxW": {ms (the kernel), vec16_ms, plain_ms,
+    library_ms, each one's two turns, bytes, flops, bound_ms, GB_s,
+    share_of_peak}}; bytes count each input read once and each output
+    written once."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+    from cuda_recommender_tpu_torch.scripts.common import PEAK_BYTES_S, \
+        PEAK_F32_FLOP_S, rate
+    from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
+        pattern_panel
+
+    def mean(turns):
+        return None if turns[0] is None else sum(turns) / 2
+
+    out = {}
+    for i, (M, W) in enumerate(shapes or STREAM_SHAPES):
+        R = (nan_panel(M, W, device, seed=M)[0] if i == 0 else
+             pattern_panel(M, W, device))
+        u = torch.randn(M, device=device)
+        u_lib = u.to(R.dtype)
+        cells = M * W
+        calls = {
+            "stream_rmw": (lambda: pr.stream_rmw(R),
+                           lambda: pr.stream_rmw(R, vec16=True),
+                           lambda: pr.stream_rmw_plain(R),
+                           lambda: R.add_(1), 4 * cells),
+            "stream_read": (lambda: pr.stream_read(R, u),
+                            lambda: pr.stream_read(R, u, vec16=True),
+                            lambda: pr.stream_read_plain(R, u),
+                            lambda: torch.mv(R.t(), u_lib),
+                            2 * cells + 4 * (-(-M // 512) + W)),
+            "stream_read_nan_skip": (
+                lambda: pr.stream_read(R),
+                lambda: pr.stream_read(R, vec16=True),
+                lambda: pr.stream_read_plain(R),
+                lambda: torch.nansum(R, 0, dtype=torch.float32),
+                2 * cells + 4 * W)}
+        for name, (kern, vec, plain, lib, nbytes) in calls.items():
+            got = time_turns([plain, lib, vec, kern], device, reps)
+            ms = mean(got[3])
+            bound = 1e3 * max(nbytes / PEAK_BYTES_S, cells / PEAK_F32_FLOP_S)
+            rec = {**rate(nbytes, ms), "vec16_ms": mean(got[2]),
+                   "plain_ms": mean(got[0]), "library_ms": mean(got[1]),
+                   "turns": list(got[3]), "vec16_turns": list(got[2]),
+                   "library_turns": list(got[1]), "bytes": nbytes,
+                   "flops": cells, "bound_ms": bound}
+            key = f"{name} {M}x{W}"
+            out[key] = rec
+            if ms is None:
+                print(f"{key}: not measured ({device.type})", flush=True)
+            else:
+                print(f"{key}: kernel {ms:.3f} ms ({100 * bound / ms:.1f}% "
+                      f"of its {bound:.3f} ms bound), 16-byte "
+                      f"{rec['vec16_ms']:.3f}, library "
+                      f"{rec['library_ms']:.3f}, plain {rec['plain_ms']:.3f}"
+                      f"; turns {rec['turns']}", flush=True)
+        del R, u, u_lib, calls
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def fp8_outputs(device, seed: int = 5) -> dict:
     """Each fp8 instance run once on one seeded input at FP8_OUTPUT_SHAPE
     (a NaN panel; a masked residual beside a bf16 and an int8 mask): "name
@@ -469,6 +551,8 @@ def main(argv=None) -> int:
     p.add_argument("--fp8", action="store_true",
                    help="time the fp8 instances instead of the sweeps and "
                         "K5")
+    p.add_argument("--streams", action="store_true",
+                   help="time P1/P2's streams instead of the sweeps and K5")
     p.add_argument("--outputs", metavar="FILE",
                    help="with --fp8: write the fp8 outputs' digests to "
                         "FILE, or hold them bit-equal to it where it exists")
@@ -487,6 +571,8 @@ def main(argv=None) -> int:
            if args.fp8 and args.outputs else [])
     if args.gathers:
         kernels = time_gathers(device)
+    elif args.streams:
+        kernels = time_streams(device)
     elif args.fp8:
         kernels = {key: rec for recs in time_fp8(device).values()
                    for key, rec in recs.items()}

@@ -120,20 +120,24 @@ def test_bench_counts_the_tail_and_the_ideal():
 
 
 def test_achievable_from_measured_controls():
-    """The 16-byte controls stand for the card; the 2-byte tile pattern
-    (the _cm/_rm controls) is the diagnostic and does not enter."""
-    ctl = {"panels": [{"rmw_cm": {"ms": 3.0}, "rmw_rm": {"ms": 2.0},
-                       "read_cm": {"ms": 1.0}, "rmw_vec16": {"ms": 1.5},
-                       "read_vec16": {"ms": 0.75}},
-                      {"rmw_cm": {"ms": 1.0}, "rmw_rm": {"ms": 0.2},
-                       "read_cm": {"ms": 0.5}, "rmw_vec16": {"ms": 0.5},
-                       "read_vec16": {"ms": 0.25}}],
+    """The panel controls named in bench.ACHIEVABLE (an rmw and a read of
+    panel_floor's modes "rmw", "read", "rmw_vec16", "read_vec16") stand
+    for the card; the others ride along and do not enter."""
+    assert len(bench.ACHIEVABLE) == 2
+    assert set(bench.ACHIEVABLE) <= set(panel_floor.CONTROLS)
+    assert set(panel_floor.CONTROLS) == {"rmw", "read", "rmw_vec16",
+                                         "read_vec16"}
+    rmw, read = bench.ACHIEVABLE
+    assert rmw.startswith("rmw") and read.startswith("read")
+    ms = {rmw: (1.5, 0.5), read: (0.75, 0.25)}
+    ctl = {"panels": [{m: {"ms": ms.get(m, (9.0, 9.0))[i]}
+                       for m in panel_floor.CONTROLS} for i in (0, 1)],
            "gathers": {"rows": {"B": {"ns_per_element": 0.01}}}}
     sides = {"rows": {"lanes": 1_000_000}}
     # k x ((1.5 + 0.75) + (0.5 + 0.25) + 1e6 lanes x 1e-8 ms) ms
     assert math.isclose(bench.achievable_s(10, ctl, sides),
                         10 * (3.0 + 0.01) / 1e3)
-    ctl["panels"][0]["read_vec16"]["ms"] = None
+    ctl["panels"][0][read]["ms"] = None
     assert bench.achievable_s(10, ctl, sides) is None
 
 
@@ -217,8 +221,8 @@ def test_panel_floor_script_on_cpu():
     recs = [json.loads(x) for x in lines]
     assert rc == 0 and [r["shape"] for r in recs[:2]] == [[1100, 260],
                                                           [600, 64]]
-    assert set(recs[0]) == {"shape", "rmw_cm", "rmw_rm", "read_cm",
-                            "rmw_vec16", "read_vec16", "uv", "us"}
+    assert set(recs[0]) == {"shape", "rmw", "read", "rmw_vec16",
+                            "read_vec16", "uv", "us"}
     assert recs[2]["implied"]["panel_ms_per_rank"] is None
     assert math.isclose(recs[2]["implied"]["bound_s_per_iter"],
                         6 * (1100 * 260 + 600 * 64) * 40 / 3.35e12)
@@ -234,9 +238,9 @@ def test_variant_matrix_script_on_cpu():
 
 
 def test_variant_matrix_reports_16_byte_floors():
-    """The floors come in the 2-byte tile pattern and in 16-byte vectors,
-    beside the PyTorch call that does the same work, each a line of its own
-    and a key of the summary."""
+    """The floors come through the ring and in 16-byte vectors, beside the
+    PyTorch call that does the same work, each a line of its own and a key
+    of the summary."""
     rc, lines = _run(panel_kernel_variants.main, ["70", "30", "--device",
                                                   "cpu"])
     out = json.loads(lines[-1])
@@ -275,6 +279,30 @@ def test_sweep_timing_script_on_cpu(monkeypatch):
     gj = out["kernels"]["gj_solve S=37 k=40"]
     assert gj["bytes"] == 4 * 37 * (40 * 40 + 2 * 40)
     assert gj["flops"] == 37 * 40 * 40 * 41
+    assert len(lines) == 1 + len(out["kernels"])
+
+
+def test_sweep_timing_streams_on_cpu(monkeypatch):
+    """``--streams``: the rmw, the weighted and the NaN-skip read at each
+    stream shape, each beside its 16-byte instance, its plain version and
+    its PyTorch call, bytes as the bound counts them, times "not measured"
+    on the CPU."""
+    monkeypatch.setattr(sweep_timing, "STREAM_SHAPES", ((70, 33), (41, 90)))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    rc, lines = _run(sweep_timing.main, ["--device", "cpu", "--streams"])
+    out = json.loads(lines[-1])
+    assert rc == 0 and out["root"] == ROOT
+    assert sorted(out["kernels"]) == sorted(
+        f"{name} {M}x{W}" for M, W in ((70, 33), (41, 90))
+        for name in ("stream_rmw", "stream_read", "stream_read_nan_skip"))
+    for key, r in out["kernels"].items():
+        assert r["ms"] is r["vec16_ms"] is r["plain_ms"] is None
+        assert r["library_ms"] is None
+        M, W = (int(x) for x in key.split(" ")[1].split("x"))
+        want = {"stream_rmw": 4 * M * W,
+                "stream_read": 2 * M * W + 4 * (-(-M // 512) + W),
+                "stream_read_nan_skip": 2 * M * W + 4 * W}[key.split(" ")[0]]
+        assert r["bytes"] == want and r["bound_ms"] > 0
     assert len(lines) == 1 + len(out["kernels"])
 
 

@@ -29,7 +29,9 @@ the repository on sys.path); the fixture restores them.
 
 import importlib.util
 import os
+import re
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -128,12 +130,14 @@ def _rmw_call(kernel, Rd, bm, bw, rowmajor):
 @pytest.mark.parametrize("rowmajor", [False, True])
 @pytest.mark.parametrize("M,W", [(1024, 256), (512, 384)])
 def test_rmw_matches_pallas(scripts, script, rowmajor, M, W):
-    """Both scripts' rmw bodies, both grid orders: bit-equal."""
+    """Both scripts' rmw bodies, both grid orders, against the port's one
+    rmw (the function is per cell, so the order is no parameter of it):
+    bit-equal."""
     x = _panel(M, W, seed=M + W) * np.float32(300.0)    # bf16 ties at |x| > 256
     j, t = _bf16(x)
     want = _rmw_call(scripts[script]._rmw_kernel, j, BM, 128, rowmajor)
     launches.reset_launch_counts()
-    got = pr.stream_rmw(t, row_major=rowmajor)
+    got = pr.stream_rmw(t)
     assert got is t                                    # in place
     assert launches.launch_counts()["stream_rmw"] == 0   # CPU: plain
     np.testing.assert_array_equal(_tbits(got), _jbits(want))
@@ -150,10 +154,9 @@ def test_rmw_plain_formula_ragged():
 
 @pytest.mark.parametrize("M,W", [(1024, 256), (37, 53)])
 def test_rmw_vec16_matches_pallas_and_k1_pattern(scripts, M, W):
-    """The 16-byte-vector rmw computes the same cells as K1's pattern and,
-    at a block-multiple shape, the Pallas rmw; also on a view whose first
-    cell is off a 16-byte boundary. On the CPU: the plain version, no
-    launch."""
+    """The 16-byte-vector rmw computes the same cells as the ring and, at
+    a block-multiple shape, the Pallas rmw; also on a view whose first cell
+    is off a 16-byte boundary. On the CPU: the plain version, no launch."""
     x = _panel(M, W, seed=M + 3) * np.float32(300.0)
     j, t = _bf16(x)
     launches.reset_launch_counts()
@@ -168,10 +171,198 @@ def test_rmw_vec16_matches_pallas_and_k1_pattern(scripts, M, W):
                                   _tbits(got[1:]))
 
 
-def test_rmw_vec16_has_no_tile_order():
-    with pytest.raises(ValueError, match="no tile order"):
-        pr.stream_rmw(torch.zeros((4, 4), dtype=torch.bfloat16),
-                      row_major=True, vec16=True)
+# ------------------------------------------------------ the streams' ring plan
+
+#: stream_plan's shapes: the bench's two panels, the variant matrix's, and
+#: ragged small ones (3 x 5 has fewer cells than two 16-byte vectors, 1 x 7
+#: fewer than one)
+PLAN_SHAPES = ((330_128, 17_770), (150_061, 4_096), (165_376, 18_432),
+               (37, 53), (3, 5), (1, 7))
+OFFSETS = range(0, 16, 2)
+
+
+def _check_rmw_plan(M, W, off, plan):
+    """Every cell once: the head cells, then the body's chunks (16-byte
+    aligned, multiples of 16, disjoint and in order, dealt to the blocks in
+    turn), then the tail; every stage in the block's shared memory; the
+    copies inside the 16-byte granules that hold the panel."""
+    n = M * W
+    head, body, tail = plan["head"], plan["body_bytes"], plan["tail"]
+    assert head + body // 2 + tail == n and 0 <= head < 8 and 0 <= tail < 8
+    assert body % 16 == 0 and (body == 0 or (off + 2 * head) % 16 == 0)
+    chunk, chunks = plan["chunk"], plan["chunks"]
+    assert chunk % 16 == 0 and chunks == -(-body // chunk)
+    starts = off + 2 * head + chunk * np.arange(chunks, dtype=np.int64)
+    sizes = np.minimum(chunk, off + 2 * head + body - starts)
+    assert np.all(starts % 16 == 0) and np.all(sizes % 16 == 0)
+    assert np.all(sizes > 0) and sizes.sum() == body
+    assert np.all(starts[1:] == starts[:-1] + sizes[:-1])  # disjoint, in order
+    assert starts[:1].min(initial=16) >= off and \
+        (starts + sizes).max(initial=0) <= off + 2 * n
+    grid = plan["grid"]
+    assert 1 <= grid <= plan["ctas_per_sm"] * pr.H100_SMS
+    assert grid == 1 or grid <= chunks                 # no block without work
+    per = np.bincount(np.arange(chunks) % grid, minlength=grid)
+    assert per.max() - per.min() <= 1             # balanced to a chunk
+    assert plan["stage_bytes"] == chunk
+
+
+def _check_read_plan(M, W, off, plan):
+    """Every cell once: the strips cut the columns (each at most a strip of
+    the block's threads), each strip's rows go to its blocks in equal
+    contiguous ranges (at least 512 rows where there are several, so that
+    a 512-row block of a strip is split between at most two blocks), and
+    each row's 16-byte-aligned span lies in its slot of the stage (or,
+    with one strip, a stage's rows in one span of the stage) and inside
+    the 16-byte granules that hold the panel."""
+    strip, strips = plan["strip"], plan["strips"]
+    assert strip <= pr.STREAM_STRIP and -(-W // strip) == strips
+    assert (strips - 1) * strip < W <= strips * strip
+    widths = np.minimum(strip, W - strip * np.arange(strips))
+    assert np.all(widths > 0) and widths.sum() == W
+    per, ranges, grid = plan["per_cta"], plan["ranges"], plan["grid"]
+    assert grid == strips * ranges and (ranges - 1) * per < M <= ranges * per
+    assert ranges == 1 or per >= pr.STREAM_MIN_RANGE_ROWS
+    assert grid <= max(strips, plan["ctas_per_sm"] * pr.H100_SMS)
+    rows, pitch = plan["rows_per_stage"], plan["pitch"]
+    assert pitch % 16 == 0 and plan["stage_bytes"] == rows * pitch
+    assert strips == 1 or rows <= pr.STREAM_MAX_SEGMENT_ROWS
+    # block b: strip b mod strips, rows [k per, (k + 1) per), k = b // strips
+    b = np.arange(grid)
+    s_of, r0 = b % strips, (b // strips) * per
+    r1 = np.minimum(M, r0 + per)
+    cover = np.zeros((strips, M), np.int64)
+    for s, lo, hi in zip(s_of, r0, r1):
+        cover[s, lo:hi] += 1
+    assert np.all(cover == 1)
+    # every segment's span: in its slot, 16-byte aligned, in the granules
+    q = np.arange(strips * M, dtype=np.int64)
+    s, r = q // M, q % M
+    a0 = off + 2 * (r * W + s * strip)
+    a, e = a0 // 16 * 16, -(-(a0 + 2 * widths[s]) // 16) * 16
+    lo, hi = 0, -(-(off + 2 * M * W) // 16) * 16
+    assert a.min() >= lo and e.max() <= hi
+    if strips > 1:
+        assert np.all(e - a <= pitch)
+    else:                # a stage's rows, one span from its first row on
+        first = (r // per) * per + (r % per) // rows * rows
+        last = np.minimum(first + rows, np.minimum(M, (r // per + 1) * per))
+        span = -(-(off + 2 * last * W) // 16) * 16 - \
+            (off + 2 * first * W) // 16 * 16
+        assert span.max() <= rows * pitch
+    # a 512-row block of a strip meets at most two ranges
+    b0 = np.arange(0, M, pr.BLOCK_ROWS)
+    last_row = np.minimum(M, b0 + pr.BLOCK_ROWS) - 1
+    assert np.all(last_row // per - b0 // per <= 1)
+
+
+@pytest.mark.parametrize("op", ["rmw", "read"])
+@pytest.mark.parametrize("M,W", PLAN_SHAPES)
+def test_stream_plan_covers_every_cell_once(M, W, op):
+    """The ring's plan at the bench's panels, the variant matrix's and
+    ragged small shapes, at every even offset of the first cell mod 16:
+    every cell once, spans and chunks 16-byte aligned and whole 16-byte
+    granules of the panel, every block's stages within the H100's opt-in
+    shared memory and two blocks within an SM's."""
+    for off in OFFSETS:
+        plan = pr.stream_plan(M, W, off, op=op)
+        assert plan["op"] == op and plan["threads"] == pr.STREAM_BLOCK
+        assert pr.STREAM_STAGES[0] <= plan["stages"] <= pr.STREAM_STAGES[1]
+        assert plan["smem_bytes"] == pr.STREAM_SMEM_HEAD + \
+            plan["stages"] * plan["stage_bytes"] <= pr.H100_SMEM_OPTIN
+        assert plan["ctas_per_sm"] * (plan["smem_bytes"] +
+                                      pr.SMEM_BLOCK_RESERVE) <= \
+            pr.H100_SMEM_OPTIN + pr.SMEM_BLOCK_RESERVE
+        (_check_rmw_plan if op == "rmw" else _check_read_plan)(M, W, off,
+                                                               plan)
+
+
+def test_stream_plan_balances_the_waves():
+    """At the variant matrix's shape the read's 9 strips x 29 row ranges
+    are 261 blocks, one wave of the 264 that run at once (2 an SM), each
+    5,703 rows (5,692 the last), where whole 512-row blocks
+    would run 2.45 waves on 132 SMs; at the bench's panel 1, 2 x 132. The
+    rmw's chunks differ by at most one a block."""
+    read = pr.stream_plan(165_376, 18_432, op="read")
+    assert (read["strips"], read["strip"], read["ranges"]) == (9, 2048, 29)
+    assert read["grid"] == 261 <= 2 * pr.H100_SMS
+    assert read["per_cta"] == 5_703
+    assert 165_376 - 28 * read["per_cta"] == 5_692
+    panel1 = pr.stream_plan(150_061, 4_096, op="read")
+    assert (panel1["strips"], panel1["ranges"], panel1["grid"]) == \
+        (2, 132, 264)
+    rmw = pr.stream_plan(165_376, 18_432, op="rmw")
+    assert rmw["grid"] == 264 and rmw["chunks"] == 186_048
+
+
+def test_stream_plan_refuses_what_does_not_fit():
+    """An odd offset (not a bfloat16 address), an empty panel, an unknown
+    op and an opt-in whose share of an SM holds fewer than three stages
+    a block at two blocks an SM raise: the plan is one choice, made for
+    the H100's opt-in, which holds it. The least opt-in that holds three
+    32 KB stages for each of two blocks plans them."""
+    for kwargs in ({"offset": 3}, {"offset": 16}, {"op": "copy"}):
+        with pytest.raises(ValueError):
+            pr.stream_plan(8, 8, **kwargs)
+    with pytest.raises(ValueError, match="empty"):
+        pr.stream_plan(0, 8)
+    least = 2 * (3 * pr.STREAM_CHUNK + pr.STREAM_SMEM_HEAD +
+                 pr.SMEM_BLOCK_RESERVE) - pr.SMEM_BLOCK_RESERVE
+    assert least == 197_888 < pr.H100_SMEM_OPTIN
+    for optin in (3 * pr.STREAM_CHUNK, 150_000):
+        for op in ("rmw", "read"):
+            with pytest.raises(ValueError, match="do not fit"):
+                pr.stream_plan(64, 64, 0, optin, op=op)
+    with pytest.raises(ValueError, match="do not fit"):
+        pr.stream_plan(64, 64, 0, least - 2)
+    plan = pr.stream_plan(64, 64, 0, least)
+    assert plan["ctas_per_sm"] == pr.STREAM_CTAS_PER_SM == 2
+    assert plan["stages"] == pr.STREAM_STAGES[0] == 3
+
+
+def test_ring_constants_mirror_the_plan():
+    """The kernels' kRing* constants are the plan's STREAM_* ones, and both
+    entry points refuse fewer stages than the plan's fewest: a one-stage
+    rmw ring never loads its second chunk, so the C side must not take
+    it."""
+    src = (Path(pr.__file__).resolve().parent.parent / "csrc" /
+           "probe_kernels.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m, name
+        return int(m.group(1))
+
+    assert const("kRingThreads") == pr.STREAM_THREADS
+    assert const("kRingThreads") + 32 == pr.STREAM_BLOCK
+    assert const("kRingCols") == pr.STREAM_COLS_PER_THREAD
+    assert const("kRingHead") == pr.STREAM_SMEM_HEAD
+    assert const("kRingMinStages") == pr.STREAM_STAGES[0]
+    assert pr.STREAM_STAGES[1] <= const("kRingMaxStages")
+    for entry in ("crtpu_stream_rmw", "crtpu_stream_read"):
+        body = src[src.index(f"int {entry}("):]
+        body = body[:body.index("\n}\n")]
+        assert "stages < kRingMinStages" in body, entry
+
+
+def test_stream_wrappers_take_the_plain_version_on_the_cpu():
+    """On a CPU tensor (a view off a 16-byte boundary too) the ring
+    wrappers take the plain versions, count nothing and plan all the same
+    (the plan's refusals raise there too)."""
+    x = _panel(600, 90, seed=4) * np.float32(300.0)
+    _, t = _bf16(x)
+    want = pr.stream_rmw_plain(t.clone())
+    launches.reset_launch_counts()
+    view = t.clone().view(-1)[3:3 + 599 * 90].view(599, 90)
+    assert torch.equal(_tbits_t(pr.stream_rmw(view)),
+                       _tbits_t(want.view(-1)[3:3 + 599 * 90].view(599, 90)))
+    g = pr.stream_read(view)
+    assert torch.equal(g, pr.stream_read_plain(view))
+    assert set(launches.launch_counts().values()) == {0}
+
+
+def _tbits_t(x):
+    return x.contiguous().view(torch.int16)
 
 
 # ------------------------------------------------------------------- P1 read
@@ -600,8 +791,8 @@ def test_build_binds_the_probe_kernels():
     assert set(build.SIGNATURES["probe_kernels"]) == {
         "crtpu_stream_rmw", "crtpu_stream_read", "crtpu_gather",
         "crtpu_gather_limits"}
-    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_rmw"]) == 5
-    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_read"]) == 8
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_rmw"]) == 9
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_read"]) == 14
     assert len(build.SIGNATURES["probe_kernels"]["crtpu_gather"]) == 9
     assert len(build.SIGNATURES["probe_kernels"]
                ["crtpu_gather_limits"]) == 3

@@ -3,6 +3,7 @@ parsers on canned ptxas and cuobjdump text, its per-cell counts, and its
 exit without the CUDA toolkit."""
 
 import json
+import re
 
 import pytest
 
@@ -113,3 +114,19 @@ def test_exits_2_without_the_toolkit(monkeypatch, capsys):
     monkeypatch.setattr(build, "nvcc_path", missing)
     assert sr.main([]) == 2
     assert "nvcc not found" in capsys.readouterr().err
+
+
+def test_probe_source_reports_the_streams_only():
+    """``--source probe_kernels`` covers the stream kernels and their
+    reductions, not the gathers; the default covers the sweeps."""
+    names = ["_ZN12_GLOBAL__N_122stream_rmw_ring_kernelEP13__nv_bfloat16iPcxiii",
+             "_ZN12_GLOBAL__N_123stream_read_ring_kernelILb1EEEvPK13__nv_bfloat16PKfPfS6_iiiiix",
+             "_ZN12_GLOBAL__N_121stream_rmw_vec_kernelEP13__nv_bfloat16iP5uint4xS1_i",
+             "_ZN12_GLOBAL__N_118ring_reduce_kernelEPKfS1_Pfiiiix",
+             "_ZN12_GLOBAL__N_118tile_reduce_kernelEPKfPfii",
+             "_ZN12_GLOBAL__N_116gather_l2_kernelILi0ELb1EEEvPKfPKiPfixiix",
+             "_ZN12_GLOBAL__N_116col_sweep_kernelIfNS_7NanMaskELb1EEEvv"]
+    got = [n for n in names if re.search(sr.KERNELS["probe_kernels"], n)]
+    assert got == names[:5]
+    assert [n for n in names if re.search(sr.KERNELS["panel_kernels"], n)] \
+        == names[6:]
