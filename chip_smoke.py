@@ -33,9 +33,10 @@ paths:
   the explicit-mask hybrid at Netflix-100M dims with the JAX ``Config``
   defaults, and runs the README's CLI command with no backend flag;
 * the measurement layer: checks the probe kernels (the stream controls
-  stream_rmw and stream_read through their ring of bulk copies and in
-  16-byte vectors, on panels from under one 16-byte vector to the scripts'
-  shapes and on views at every even offset off a 16-byte boundary, K1's
+  stream_rmw and stream_read, the read on both of its row paths and bit-
+  equal to its order of additions on the host, on panels from under one
+  16-byte vector to the scripts' shapes and on views at every even offset
+  off a 16-byte boundary, K1's
   integer-rounding variant, the three gather forms, A and B
   on both of their paths: the table in shared memory, counted as
   ``gather_smem``, and in L2, counted as ``gather``, at the bench's rows
@@ -153,17 +154,16 @@ MASKED_KERNELS = {
 PROBES = {
     "stream_rmw": ("probe_kernels.cu", "scripts/panel_floor.py:86"),
     "stream_read": ("probe_kernels.cu", "scripts/panel_floor.py:100"),
-    "stream_rmw_vec16": ("probe_kernels.cu", "scripts/panel_floor.py:86"),
-    "stream_read_vec16": ("probe_kernels.cu", "scripts/panel_floor.py:100"),
     "panel_update_vsweep_irne": ("panel_kernels.cu",
                                  "scripts/panel_kernel_variants.py:95"),
     "gather": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
     "gather_smem": ("probe_kernels.cu", "scripts/probe_vmem_gather.py:65"),
 }
 #: probe checks: small and ragged panels (3 x 2 is under one 16-byte
-#: vector), then the scripts' own shapes (the headline's two panels; the
-#: variant matrix's default)
-PROBE_SMALL = ((50, 70), (1537, 300), (3, 2))
+#: vector; 1100 x 264, whose rows start on 16-byte boundaries, is read on
+#: the aligned path), then the scripts' own shapes (the headline's two
+#: panels; the variant matrix's default)
+PROBE_SMALL = ((50, 70), (1537, 300), (3, 2), (1100, 264))
 PROBE_SCRIPT_SHAPES = ((330_128, 17_770), (150_061, 4_096),
                        (165_376, 18_432))
 #: gather checks: (table rows, index rows): the probe's shape, a ragged
@@ -1368,17 +1368,20 @@ def run_dense_cli() -> None:
 
 
 def check_probe_kernels(device) -> dict:
-    """stream_rmw and stream_read (weighted and NaN-skip; the ring and
-    16-byte vectors), panel_update_vsweep_irne and the gather forms against
-    their plain versions on the same inputs, at PROBE_SMALL and the
-    scripts' shapes, the streams also on a view one row in (rows off a
-    16-byte boundary where 2 W is not a multiple of 16) and, at
-    PROBE_SMALL, on views whose first cell lies at every even offset 0-14
-    past a 16-byte boundary: rmw, the rounding variant's stored residual
-    and the gathers bit-equal (the variant's also to K1's), sums within
-    RTOL of sum(|terms|) and bit-equal from one call to the next; the
-    gathers through ``check_gathers``. Returns each kernel's largest
-    |kernel - plain|."""
+    """stream_rmw and stream_read (weighted and NaN-skip),
+    panel_update_vsweep_irne and the gather forms against their plain
+    versions on the same inputs, at PROBE_SMALL and the scripts' shapes,
+    the streams also on a view one row in (rows off a 16-byte boundary
+    where 2 W is not a multiple of 16) and, at PROBE_SMALL, on views whose
+    first cell lies at every even offset 0-14 past a 16-byte boundary: rmw,
+    the rounding variant's stored residual and the gathers bit-equal (the
+    variant's also to K1's), sums within RTOL of sum(|terms|) and bit-equal
+    from one call to the next, the reads at PROBE_SMALL also bit-equal to
+    ``stream_read_in_order`` (the kernel's order of additions) under the
+    card's plan; each line counts the reads that ran each row path. The
+    read's C entry point refuses the aligned path on a view off a 16-byte
+    boundary; the gathers through ``check_gathers``. Returns each kernel's
+    largest |kernel - plain|."""
     from cuda_recommender_tpu_torch.ops import panel_kernels as pk
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
     from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
@@ -1400,42 +1403,46 @@ def check_probe_kernels(device) -> dict:
     for M, W in PROBE_SMALL + PROBE_SCRIPT_SHAPES:
         t0 = time.perf_counter()
         ratios = []
+        paths = {"aligned": 0, "shifted": 0}
         R, (u, up, v, vp) = random_panel(M, W, torch.bfloat16, device,
                                          seed=M + 1)
         R = torch.nan_to_num(R, nan=0.5)      # the P1 panels are NaN-free
         small = (M, W) in PROBE_SMALL
-        for vec16 in (False, True):
-            Rk, Rp = R.clone(), R.clone()
-            for (what, Xk), (_, Xp) in zip(views(Rk, small),
-                                           views(Rp, small)):
-                pr.stream_rmw(Xk, vec16=vec16)
-                pr.stream_rmw_plain(Xp)
-                _sync(device)
-                if not torch.equal(_bits(Rk), _bits(Rp)):
-                    raise AssertionError(
-                        f"stream_rmw{'_vec16' if vec16 else ''} {M}x{W} "
-                        f"{what}: {int((_bits(Rk) != _bits(Rp)).sum())} "
-                        "cells differ")
-            del Rk, Rp
+        Rk, Rp = R.clone(), R.clone()
+        for (what, Xk), (_, Xp) in zip(views(Rk, small), views(Rp, small)):
+            pr.stream_rmw(Xk)
+            pr.stream_rmw_plain(Xp)
+            _sync(device)
+            if not torch.equal(_bits(Rk), _bits(Rp)):
+                raise AssertionError(
+                    f"stream_rmw {M}x{W} {what}: "
+                    f"{int((_bits(Rk) != _bits(Rp)).sum())} cells differ")
+        del Rk, Rp
         Rn, _ = random_panel(M, W, torch.bfloat16, device, seed=M + 2)
         if (M, W) == PROBE_SCRIPT_SHAPES[2]:
             del Rn
             Rn = pattern_panel(M, W, device)
-        for name, vec16 in (("stream_read", False),
-                            ("stream_read_vec16", True)):
-            for X, uu, what in [(X, u[-X.shape[0]:].contiguous(), what)
-                                for what, X in views(R, small)] + \
-                    [(X, None, f"NaN-skip {what}")
-                     for what, X in views(Rn, small)]:
-                g = pr.stream_read(X, uu, vec16=vec16)
-                gp = pr.stream_read_plain(X, uu)
-                sg = pr.stream_read_plain(X.abs(), None if uu is None
-                                          else uu.abs())
-                worst[name] = max(worst[name], _close(
-                    f"{name} {what} g", g, gp, sg, ratios))
-                if not torch.equal(g, pr.stream_read(X, uu, vec16=vec16)):
-                    raise AssertionError(f"{name} {M}x{W} {what}: not "
-                                         "repeatable")
+        for X, uu, what in [(X, u[-X.shape[0]:].contiguous(), what)
+                            for what, X in views(R, small)] + \
+                [(X, None, f"NaN-skip {what}")
+                 for what, X in views(Rn, small)]:
+            plan = pr.stream_read_plan(X, uu is None)
+            paths[plan["path"]] += 1
+            g = pr.stream_read(X, uu)
+            gp = pr.stream_read_plain(X, uu)
+            sg = pr.stream_read_plain(X.abs(), None if uu is None
+                                      else uu.abs())
+            worst["stream_read"] = max(worst["stream_read"], _close(
+                f"stream_read {what} g", g, gp, sg, ratios))
+            if not torch.equal(g, pr.stream_read(X, uu)):
+                raise AssertionError(f"stream_read {M}x{W} {what}: not "
+                                     "repeatable")
+            if small and not torch.equal(
+                    _bits(g), _bits(pr.stream_read_in_order(X, uu, plan))):
+                raise AssertionError(
+                    f"stream_read {M}x{W} {what} ({plan['path']} path, "
+                    f"{plan['ranges']} ranges): not the bits of its order "
+                    "of additions")
         del R
         # the rounding variant on NaN-sentinel panels: random (30%
         # observed) and, at the variant matrix's shape, its own pattern
@@ -1459,47 +1466,40 @@ def check_probe_kernels(device) -> dict:
         del Ra, Rn
         _sync(device)
         torch.cuda.empty_cache()
-        print(f"[check] probes {M:6d}x{W:<6d} bf16: stream_rmw (the ring, "
-              f"16-byte; {'every even offset' if small else 'one row in'})"
-              f" and the rounding variant's residual bit-equal (also to "
-              f"K1's); sums' largest error / sum|terms| {max(ratios):.2e} "
-              f"(bar {RTOL}), repeatable "
-              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-    check_ring_refusals(device)
+        print(f"[check] probes {M:6d}x{W:<6d} bf16: stream_rmw "
+              f"({'every even offset' if small else 'one row in'}) and the "
+              f"rounding variant's residual bit-equal (also to K1's); "
+              f"stream_read on the aligned path {paths['aligned']} times, "
+              f"the shifted {paths['shifted']}"
+              f"{', each bit-equal to its order of additions' if small else ''}"
+              f"; sums' largest error / sum|terms| {max(ratios):.2e} (bar "
+              f"{RTOL}), repeatable [{time.perf_counter() - t0:.1f} s]",
+              flush=True)
+    check_read_refusal(device)
     worst.update(check_gathers(device))
     return worst
 
 
-def check_ring_refusals(device) -> None:
-    """The streams' C entry points refuse a ring of fewer stages than
-    ``stream_plan``'s fewest (a one-stage rmw ring would hang) or more
-    than the kernels take: cudaErrorInvalidValue, before any launch, for
-    a 64 x 64 panel's plan with only the stages changed."""
-    from cuda_recommender_tpu_torch.ops import build
+def check_read_refusal(device) -> None:
+    """stream_read's C entry point refuses the aligned row path on a panel
+    view that starts 2 bytes past a 16-byte boundary (cudaErrorInvalidValue,
+    before any launch), and the wrapper raises."""
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
 
-    lib = build.load("probe_kernels")
-    stream = torch.cuda.current_stream().cuda_stream
-    R = torch.zeros((64, 64), dtype=torch.bfloat16, device=device)
-    g = torch.empty((3, 64), device=device)
-    rmw, read = (pr.stream_plan(64, 64, R.data_ptr() % 16, op=op)
-                 for op in ("rmw", "read"))
-    bad = (0, 1, pr.STREAM_STAGES[0] - 1, 9)
-    for stages in bad:
-        rcs = (lib.crtpu_stream_rmw(R.data_ptr(), 64, 64, 0, rmw["head"],
-                                    rmw["chunk"], stages, rmw["grid"],
-                                    stream),
-               lib.crtpu_stream_read(R.data_ptr(), None, g.data_ptr(), None,
-                                     g[2].data_ptr(), 64, 64, 0,
-                                     read["strip"], read["rows_per_stage"],
-                                     stages, read["grid"], read["per_cta"],
-                                     stream))
-        if rcs != (1, 1):  # cudaErrorInvalidValue
-            raise AssertionError(f"the ring entry points at {stages} stages:"
-                                 f" rc {rcs}, want (1, 1)")
+    X = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16,
+                    device=device)[1:].view(64, 64)
+    plan = dict(pr.stream_read_plan(X, True), path="aligned")
+    try:
+        pr.launch_read(X, None, plan)
+    except RuntimeError as err:
+        if not str(err).endswith("CUDA error 1"):
+            raise
+    else:
+        raise AssertionError("the aligned path ran on a view 2 bytes off a "
+                             "16-byte boundary")
     _sync(device)
-    print(f"[check] the ring entry points refuse {list(bad)} stages "
-          f"(cudaErrorInvalidValue)", flush=True)
+    print("[check] stream_read refuses the aligned path 2 bytes off a "
+          "16-byte boundary (cudaErrorInvalidValue)", flush=True)
 
 
 def check_gathers(device) -> dict:
@@ -1662,9 +1662,9 @@ def run_bench(extra=(), timeout=900, data=None) -> dict:
 def time_probe_kernels(panel, variant_shape, tails, reps=5) -> dict:
     """Each probe kernel against its plain version and, where one exists,
     its PyTorch call, warm, in turns: the streams (``sweep_timing.
-    time_streams``: the ring and its 16-byte instance of the rmw,
-    ``R.add_(1)``, the u-weighted read, ``torch.mv(R.t(), u)`` with u
-    rounded to bf16, and the NaN-skip read, ``torch.nansum``) at the
+    time_streams``: the rmw, ``R.add_(1)``, the u-weighted read,
+    ``torch.mv(R.t(), u)`` with u rounded to bf16, and the NaN-skip read,
+    ``torch.nansum``) at the
     bench's panel 0 and the variant matrix's shape, the rounding variant
     at the latter, gather forms A and B (and C) at each of the bench's tail
     sides ``tails`` (by graph replays; ``torch.gather``, ``torch.take``,
@@ -1697,27 +1697,22 @@ def time_probe_kernels(panel, variant_shape, tails, reps=5) -> dict:
               f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms[-1]:.1f}% of it; "
               f"kernel {nbytes / 1e6 / ms[-1]:.0f} GB/s", flush=True)
 
-    # the streams: the ring and the 16-byte instance share a record's plain
-    # version and PyTorch call (timed in the same turns)
+    # the streams
     streams = st.time_streams(dev, reps, shapes=(panel, variant_shape))
     for i, (M, W) in enumerate((panel, variant_shape)):
         for name in ("stream_rmw", "stream_read", "stream_read_nan_skip"):
             rec = streams[f"{name} {M}x{W}"]
             b_ms, b_by = bound(rec["bytes"], rec["flops"])
-            row = {}
-            for kern, key in ((name, "ms"), (name + "_vec16", "vec16_ms")):
-                row[kern] = dict(ms=rec[key], plain_ms=rec["plain_ms"],
-                                 library_ms=rec["library_ms"], bound_ms=b_ms,
-                                 bound_by=b_by)
-                print(f"[timing] {kern:28s} {M}x{W}: kernel {rec[key]:.3f} "
-                      f"ms, plain {rec['plain_ms']:.3f}, library "
-                      f"{rec['library_ms']:.3f}; bound {b_ms:.3f} ms "
-                      f"({b_by}), {100 * b_ms / rec[key]:.1f}% of it",
-                      flush=True)
-            for kern, r in row.items():
-                out.setdefault("streams", {})[f"{kern} {M}x{W}"] = r
-                if i == 0 and "nan_skip" not in kern:
-                    out[kern] = r
+            row = dict(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                       library_ms=rec["library_ms"], bound_ms=b_ms,
+                       bound_by=b_by)
+            print(f"[timing] {name:28s} {M}x{W}: kernel {rec['ms']:.3f} "
+                  f"ms, plain {rec['plain_ms']:.3f}, library "
+                  f"{rec['library_ms']:.3f}; bound {b_ms:.3f} ms ({b_by}), "
+                  f"{100 * b_ms / rec['ms']:.1f}% of it", flush=True)
+            out.setdefault("streams", {})[f"{name} {M}x{W}"] = row
+            if i == 0 and "nan_skip" not in name:
+                out[name] = row
     torch.cuda.empty_cache()
 
     M, W = variant_shape

@@ -22,8 +22,8 @@ along), and the test RMSE is the last iteration's
 
 In the same run, with the run's training state freed, the controls are
 measured on the card: P1's stream controls (``scripts/panel_floor.py``:
-rmw and read through the streams' ring of bulk copies, and in 16-byte
-vectors) at each of the run's panel shapes, and P3's gathers
+rmw and read, in 16-byte vectors) at each of the run's panel shapes, and
+P3's gathers
 (``scripts/probe_gather.py``) at each ELL tail side's shape. Then
 
 * ``vs_baseline`` = ideal / measured s/iter, the ideal being k · (panel
@@ -35,13 +35,10 @@ vectors) at each of the run's panel shapes, and P3's gathers
   gathered table once. A ratio of the least time to the measured one, so
   never above 1.
 * ``detail.vs_baseline_achievable`` = k · (Σ over panels of the
-  ACHIEVABLE controls' times: the 16-byte-vector rmw ("rmw_vec16", K1's
-  bytes) and read ("read_vec16", K2's bytes) + Σ over tail sides of the
-  padded lanes at gather form B's measured time per element) / measured
-  s/iter: a diagnostic against what the card's plain streams reach, not a
-  roofline share. The ring's controls ("rmw", "read") ride along in
-  ``detail.controls``: at the bench's panel 0 they are slower than the
-  16-byte ones on the H100 (PERF.md §6), so they are not the yardstick.
+  ACHIEVABLE controls' times: the rmw ("rmw", K1's bytes) and the read
+  ("read", K2's bytes) + Σ over tail sides of the padded lanes at gather
+  form B's measured time per element) / measured s/iter: a diagnostic
+  against what the card's plain streams reach, not a roofline share.
 
 Without a card the run exits non-zero unless ``--device cpu`` is given;
 a CPU record names the CPU as its device and carries ``vs_baseline: null``
@@ -80,9 +77,8 @@ PANEL_BYTES_PER_CELL = 6
 TAIL_BYTES_PER_LANE = 8 + 4 + 4
 TAIL_BYTES_PER_SLOT = 4 * 4
 #: the panel controls that stand for what the card reaches: K1's bytes
-#: at the 16-byte rmw's time, K2's at the 16-byte read's (the faster
-#: design at the bench's panels)
-ACHIEVABLE = ("rmw_vec16", "read_vec16")
+#: at the rmw's time, K2's at the read's
+ACHIEVABLE = ("rmw", "read")
 #: floats gathered per lane: rows side (v_pend, v_old, v), cols side
 #: (u_pend, u_old)
 TAIL_WIDTH = {"rows": 3, "cols": 2}

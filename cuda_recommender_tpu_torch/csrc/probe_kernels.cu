@@ -33,75 +33,53 @@
 // bytes and write 4 output bytes an element, plus random 4-byte reads of a
 // table that the 50 MB L2 holds at the probes' shapes.
 //
-// Each stream comes in two designs:
-//   * the ring (the streams' own kernels, counted as stream_rmw and
-//     stream_read): a persistent grid, a few blocks an SM, each with a
-//     ring of shared-memory stages that the bulk copy engine (TMA,
-//     cp.async.bulk) fills from device memory, each completing on its
-//     mbarrier. A block is 8 consumer warps and one producer warp: the
-//     producer issues the copies and the consumers wait only for the data
-//     (full[slot]) and release a slot when done with it (a second
-//     mbarrier a slot), so neither waits for the other's bookkeeping. The
-//     threads spend no registers or instructions on the loads, so the
-//     bytes in flight are bounded by shared memory (stages x stage bytes
-//     a block), not by registers. The geometry is
-//     ops/probe_kernels.py::stream_plan's; the entry points take it and
-//     refuse what does not fit (cudaErrorInvalidValue). A ring wait that
-//     lasts seconds traps: a lost copy is a fault, not a hang.
-//     - rmw: the panel's cells as one flat run; the 16-byte-aligned body
-//       is cut into chunks (a chunk a stage), dealt to the blocks in turn
-//       (chunk c to block c mod grid, so that neighbouring blocks stream
-//       neighbouring bytes). The consumers add 1 to each bf16 pair of a
-//       chunk in shared memory and, after a proxy fence, release it; the
-//       producer writes the stage back by a bulk copy
-//       (cp.async.bulk.global.shared::cta) and commits it, and loads a
-//       stage again only once cp.async.bulk.wait_group.read has released
-//       its write-back, so the loads of later chunks overlap the
-//       write-back of earlier ones. The cells before the first 16-byte
-//       boundary and after the last one (up to 7 each) go one a thread of
-//       block 0.
-//     - read: the panel's W columns are cut into ns = ceil(W / 2048)
-//       strips of equal width ws = ceil(W / ns) (the last one narrower),
-//       and each strip's rows into ranges of per_cta >= 512 rows (one
-//       range where the panel is short); block b takes strip b mod ns and
-//       range b / ns, so that the blocks running side by side read the
-//       strips of the same rows. Consumer thread t owns the strip's
-//       columns t + k * kRingThreads (k < kRingCols) and sums them in
-//       registers in row order. A stage holds ``rows`` rows of the strip,
-//       each copied as the 16-byte-aligned span that covers its segment
-//       into a slot of ``pitch`` bytes (its first cell at the start
-//       address mod 16 in the slot); where one strip spans the panel (ns
-//       = 1), consecutive rows are consecutive bytes, and a stage is one
-//       span. Rounding a span out to 16 bytes stays inside the
-//       allocation: an aligned 16 bytes that hold a cell of the panel lie
-//       inside it (its granules are multiples of 16 bytes). NaN is skipped
-//       by a select. A block writes the partial column sums of each
-//       512-row block of its range, times the block's weight, to that
-//       block's row of ``gpart``; the one piece that begins mid-block (its
-//       range's first, where the range starts off a block boundary) goes
-//       to the block's own row of ``gextra`` instead. A second pass
-//       (ring_reduce_kernel) adds, for each column, the blocks' rows in
-//       block order, each block's ``gextra`` piece after its ``gpart``
-//       one: deterministic, no float atomics.
-//     Why strips of row ranges (balancing the waves): at the variant
-//     matrix's 165,376 x 18,432, whole 512-row blocks would be 323 units
-//     over 132 SMs, 2.45 waves, whose last wave runs half empty; (block,
-//     strip) units, 2,907 over 264 blocks, still leave 11.01 waves (12 for
-//     three blocks, 9% lost). One range a block, ns x ranges <= the
-//     blocks that run at once (9 x 29 = 261 of 264 there), is one wave in
-//     which every block has the same rows to within one; with per_cta >=
-//     512 a (512-row block, strip) piece is split between at most two
-//     blocks, hence the one ``gextra`` row a block.
-//   * 16-byte vectors (``vec16``, counted as stream_rmw_vec16 and
-//     stream_read_vec16; the design the ring is timed against): the rmw
-//     walks the panel flat (its function is per cell, so rows need no
-//     alignment), 4 vectors a thread in flight; the read gives each thread
-//     8 consecutive cells of a row, 4 rows in flight, realigned from
-//     16-byte-aligned loads where a row does not start on a 16-byte
-//     boundary (W not a multiple of 8). A block loads one batch, uses it
-//     and exits; registers bound the bytes in flight. The read's column
-//     sums are reduced in two passes (per-tile partials in a fixed order,
-//     then the tiles in tile order; no float atomics).
+// The rmw walks the panel flat (its function is per cell, so rows need no
+// alignment) in 16-byte vectors, 4 a thread loaded before any store. Up to
+// 7 cells before the first 16-byte boundary and after the last one go one
+// a thread of block 0.
+//
+// The read (stream_read_kernel, one template over the mode and the row
+// path) gives each lane 8 consecutive cells of a row (one 16-byte vector),
+// a warp 256 columns (248 on the shifted path), and a block of 8 warps one
+// such column tile and a contiguous range of whole 512-row blocks; warp y
+// sums the rows y, y + 8, ... of each 512-row block, 4 rows loaded before
+// any is used. ops/probe_kernels.py::read_plan cuts each tile's
+// ceil(M / 512) row blocks into ``ranges`` ranges of sizes within one,
+// block b taking tile b mod tiles (neighbouring tiles dispatched side by
+// side). Two row paths, a template parameter each, chosen by the wrapper:
+//   * aligned (the panel starts on a 16-byte boundary and W % 8 == 0, so
+//     every row does): each lane loads its vector straight. The grid is
+//     sized to the card, not to the panel: tiles x ranges about the blocks
+//     resident at once (the kernel's occupancy x the SMs), one wave;
+//   * shifted (any other view): a lane's first cell lies kOff bytes past a
+//     16-byte boundary, and kOff is the same for every row a warp reads
+//     (8 rows are 16 W bytes), so a switch on the warp's offset picks one
+//     of 8 instances of the row loop: the lane loads the aligned vector
+//     that holds its first cell, takes the next one's first words from its
+//     right-hand neighbour by shuffles (lane 31 owns no cells: it loads
+//     the vector after lane 30's, so that no lane holds two vectors a row)
+//     and shifts the pair into place by constants (no shuffle or shift at
+//     offset 0). A vector is loaded only where it starts before the row's
+//     end: an aligned vector that holds a cell of the panel lies inside
+//     the panel's allocation (whose granules are multiples of 16 bytes). A
+//     lane's cells past W or past its tile are masked once a tile, not a
+//     cell. Neighbouring tiles share the cache lines at their boundary, so
+//     a block takes about 4 row blocks, several waves: blocks dispatched
+//     tile by tile then read the same rows at the same time, and the L2
+//     serves the shared lines (one wave of long blocks, which drift apart,
+//     ran 7% slower on the H100: PERF.md).
+// NaN-skip mode zeroes a pair word's NaN halves before the unpack
+// (zero_nan_pair): adding +0.0 to a sum that starts at +0.0 gives the bits
+// skipping the cell does. Weighted mode sums each 512-row block apart and
+// adds it times u at the block's first row. A block writes its range's
+// column sums (its 8 warps' in warp order) to its row of ``gpart``; the
+// last block of a tile to finish (a per-tile counter, __threadfence, no
+// float atomics; the counter resets itself) adds the tile's rows of
+// ``gpart`` in a fixed order: warp w the ranges w, w + 8, ... in order,
+// then the 8 warps' sums in warp order (read_sum_order). The result is the
+// same bits from one call to the next, whatever order the blocks run in.
+// No TMA ring: bulk copies streamed at 86-88% of the bound on the H100,
+// 16-byte loads with enough bytes in flight at 88-91% (PERF.md).
 //
 // Gathers A and B walk the index and the output as 16-byte streams over a
 // grid-stride loop: a thread takes a step of 4 (L2 path) or 8 (shared
@@ -156,11 +134,19 @@
 
 namespace {
 
-constexpr int kThreadsX = 32;      // threads across a vec16 read tile
-constexpr int kThreadsY = 8;       // threads down its rows
-constexpr int kRowBatch = 4;       // rows loaded per thread before any use
 constexpr int kTileRows = 512;     // the Pallas probes' block height (BM)
-constexpr int kReduceThreads = 256;
+constexpr int kVecElems = 8;       // bf16 cells in a 16-byte vector
+constexpr int kVecUnroll = 4;      // vectors in flight a thread (rmw)
+constexpr int kVecThreads = 256;   // the rmw's block
+// stream_read (ops/probe_kernels.py mirrors these as READ_*): warps a
+// block, a tile's columns on each row path (a warp's row: 32 lanes of 8
+// cells; on the shifted path lane 31 only loads the vector after lane
+// 30's), and rows a thread loads before it uses any
+constexpr int kReadWarps = 8;
+constexpr int kReadThreads = kReadWarps * 32;
+constexpr int kReadTileCols = 32 * kVecElems;
+constexpr int kShiftTileCols = kReadTileCols - kVecElems;
+constexpr int kRowBatch = 4;
 constexpr int kGatherThreads = 256;    // form C
 // gathers A and B: elements a thread takes a step, threads a block, and
 // steps of index a thread keeps in flight, on each path
@@ -178,31 +164,6 @@ constexpr int kSmemReserve = 32;
 constexpr int kSmemHead = 16;          // bytes before the table's copy
 constexpr int kSmemZero = 2;           // the zero's float offset
 constexpr int kMaxDevices = 64;        // devices whose attributes are cached
-constexpr int kMaxGridY = 65535;
-constexpr int kVecElems = 8;       // bf16 cells in a 16-byte vector
-constexpr int kVecUnroll = 4;      // vectors in flight a thread (flat rmw)
-constexpr int kVecThreads = 256;
-constexpr int kVecTileCols = kThreadsX * kVecElems;  // 256, vec16 read
-// the streams' ring (ops/probe_kernels.py mirrors these as STREAM_*):
-// consumer threads a block, the read's columns a thread (a strip is at
-// most their product), the fewest and the most stages, and the bytes
-// before the stages (two mbarriers a stage; the stages start 128-byte
-// aligned). The rmw's producer reloads chunk i's stage only once chunk
-// i + 1 is done, so a ring of one stage never loads its second chunk and
-// hangs; both entry points refuse fewer than the plan's fewest
-// (STREAM_STAGES[0]).
-constexpr int kRingThreads = 256;    // the consumer warps
-constexpr int kRingBlock = kRingThreads + 32;   // and one producer warp
-constexpr int kRingCols = 8;
-constexpr int kRingStrip = kRingThreads * kRingCols;   // 2048 columns
-constexpr int kRingMinStages = 3;
-constexpr int kRingMaxStages = 8;
-constexpr int kRingHead = 128;
-constexpr int kRingReduceThreads = 128;
-constexpr int kRingReduceBatch = 16;   // partials a thread loads at once
-// a ring wait that lasts this many cycles (seconds) traps instead of
-// hanging the card: a copy that never completes is a fault
-constexpr long long kRingTimeout = 1LL << 35;
 
 // bf16(x + 1) of the two bf16 cells packed in ``w`` (low half first).
 __device__ __forceinline__ uint32_t add_one_bf16x2(uint32_t w) {
@@ -216,7 +177,7 @@ __device__ __forceinline__ void add_one_bf16(__nv_bfloat16* p) {
   *p = __float2bfloat16_rn(__fadd_rn(__bfloat162float(*p), 1.f));
 }
 
-// ---- mbarriers and bulk copies (the streams' ring; the gathers' tables) ----
+// ---- mbarriers (the gathers' table copies) ----
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
@@ -229,11 +190,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    bar),
                "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
 }
 
@@ -258,345 +214,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// mbar_wait bounded by kRingTimeout cycles.
-__device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > kRingTimeout) __trap();
-  }
-}
+// ---- the streams: see the file's head ----
 
-// ``bytes`` (a multiple of 16) from the 16-byte-aligned global ``src`` to
-// this block's 16-byte-aligned shared ``dst``, completing ``bytes``
-// transactions on the mbarrier at ``bar``.
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
-                                         uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// ``bytes`` (a multiple of 16) from shared ``src`` to global ``dst``, both
-// 16-byte aligned, in the thread's current bulk async-group.
-__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src,
-                                         uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               ::"l"(dst), "r"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Until at most ``kPending`` of the thread's committed bulk groups still
-// read their shared-memory source.
-template <int kPending>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending)
-               : "memory");
-}
-
-// Until every committed bulk group of the thread has completed.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// The thread's shared-memory writes before it are ordered before the bulk
-// copies (the async proxy) issued after it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// ---- the streams' ring: see the file's head ----
-
-// stream_rmw: ``body`` (``body_bytes``, a multiple of 16, 16-byte aligned)
-// in chunks of ``chunk`` bytes, chunk c to block c mod gridDim.x, through
-// ``stages`` stages of ``chunk`` bytes. The consumer warps wait for a
-// chunk's load (full[slot]), add 1 to its cells in shared memory, fence
-// and arrive on done[slot]; the producer (lane 0 of the last warp) writes
-// each done chunk back, and loads the slot of the chunk before it again
-// once that chunk's write-back has read it. Block 0's consumers also do
-// the ``head`` cells before ``body`` and the ``ntail`` after it, one a
-// thread.
-__global__ void __launch_bounds__(kRingBlock)
-    stream_rmw_ring_kernel(__nv_bfloat16* R, int head, char* body,
-                           long long body_bytes, int chunk, int stages,
-                           int ntail) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t full = sbase, done = sbase + 8u * kRingMaxStages;
-  const long long nchunks = (body_bytes + chunk - 1) / chunk;
-  const long long step = gridDim.x;
-  const long long mine =
-      blockIdx.x < nchunks ? (nchunks - blockIdx.x + step - 1) / step : 0;
-  // this block's i-th chunk: its bytes' offset in ``body``, and how many
-  const auto offset = [&](long long i) {
-    return (blockIdx.x + i * step) * chunk;
-  };
-  const auto nbytes = [&](long long i) {
-    return static_cast<uint32_t>(
-        min(static_cast<long long>(chunk), body_bytes - offset(i)));
-  };
-  const auto stage = [&](int slot) {
-    return sbase + kRingHead + static_cast<uint32_t>(slot) * chunk;
-  };
-  const auto load = [&](long long i, int slot) {
-    mbar_expect_tx(full + 8u * slot, nbytes(i));
-    bulk_g2s(stage(slot), body + offset(i), nbytes(i), full + 8u * slot);
-  };
-  if (threadIdx.x == 0)
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(full + 8u * s, 1);
-      mbar_init(done + 8u * s, kRingThreads / 32);
-    }
-  __syncthreads();
-  int slot = 0;
-  uint32_t phase = 0;
-  if (threadIdx.x >= kRingThreads) {  // the producer warp
-    if (threadIdx.x != kRingThreads) return;
-    for (int s = 0; s < stages && s < mine; ++s) load(s, s);
-    int prev = stages - 1;
-    for (long long i = 0; i < mine; ++i) {
-      ring_wait(done + 8u * slot, phase);
-      bulk_s2g(body + offset(i), stage(slot), nbytes(i));
-      bulk_commit();
-      // the previous chunk's stage takes the chunk ``stages`` after it
-      // once its write-back has read it (this chunk's may go on)
-      if (i >= 1 && i - 1 + stages < mine) {
-        bulk_wait_read<1>();
-        load(i - 1 + stages, prev);
-      }
-      prev = slot;
-      if (++slot == stages) {
-        slot = 0;
-        phase ^= 1u;
-      }
-    }
-    bulk_wait_all();
-    return;
-  }
-  for (long long i = 0; i < mine; ++i) {
-    ring_wait(full + 8u * slot, phase);
-    const uint32_t n = nbytes(i);
-    uint4* p = reinterpret_cast<uint4*>(
-        smem + kRingHead + static_cast<size_t>(slot) * chunk);
-    for (uint32_t v = threadIdx.x; v < n / 16; v += kRingThreads) {
-      const uint4 x = p[v];
-      p[v] = make_uint4(add_one_bf16x2(x.x), add_one_bf16x2(x.y),
-                        add_one_bf16x2(x.z), add_one_bf16x2(x.w));
-    }
-    fence_proxy_async();
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(done + 8u * slot);
-    if (++slot == stages) {
-      slot = 0;
-      phase ^= 1u;
-    }
-  }
-  if (blockIdx.x == 0) {
-    if (static_cast<int>(threadIdx.x) < head) add_one_bf16(R + threadIdx.x);
-    if (static_cast<int>(threadIdx.x) < ntail)
-      add_one_bf16(reinterpret_cast<__nv_bfloat16*>(body + body_bytes) +
-                   threadIdx.x);
-  }
-}
-
-// A stream_read piece's partial column sums (strip ps, 512-row block pb),
-// times the block's weight, into gpart's row pb or, where the piece began
-// mid-block, into this block's gextra row; then zeroes them.
-template <bool kNanSkip>
-__device__ __forceinline__ void flush_piece(float (&acc)[kRingCols],
-                                            float* __restrict__ gpart,
-                                            float* __restrict__ gextra,
-                                            const float* __restrict__ u,
-                                            int W, int ws, int ps, int pb,
-                                            bool pextra) {
-  const int w = min(ws, W - ps * ws);
-  float* dst = pextra ? gextra + static_cast<size_t>(blockIdx.x) * ws
-                      : gpart + static_cast<size_t>(pb) * W +
-                            static_cast<size_t>(ps) * ws;
-  const float wt = kNanSkip ? 1.f : u[static_cast<size_t>(pb) * kTileRows];
-#pragma unroll
-  for (int j = 0; j < kRingCols; ++j) {
-    const int c = threadIdx.x + j * kRingThreads;
-    if (c < w) dst[c] = kNanSkip ? acc[j] : acc[j] * wt;
-    acc[j] = 0.f;
-  }
-}
-
-// stream_read's first pass: see the file's head. Block b takes strip
-// s = b mod ns and the rows [k * per_cta, min(M, (k + 1) * per_cta)) of
-// it, k = b / ns, ``rows`` a stage (at most 32 where ns > 1: a lane of the
-// producer warp copies a row's segment). The producer warp waits for a
-// slot's consumers to release it (empty[slot]) and loads the next stage
-// into it (full[slot]); the consumer warps sum a stage's rows and release
-// the slot, a warp at a time.
-template <bool kNanSkip>
-__global__ void __launch_bounds__(kRingBlock)
-    stream_read_ring_kernel(const __nv_bfloat16* __restrict__ R,
-                            const float* __restrict__ u,
-                            float* __restrict__ gpart,
-                            float* __restrict__ gextra, int M, int W, int ws,
-                            int rows, int stages, int per_cta) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t full = sbase, empty = sbase + 8u * kRingMaxStages;
-  const int ns = (W + ws - 1) / ws;
-  const bool flat = ns == 1;  // a stage's rows are one span
-  const uint32_t pitch = ((2u * ws + 15u) & ~15u) + 16u;
-  const uint32_t stage_bytes = static_cast<uint32_t>(rows) * pitch;
-  const int s = blockIdx.x % ns;
-  const int c0 = s * ws;  // the strip's first column, and its width
-  const int w = min(ws, W - c0);
-  const int r0 = static_cast<int>(blockIdx.x / ns) * per_cta;
-  const int r1 = min(M, r0 + per_cta);
-  const int nstage = (r1 - r0 + rows - 1) / rows;
-  // the address of the strip's first cell in row r
-  const auto cell = [&](int r) {
-    return reinterpret_cast<uintptr_t>(R) +
-           2u * (static_cast<uintptr_t>(r) * W + c0);
-  };
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  if (t == 0)
-    for (int k = 0; k < stages; ++k) {
-      mbar_init(full + 8u * k, 1);
-      mbar_init(empty + 8u * k, kRingThreads / 32);
-    }
-  __syncthreads();
-  int slot = 0;
-  uint32_t phase = 0;
-
-  if (t >= kRingThreads) {  // the producer warp: lane k copies row k
-    for (int i = 0; i < nstage; ++i) {
-      if (i >= stages) ring_wait(empty + 8u * slot, phase ^ 1u);
-      const int r = r0 + i * rows;
-      const int n = min(rows, r1 - r);
-      const uint32_t bar = full + 8u * slot;
-      const uint32_t dst = sbase + kRingHead + slot * stage_bytes;
-      if (flat) {
-        if (lane == 0) {
-          const uintptr_t a0 = cell(r);
-          const uintptr_t a = a0 & ~static_cast<uintptr_t>(15);
-          const uintptr_t e =
-              (a0 + 2u * static_cast<uintptr_t>(n) * W + 15u) &
-              ~static_cast<uintptr_t>(15);
-          mbar_expect_tx(bar, static_cast<uint32_t>(e - a));
-          bulk_g2s(dst, reinterpret_cast<const void*>(a),
-                   static_cast<uint32_t>(e - a), bar);
-        }
-      } else {
-        const uintptr_t a0 = cell(r + min(lane, n - 1));
-        const uintptr_t a = a0 & ~static_cast<uintptr_t>(15);
-        const uintptr_t e = (a0 + 2u * static_cast<uintptr_t>(w) + 15u) &
-                            ~static_cast<uintptr_t>(15);
-        const uint32_t bytes = lane < n ? static_cast<uint32_t>(e - a) : 0u;
-        const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
-        if (lane == 0) mbar_expect_tx(bar, total);
-        __syncwarp();
-        if (lane < n)
-          bulk_g2s(dst + lane * pitch, reinterpret_cast<const void*>(a),
-                   bytes, bar);
-      }
-      if (++slot == stages) {
-        slot = 0;
-        phase ^= 1u;
-      }
-    }
-    return;
-  }
-
-  // the piece being summed: its 512-row block, whether it began mid-block
-  // (the range's first piece goes to gextra then), and whether it has
-  // rows yet
-  int pb = r0 / kTileRows;
-  bool pextra = r0 % kTileRows != 0, live = false;
-  float acc[kRingCols];
-#pragma unroll
-  for (int j = 0; j < kRingCols; ++j) acc[j] = 0.f;
-  for (int i = 0; i < nstage; ++i) {
-    ring_wait(full + 8u * slot, phase);
-    const int rs = r0 + i * rows;
-    const int n = min(rows, r1 - rs);
-    const unsigned char* st = smem + kRingHead + slot * stage_bytes;
-    // flat: the stage's first cell's place in its span
-    const uint32_t off0 = static_cast<uint32_t>(cell(rs)) & 15u;
-    for (int k = 0; k < n; ++k) {
-      const int r = rs + k;
-      if (r % kTileRows == 0) {  // a new piece: a 512-row block begins
-        if (live)
-          flush_piece<kNanSkip>(acc, gpart, gextra, u, W, ws, s, pb, pextra);
-        pb = r / kTileRows;
-        pextra = live = false;
-      }
-      const uint32_t off =
-          flat ? off0 + 2u * static_cast<uint32_t>(k) * W
-               : k * pitch + (static_cast<uint32_t>(cell(r)) & 15u);
-      const __nv_bfloat16* row =
-          reinterpret_cast<const __nv_bfloat16*>(st + off);
-#pragma unroll
-      for (int j = 0; j < kRingCols; ++j) {
-        const int c = t + j * kRingThreads;
-        if (c < w) {
-          const float x = __bfloat162float(row[c]);
-          acc[j] += kNanSkip && isnan(x) ? 0.f : x;
-        }
-      }
-      live = true;
-    }
-    __syncwarp();  // the warp has read the stage: release it
-    if (lane == 0) mbar_arrive(empty + 8u * slot);
-    if (++slot == stages) {
-      slot = 0;
-      phase ^= 1u;
-    }
-  }
-  if (live)
-    flush_piece<kNanSkip>(acc, gpart, gextra, u, W, ws, s, pb, pextra);
-}
-
-// stream_read's second pass after the ring: column c's (block, strip)
-// pieces in block order, each block's gextra piece (from the grid's block
-// whose row range of the strip starts inside it, if any) after its gpart
-// one.
-__global__ void __launch_bounds__(kRingReduceThreads)
-    ring_reduce_kernel(const float* __restrict__ gpart,
-                       const float* __restrict__ gextra,
-                       float* __restrict__ g, int nparts, int M, int W,
-                       int ws, int per_cta) {
-  const int c = blockIdx.x * kRingReduceThreads + threadIdx.x;
-  if (c >= W) return;
-  const int ns = (W + ws - 1) / ws;
-  const int s = c / ws;
-  const int j = c - s * ws;
-  float t = 0.f;
-  for (int p0 = 0; p0 < nparts; p0 += kRingReduceBatch) {
-    float x[kRingReduceBatch];
-#pragma unroll
-    for (int k = 0; k < kRingReduceBatch; ++k)
-      x[k] = p0 + k < nparts ? gpart[static_cast<size_t>(p0 + k) * W + c]
-                             : 0.f;
-#pragma unroll
-    for (int k = 0; k < kRingReduceBatch; ++k) {
-      const int p = p0 + k;
-      if (p >= nparts) break;
-      t += x[k];
-      const int lo = p * kTileRows, hi = min(M, lo + kTileRows);
-      const int range = lo / per_cta + 1;  // the first that starts after lo
-      if (range * per_cta < hi)
-        t += gextra[(static_cast<size_t>(range) * ns + s) * ws + j];
-    }
-  }
-  g[c] = t;
-}
-
-// stream_rmw with 16-byte vectors over the panel's n cells as one flat run:
-// a block owns kVecThreads * kVecUnroll consecutive vectors of ``body``, each
-// thread kVecUnroll of them (a warp's loads coalesced), all loaded before
-// any store. Block 0 also does the ``head`` cells before ``body`` (up to the
+// stream_rmw over the panel's n cells as one flat run: a block owns
+// kVecThreads * kVecUnroll consecutive vectors of ``body``, each thread
+// kVecUnroll of them (a warp's loads coalesced), all loaded before any
+// store. Block 0 also does the ``head`` cells before ``body`` (up to the
 // first 16-byte boundary) and the ``ntail`` cells after it, one a thread.
 __global__ void __launch_bounds__(kVecThreads)
     stream_rmw_vec_kernel(__nv_bfloat16* R, int head, uint4* body,
@@ -624,106 +247,230 @@ __global__ void __launch_bounds__(kVecThreads)
   }
 }
 
-// The 8 bf16 cells that start ``off`` bytes (even, 0..14) into the 32 bytes
-// lo:hi, as floats.
-__device__ __forceinline__ void unpack8(const uint4& lo, const uint4& hi,
-                                        int off, float (&x)[kVecElems]) {
-  uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  if (off & 8) {
-#pragma unroll
-    for (int i = 0; i < 6; ++i) w[i] = w[i + 2];
-  }
-  if (off & 4) {
-#pragma unroll
-    for (int i = 0; i < 7; ++i) w[i] = w[i + 1];
-  }
-#pragma unroll
-  for (int j = 0; j < kVecElems / 2; ++j) {
-    const uint32_t v = (off & 2) ? __funnelshift_r(w[j], w[j + 1], 16) : w[j];
-    x[2 * j] = __uint_as_float(v << 16);
-    x[2 * j + 1] = __uint_as_float(v & 0xFFFF0000u);
-  }
+// The bf16 pair word ``w`` with each NaN half replaced by +0.0. A bf16 is
+// NaN iff its bits without the sign exceed 0x7F80: in (w | 0x80008000) -
+// 0x7F817F81 bit 15 (31) is set exactly where the low (high) half is NaN,
+// with no borrow across the halves (the low half is at least 0x8000), and
+// prmt's sign replication (selector nibbles 9 and B) spreads each of the
+// two bits over its half.
+__device__ __forceinline__ uint32_t zero_nan_pair(uint32_t w) {
+  const uint32_t t = (w | 0x80008000u) - 0x7F817F81u;
+  uint32_t nan;
+  asm("prmt.b32 %0, %1, 0, 0xBB99;" : "=r"(nan) : "r"(t));
+  return w & ~nan;
 }
 
-// First pass of stream_read with 16-byte vectors: a block of 32 x 8 threads
-// owns a 512-row x 256-column tile; each thread sums 8 consecutive columns
-// down its rows, 4 rows in flight. A warp covers 512 consecutive bytes of a
-// row: each lane loads the 16-byte-aligned vector that holds its first cell,
-// takes the next one from its right-hand neighbour by a shuffle (lane 31
-// loads its own), and shifts the pair into place. A vector is loaded only
-// where it starts before the row's end: an aligned vector that holds a
-// cell of the panel lies inside the panel's allocation (whose granules are
-// multiples of 16 bytes).
+// The 8 cells of the pair words ``v`` added to ``s`` in cell order (NaN
+// read as +0.0 in NaN-skip mode).
 template <bool kNanSkip>
-__global__ void __launch_bounds__(kThreadsX* kThreadsY)
-    stream_read_vec_kernel(const __nv_bfloat16* __restrict__ R,
-                           const float* __restrict__ u,
-                           float* __restrict__ gpart, int M, int W) {
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int c0 = blockIdx.x * kVecTileCols + tx * kVecElems;
-  const int r0 = blockIdx.y * kTileRows;
-  const int r1 = min(M, r0 + kTileRows);
-  const int nvalid = W - c0;  // this thread's cells in a row: min(8, nvalid)
-  float s[kVecElems] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int rb = r0 + ty; rb < r1; rb += kThreadsY * kRowBatch) {
-    uint4 lo[kRowBatch], hi[kRowBatch];
-    int off[kRowBatch];
+__device__ __forceinline__ void add_cells(const uint32_t (&v)[4],
+                                          float (&s)[kVecElems]) {
 #pragma unroll
-    for (int k = 0; k < kRowBatch; ++k) {
-      const int r = rb + k * kThreadsY;  // one row for the whole warp
-      lo[k] = hi[k] = make_uint4(0u, 0u, 0u, 0u);
-      off[k] = 0;
-      if (r < r1) {
-        const __nv_bfloat16* row = R + static_cast<size_t>(r) * W;
-        const uintptr_t end = reinterpret_cast<uintptr_t>(row + W);
-        const uintptr_t a = reinterpret_cast<uintptr_t>(row) + 2u * c0;
-        const uintptr_t al = a & ~static_cast<uintptr_t>(15);
-        off[k] = static_cast<int>(a - al);
-        if (al < end) lo[k] = *reinterpret_cast<const uint4*>(al);
-        if (tx == kThreadsX - 1 && al + 16 < end)
-          hi[k] = *reinterpret_cast<const uint4*>(al + 16);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRowBatch; ++k) {
-      const uint4 nb = make_uint4(__shfl_down_sync(0xffffffffu, lo[k].x, 1),
-                                  __shfl_down_sync(0xffffffffu, lo[k].y, 1),
-                                  __shfl_down_sync(0xffffffffu, lo[k].z, 1),
-                                  __shfl_down_sync(0xffffffffu, lo[k].w, 1));
-      if (tx != kThreadsX - 1) hi[k] = nb;
-      if (rb + k * kThreadsY >= r1) continue;
-      float x[kVecElems];
-      unpack8(lo[k], hi[k], off[k], x);
-#pragma unroll
-      for (int e = 0; e < kVecElems; ++e) {
-        if (e < nvalid && (!kNanSkip || !isnan(x[e]))) s[e] += x[e];
-      }
-    }
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t w = kNanSkip ? zero_nan_pair(v[j]) : v[j];
+    s[2 * j] = __fadd_rn(s[2 * j], __uint_as_float(w << 16));
+    s[2 * j + 1] = __fadd_rn(s[2 * j + 1], __uint_as_float(w & 0xFFFF0000u));
   }
-  __shared__ float sg[kThreadsY][kVecTileCols];
-#pragma unroll
-  for (int e = 0; e < kVecElems; ++e) sg[ty][tx * kVecElems + e] = s[e];
-  __syncthreads();
-  // one column a thread: the 8 row groups' sums in order
-  const int t = ty * kThreadsX + tx;
-  const int c = blockIdx.x * kVecTileCols + t;
-  if (c >= W) return;
-  float acc = 0.f;
-#pragma unroll
-  for (int y = 0; y < kThreadsY; ++y) acc += sg[y][t];
-  gpart[static_cast<size_t>(blockIdx.y) * W + c] = kNanSkip ? acc : acc * u[r0];
 }
 
-// Second pass of stream_read: the tiles' partials added in tile order.
-__global__ void __launch_bounds__(kReduceThreads)
-    tile_reduce_kernel(const float* __restrict__ gpart, float* __restrict__ g,
-                       int nparts, int W) {
-  const int c = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (c >= W) return;
-  float t = 0.f;
-  for (int p = 0; p < nparts; ++p) t += gpart[static_cast<size_t>(p) * W + c];
-  g[c] = t;
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// ``nrows`` rows of the lane's cells, 8 rows apart from ``cell`` (the
+// lane's first cell of warp y's first row; the aligned path), added to
+// ``s``, kRowBatch rows loaded before any is used. A row past the last
+// adds zeros, which leaves the sums' bits as they are.
+template <bool kNanSkip>
+__device__ __forceinline__ void rows_aligned(const __nv_bfloat16* cell,
+                                             long long W, int nrows,
+                                             float (&s)[kVecElems]) {
+  const long long step = kReadWarps * W;  // cells from a warp's row to its next
+  for (int i = 0; i < nrows; i += kRowBatch) {
+    uint4 x[kRowBatch];
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k)
+      x[k] = i + k < nrows ? ldg16(cell + (i + k) * step)
+                           : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) {
+      const uint32_t v[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+      add_cells<kNanSkip>(v, s);
+    }
+  }
+}
+
+// The same on the shifted path: the lane's first cell lies kOff bytes
+// past the 16-byte boundary ``al`` (the same kOff for every row of the
+// warp); each lane loads that aligned vector (where ``lo``: it starts
+// before the row's end, the same in every row of the warp) and takes the
+// first words of the next one from its right-hand neighbour (lane 31 owns
+// no cells: it loads the vector after lane 30's). ``keep`` masks the
+// lane's cells past W or past the tile (a pair word each).
+template <bool kNanSkip, int kOff>
+__device__ __forceinline__ void rows_shifted(const char* al, bool lo,
+                                             long long W, int nrows,
+                                             const uint32_t (&keep)[4],
+                                             float (&s)[kVecElems]) {
+  constexpr int kWord = kOff / 4;        // words the cells start in
+  constexpr bool kHalf = kOff % 4 != 0;  // and a half word
+  constexpr int kNext = kWord + kHalf;   // words wanted from the next vector
+  const long long step = 2LL * kReadWarps * W;  // bytes to the warp's next row
+  for (int i = 0; i < nrows; i += kRowBatch) {
+    uint4 a[kRowBatch];
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k)
+      a[k] = i + k < nrows && lo ? ldg16(al + (i + k) * step)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) {
+      uint32_t w[8] = {a[k].x, a[k].y, a[k].z, a[k].w, 0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < kNext; ++j)
+        w[4 + j] = __shfl_down_sync(0xffffffffu, w[j], 1);
+      uint32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = (kHalf ? __funnelshift_r(w[kWord + j], w[kWord + j + 1], 16)
+                      : w[kWord + j]) &
+               keep[j];
+      add_cells<kNanSkip>(v, s);
+    }
+  }
+}
+
+// One 512-row block's rows [r0, r1) of the lane's cells, added to ``s``.
+template <bool kNanSkip, bool kAligned, int kOff>
+__device__ __forceinline__ void read_rows(const __nv_bfloat16* R, long long W,
+                                          int c0, int r0, int r1,
+                                          const uint32_t (&keep)[4],
+                                          float (&s)[kVecElems]) {
+  const int y = threadIdx.x / 32;
+  const int nrows = (r1 - r0 - y + kReadWarps - 1) / kReadWarps;
+  const __nv_bfloat16* row = R + static_cast<long long>(r0 + y) * W;
+  if (kAligned) {
+    if (c0 < W) rows_aligned<kNanSkip>(row + c0, W, nrows, s);
+    return;
+  }
+  const char* al = reinterpret_cast<const char*>(row + c0) - kOff;
+  // lane 31 owns no cells: at offset 0 nobody wants its vector
+  const bool lo = al < reinterpret_cast<const char*>(row + W) &&
+                  (kOff != 0 || (threadIdx.x & 31) != 31);
+  rows_shifted<kNanSkip, kOff>(al, lo, W, nrows, keep, s);
+}
+
+// A block's range of 512-row blocks [b0, b1) of its lane cells from c0:
+// NaN-skip sums every row into ``acc``; weighted sums each block apart and
+// adds it times u at the block's first row.
+template <bool kNanSkip, bool kAligned, int kOff>
+__device__ __forceinline__ void read_range(const __nv_bfloat16* R,
+                                           const float* __restrict__ u, int M,
+                                           long long W, int c0, int b0,
+                                           int b1, const uint32_t (&keep)[4],
+                                           float (&acc)[kVecElems]) {
+  for (int b = b0; b < b1; ++b) {
+    const int r0 = b * kTileRows, r1 = min(M, r0 + kTileRows);
+    if (kNanSkip) {
+      read_rows<kNanSkip, kAligned, kOff>(R, W, c0, r0, r1, keep, acc);
+      continue;
+    }
+    float s[kVecElems] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    read_rows<kNanSkip, kAligned, kOff>(R, W, c0, r0, r1, keep, s);
+    const float wt = __ldg(u + r0);
+#pragma unroll
+    for (int e = 0; e < kVecElems; ++e)
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(s[e], wt));
+  }
+}
+
+// stream_read: see the file's head. Block b takes column tile b mod tiles
+// (kTileCols columns) and range b / tiles of ``ranges`` over the
+// ceil(M / 512) row blocks (range k: [k nb / ranges, (k + 1) nb /
+// ranges)); ``gpart`` holds ranges x W floats, ``count`` a zero a tile
+// (and is left so).
+template <bool kNanSkip, bool kAligned>
+__global__ void __launch_bounds__(kReadThreads)
+    stream_read_kernel(const __nv_bfloat16* __restrict__ R,
+                       const float* __restrict__ u, float* __restrict__ gpart,
+                       unsigned* __restrict__ count, float* __restrict__ g,
+                       int M, int W, int ranges) {
+  constexpr int kTileCols = kAligned ? kReadTileCols : kShiftTileCols;
+  __shared__ float sg[kReadWarps][kReadTileCols];
+  __shared__ bool last_block;
+  const int tiles = (W + kTileCols - 1) / kTileCols;
+  const int tile = blockIdx.x % tiles, range = blockIdx.x / tiles;
+  const long long nb = (M + kTileRows - 1) / kTileRows;
+  const int b0 = static_cast<int>(range * nb / ranges);
+  const int b1 = static_cast<int>((range + 1) * nb / ranges);
+  const int t = threadIdx.x, y = t / 32, lane = t % 32;
+  const int c0 = tile * kTileCols + lane * kVecElems;
+  const int cend = min(W, (tile + 1) * kTileCols);  // past the tile's last
+  // the lane's cells past the tile, masked a pair word at a time (shifted
+  // path; lane 31's all)
+  uint32_t keep[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = cend - c0 - 2 * j;  // the pair's cells left in the tile
+    keep[j] = n >= 2 ? 0xFFFFFFFFu : n == 1 ? 0x0000FFFFu : 0u;
+  }
+  float acc[kVecElems] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (kAligned) {
+    read_range<kNanSkip, true, 0>(R, u, M, W, c0, b0, b1, keep, acc);
+  } else {
+    // the warp's rows all start the same bytes past a 16-byte boundary
+    const int off = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(R) + 2LL * y * W + 2LL * c0) & 15);
+    switch (off) {
+#define CRTPU_READ_OFF(o)                                                   \
+  case o:                                                                   \
+    read_range<kNanSkip, false, o>(R, u, M, W, c0, b0, b1, keep, acc);     \
+    break;
+      CRTPU_READ_OFF(0)
+      CRTPU_READ_OFF(2)
+      CRTPU_READ_OFF(4)
+      CRTPU_READ_OFF(6)
+      CRTPU_READ_OFF(8)
+      CRTPU_READ_OFF(10)
+      CRTPU_READ_OFF(12)
+      CRTPU_READ_OFF(14)
+#undef CRTPU_READ_OFF
+    }
+  }
+  // the range's column sums: the 8 warps' in warp order
+  float4* mine = reinterpret_cast<float4*>(&sg[y][lane * kVecElems]);
+  mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  __syncthreads();
+  const int c = tile * kTileCols + t;
+  float p = 0.f;
+#pragma unroll
+  for (int k = 0; k < kReadWarps; ++k) p = __fadd_rn(p, sg[k][t]);
+  if (t < kTileCols && c < W)
+    gpart[static_cast<long long>(range) * W + c] = p;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last_block = atomicAdd(count + tile, 1u) == ranges - 1u;
+  __syncthreads();
+  if (!last_block) return;
+  // the tile's last block: warp y adds the ranges y, y + 8, ... in order,
+  // lane l the columns l, l + 32, ..., then the warps' sums in warp order
+  __threadfence();
+  const int cl = tile * kTileCols + lane;  // the lane's first column
+  float q[kVecElems] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = y; k < ranges; k += kReadWarps) {
+    const float* row = gpart + static_cast<long long>(k) * W + cl;
+#pragma unroll
+    for (int e = 0; e < kVecElems; ++e)
+      if (cl + 32 * e < cend) q[e] = __fadd_rn(q[e], __ldcg(row + 32 * e));
+  }
+#pragma unroll
+  for (int e = 0; e < kVecElems; ++e) sg[y][lane + 32 * e] = q[e];
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int k = 0; k < kReadWarps; ++k) total = __fadd_rn(total, sg[k][t]);
+  if (t < kTileCols && c < W) g[c] = total;
+  if (t == 0) count[tile] = 0u;
 }
 
 // ---- gathers A (kMode 0) and B (1) ----
@@ -1078,137 +825,79 @@ int crtpu_gather_limits(int device, int* smem_optin, int* sms) {
   return static_cast<int>(err);
 }
 
-}  // extern "C"
-
-namespace {
-
-// The current device's opt-in shared memory a block, with the ring
-// kernels allowed all of it (set once a device).
-cudaError_t ring_setup(int* optin) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = static_cast<cudaError_t>(crtpu_gather_limits(dev, optin, &sms));
-  static bool set[kMaxDevices] = {};
-  if (err != cudaSuccess || (dev < kMaxDevices && set[dev])) return err;
-  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  err = cudaFuncSetAttribute(stream_rmw_ring_kernel, attr, *optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stream_read_ring_kernel<false>, attr, *optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stream_read_ring_kernel<true>, attr, *optin);
-  if (err == cudaSuccess && dev < kMaxDevices) set[dev] = true;
-  return err;
-}
-
-}  // namespace
-
-extern "C" {
-
-// ``mode`` 0: the ring, with ``head`` cells before the 16-byte-aligned body,
-// chunks of ``chunk`` bytes, ``stages`` stages and ``grid`` blocks
-// (ops/probe_kernels.py::stream_plan); 1: 16-byte vectors over the panel as
-// one flat run (the last four arguments unused).
-int crtpu_stream_rmw(void* R, int M, int W, int mode, int head, int chunk,
-                     int stages, int grid, void* stream) {
-  if (M <= 0 || W <= 0 || mode < 0 || mode > 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// R <- bf16(R + 1) over the (M, W) panel R, in place.
+int crtpu_stream_rmw(void* R, int M, int W, void* stream) {
+  if (M <= 0 || W <= 0) return cudaErrorInvalidValue;
   __nv_bfloat16* Rb = static_cast<__nv_bfloat16*>(R);
   const long long n = static_cast<long long>(M) * W;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(R);
-  if (mode == 1) {
-    const int head = static_cast<int>(
-        n < 8 ? n : static_cast<long long>((16 - (addr & 15)) & 15) / 2);
-    const long long nvec = (n - head) / kVecElems;
-    const int ntail = static_cast<int>(n - head - nvec * kVecElems);
-    const long long per_block = static_cast<long long>(kVecThreads) *
-                                kVecUnroll;
-    const long long blocks = nvec > 0 ? (nvec + per_block - 1) / per_block : 1;
-    if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-    const unsigned nb = static_cast<unsigned>(blocks);
-    uint4* body = reinterpret_cast<uint4*>(Rb + head);
-    __nv_bfloat16* tail = Rb + head + nvec * kVecElems;
-    stream_rmw_vec_kernel<<<nb, kVecThreads, 0, s>>>(Rb, head, body, nvec,
-                                                     tail, ntail);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (head < 0 || head >= kVecElems || head > n || chunk < 16 ||
-      chunk % 16 != 0 || stages < kRingMinStages ||
-      stages > kRingMaxStages || grid < 1)
-    return cudaErrorInvalidValue;
-  const long long body_bytes = (2 * (n - head)) & ~15LL;
-  if (body_bytes > 0 && ((addr + 2u * head) & 15) != 0)
-    return cudaErrorInvalidValue;
-  int optin = 0;
-  cudaError_t err = ring_setup(&optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long smem = kRingHead + static_cast<long long>(stages) * chunk;
-  if (smem > optin) return cudaErrorInvalidValue;
-  stream_rmw_ring_kernel<<<grid, kRingBlock, static_cast<size_t>(smem),
-                           s>>>(Rb, head, reinterpret_cast<char*>(Rb + head),
-                                body_bytes, chunk, stages,
-                                static_cast<int>(n - head - body_bytes / 2));
+  const int head = static_cast<int>(
+      n < 8 ? n : static_cast<long long>((16 - (addr & 15)) & 15) / 2);
+  const long long nvec = (n - head) / kVecElems;
+  const int ntail = static_cast<int>(n - head - nvec * kVecElems);
+  const long long per_block = static_cast<long long>(kVecThreads) * kVecUnroll;
+  const long long blocks = nvec > 0 ? (nvec + per_block - 1) / per_block : 1;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  stream_rmw_vec_kernel<<<static_cast<unsigned>(blocks), kVecThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      Rb, head, reinterpret_cast<uint4*>(Rb + head), nvec,
+      Rb + head + nvec * kVecElems, ntail);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The resident blocks an SM of the stream_read instance (NaN-skip or
+// weighted, aligned or shifted row path) on the current device, into
+// ``blocks``: what ops/probe_kernels.py::read_plan sizes the grid by.
+int crtpu_stream_read_blocks(int nan_skip, int aligned, int* blocks) {
+  const auto k = nan_skip ? (aligned ? stream_read_kernel<true, true>
+                                     : stream_read_kernel<true, false>)
+                          : (aligned ? stream_read_kernel<false, true>
+                                     : stream_read_kernel<false, false>);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k,
+                                                    kReadThreads, 0));
+}
+
 // ``u`` null selects the NaN-skip mode (unweighted), else the weighted one.
-// ``mode`` 0: the ring, over ns = ceil(W / strip) column strips of
-// ``strip`` columns cut into row ranges of ``per_cta`` rows, a block each
-// (``grid`` = ns x the ranges), ``rows`` rows a stage, ``stages`` stages
-// (ops/probe_kernels.py::stream_plan), with ``gextra`` (grid x strip
-// floats; may be null for one range a strip); 1: 16-byte vectors in
-// 256-column tiles (the last six arguments unused). ``gpart`` holds
-// ceil(M / 512) x W floats.
-int crtpu_stream_read(const void* R, const void* u, void* gpart, void* gextra,
-                      void* g, int M, int W, int mode, int strip, int rows,
-                      int stages, int grid, long long per_cta, void* stream) {
-  const int nr = (M + kTileRows - 1) / kTileRows;
-  if (M <= 0 || W <= 0 || nr > kMaxGridY || mode < 0 || mode > 1)
+// ``aligned``: the aligned row path (R on a 16-byte boundary and W a
+// multiple of 8, else cudaErrorInvalidValue), else the shifted one;
+// ``ranges`` (1 to ceil(M / 512)) row ranges a column tile (256 columns
+// on the aligned path, 248 on the shifted one), a block each
+// (ops/probe_kernels.py::read_plan). ``gpart`` holds ranges x W floats;
+// ``count`` an unsigned zero a tile, which the kernel leaves zero.
+int crtpu_stream_read(const void* R, const void* u, void* gpart, void* count,
+                      void* g, int M, int W, int aligned, int ranges,
+                      void* stream) {
+  if (M <= 0 || W <= 0) return cudaErrorInvalidValue;
+  const long long nb = (M + kTileRows - 1) / kTileRows;
+  const int cols = aligned ? kReadTileCols : kShiftTileCols;
+  const long long tiles = (W + cols - 1) / cols;
+  if (ranges < 1 || ranges > nb || tiles * ranges > 0x7FFFFFFFLL)
+    return cudaErrorInvalidValue;
+  if (aligned && ((reinterpret_cast<uintptr_t>(R) & 15) || W % kVecElems))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* Rb = static_cast<const __nv_bfloat16*>(R);
-  const float* uf = static_cast<const float*>(u);
-  float* gp = static_cast<float*>(gpart);
-  float* gx = static_cast<float*>(gextra);
-  if (mode == 1) {
-    const dim3 tiles((W + kVecTileCols - 1) / kVecTileCols, nr);
-    const dim3 block(kThreadsX, kThreadsY);
-    if (u == nullptr)
-      stream_read_vec_kernel<true><<<tiles, block, 0, s>>>(Rb, uf, gp, M, W);
+  const auto* Rb = static_cast<const __nv_bfloat16*>(R);
+  const auto* uf = static_cast<const float*>(u);
+  auto* gp = static_cast<float*>(gpart);
+  auto* cnt = static_cast<unsigned*>(count);
+  auto* gf = static_cast<float*>(g);
+  const unsigned grid = static_cast<unsigned>(tiles * ranges);
+  if (u == nullptr) {
+    if (aligned)
+      stream_read_kernel<true, true><<<grid, kReadThreads, 0, s>>>(
+          Rb, uf, gp, cnt, gf, M, W, ranges);
     else
-      stream_read_vec_kernel<false><<<tiles, block, 0, s>>>(Rb, uf, gp, M, W);
-    tile_reduce_kernel<<<(W + kReduceThreads - 1) / kReduceThreads,
-                         kReduceThreads, 0, s>>>(gp, static_cast<float*>(g),
-                                                 nr, W);
-    return static_cast<int>(cudaGetLastError());
+      stream_read_kernel<true, false><<<grid, kReadThreads, 0, s>>>(
+          Rb, uf, gp, cnt, gf, M, W, ranges);
+  } else {
+    if (aligned)
+      stream_read_kernel<false, true><<<grid, kReadThreads, 0, s>>>(
+          Rb, uf, gp, cnt, gf, M, W, ranges);
+    else
+      stream_read_kernel<false, false><<<grid, kReadThreads, 0, s>>>(
+          Rb, uf, gp, cnt, gf, M, W, ranges);
   }
-  if (strip < 1 || strip > kRingStrip || per_cta < 1 || per_cta > M)
-    return cudaErrorInvalidValue;
-  const int ns = (W + strip - 1) / strip;
-  const long long ranges = (M + per_cta - 1) / per_cta;  // a strip's
-  if (rows < 1 || (ns > 1 && rows > 32) || stages < kRingMinStages ||
-      stages > kRingMaxStages || grid != ns * ranges ||
-      (ranges > 1 && (per_cta < kTileRows || gextra == nullptr)))
-    return cudaErrorInvalidValue;
-  const long long pitch = ((2LL * strip + 15) & ~15LL) + 16;
-  const long long smem =
-      kRingHead + static_cast<long long>(stages) * rows * pitch;
-  int optin = 0;
-  cudaError_t err = ring_setup(&optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > optin) return cudaErrorInvalidValue;
-  if (u == nullptr)
-    stream_read_ring_kernel<true><<<grid, kRingBlock,
-                                    static_cast<size_t>(smem), s>>>(
-        Rb, uf, gp, gx, M, W, strip, rows, stages, static_cast<int>(per_cta));
-  else
-    stream_read_ring_kernel<false><<<grid, kRingBlock,
-                                     static_cast<size_t>(smem), s>>>(
-        Rb, uf, gp, gx, M, W, strip, rows, stages, static_cast<int>(per_cta));
-  ring_reduce_kernel<<<(W + kRingReduceThreads - 1) / kRingReduceThreads,
-                       kRingReduceThreads, 0, s>>>(
-      gp, gx, static_cast<float*>(g), nr, M, W, strip,
-      static_cast<int>(per_cta));
   return static_cast<int>(cudaGetLastError());
 }
 

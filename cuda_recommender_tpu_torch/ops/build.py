@@ -54,15 +54,13 @@ SIGNATURES = {
         "crtpu_gj_solve": [_p, _ll, _ll, _p, _ll, _ll, _p, _ll, _i, _p],
     },
     "probe_kernels": {
-        # R, rows, width, mode (the ring, 16-byte vectors), the ring's
-        # head cells, chunk bytes, stages and blocks (stream_plan), stream
-        "crtpu_stream_rmw": [_p, _i, _i, _i, _i, _i, _i, _i, _p],
-        # R, u (None: NaN-skip), block partials, the ring's mid-block
-        # partials, g, rows, width, mode (the ring, 16-byte vectors), the
-        # ring's strip, rows a stage, stages, blocks and segments a block
-        # (stream_plan), stream
-        "crtpu_stream_read": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-                              _ll, _p],
+        # R, rows, width, stream
+        "crtpu_stream_rmw": [_p, _i, _i, _p],
+        # R, u (None: NaN-skip), range partials, tile counters, g, rows,
+        # width, row path (aligned), ranges a tile (read_plan), stream
+        "crtpu_stream_read": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+        # NaN-skip, aligned, out: the instance's resident blocks an SM
+        "crtpu_stream_read_blocks": [_i, _i, _pi],
         # table, index, out, index rows, lanes, table rows, form, path
         # (L2, shared memory), stream
         "crtpu_gather": [_p, _p, _p, _ll, _i, _ll, _i, _i, _p],

@@ -17,8 +17,7 @@ from __future__ import annotations
 LAUNCHES = {"panel_update_vsweep": 0, "panel_vsweep": 0, "panel_usweep": 0,
             "fused_update_vsweep": 0, "masked_vsweep": 0, "masked_usweep": 0,
             "gj_solve": 0, "panel_update_vsweep_irne": 0, "stream_rmw": 0,
-            "stream_read": 0, "stream_rmw_vec16": 0, "stream_read_vec16": 0,
-            "gather": 0, "gather_smem": 0,
+            "stream_read": 0, "gather": 0, "gather_smem": 0,
             # the fp8 instances of K1-K4 and the masked sweeps
             # (panel_kernels.instance_name)
             "panel_update_vsweep_fp8": 0,

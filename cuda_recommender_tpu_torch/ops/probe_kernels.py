@@ -1,23 +1,24 @@
 """Stream and gather probes: the card's measurement controls.
 
 Three kernels (``csrc/probe_kernels.cu``), each beside its plain PyTorch
-version, the two streams in two designs each: a ring of shared-memory
-stages filled by bulk asynchronous copies (TMA), the streams' own kernels,
-whose geometry ``stream_plan`` computes; or, with ``vec16=True``, 16-byte
-vectors loaded a batch a thread (the design the ring is timed against;
-counted apart, as ``stream_rmw_vec16`` and ``stream_read_vec16``):
+version:
 
   * ``stream_rmw`` — ``R <- bf16(R + 1)`` IN PLACE over an (M, W) bfloat16
-    panel: the read-modify-write control, its cells walked flat (the
-    function is per cell, so the Pallas control's two grid orders compute
-    it alike). Replaces ``rmw_call`` of ``scripts/panel_floor.py`` (P1)
-    and the rmw floor of ``scripts/panel_kernel_variants.py`` (P2).
+    panel: the read-modify-write control, its cells walked flat in 16-byte
+    vectors (the function is per cell, so the Pallas control's two grid
+    orders compute it alike). Replaces ``rmw_call`` of
+    ``scripts/panel_floor.py`` (P1) and the rmw floor of
+    ``scripts/panel_kernel_variants.py`` (P2).
   * ``stream_read`` — the read control: with ``u``, g[j] = Σ_b u[512·b] ·
     Σ_{i in block b} R[i, j] over 512-row blocks (the weight is u at each
     block's FIRST row, as the Pallas body reads ``u_ref[0, 0]``; the last
     block is ragged), replacing ``read_call`` of ``scripts/panel_floor.py``
     (P1); without ``u``, g[j] = Σ_i R[i, j] with NaN read as 0, the read
-    floor of ``scripts/panel_kernel_variants.py`` (P2).
+    floor of ``scripts/panel_kernel_variants.py`` (P2). 16-byte loads, a
+    256-column tile and a range of whole 512-row blocks a block, the grid
+    sized to the card (``read_plan``), the ranges' sums added by each
+    tile's last block in a fixed order (``read_sum_order``;
+    ``stream_read_in_order`` repeats that order on any device).
   * ``gather`` — forms A, B, C of ``scripts/probe_vmem_gather.py`` (P3)
     over an f32 table ``tab`` (S, L) and an int32 index tile ``idx``
     (rows, L): A ``out[r, l] = tab[idx[r, l], l]``, B ``out[r, l] =
@@ -68,35 +69,28 @@ GATHER_SMEM_RESERVE = 32
 #: plan assumes (``gather_limits``)
 H100_SMEM_OPTIN = 232_448
 H100_SMS = 132
-#: shared memory the card keeps for itself a block: an SM holds the opt-in
-#: plus this (233,472 bytes on the H100), shared by its blocks
-SMEM_BLOCK_RESERVE = 1024
 
-#: the streams' ring (csrc/probe_kernels.cu mirrors these as kRing*): the
-#: consumer threads a block, and the block with its producer warp; the
-#: read's columns a consumer, so that a column strip is at most
-#: STREAM_STRIP columns; bytes before the stages (two mbarriers a stage);
-#: the most row segments a stage of several strips (a producer lane
-#: copies one)
-STREAM_THREADS = 256
-STREAM_BLOCK = STREAM_THREADS + 32
-STREAM_COLS_PER_THREAD = 8
-STREAM_STRIP = STREAM_THREADS * STREAM_COLS_PER_THREAD
-STREAM_SMEM_HEAD = 128
-STREAM_MAX_SEGMENT_ROWS = 32
-#: the plan's choices: the rmw's bytes a stage (a chunk), the read's bytes a
-#: stage (whole row segments up to it), blocks an SM, and the stages a block
-#: wants (as many as fit its share of the SM's shared memory, between these;
-#: the kernels refuse fewer than the first and take at most 8)
-STREAM_CHUNK = 32 << 10
-STREAM_STAGE_BYTES = 32 << 10
-STREAM_CTAS_PER_SM = 2
-STREAM_STAGES = (3, 6)
-#: a read block's fewest rows (per_cta) where a strip has several ranges:
-#: a (512-row block, strip) piece is then split between at most two blocks
-STREAM_MIN_RANGE_ROWS = BLOCK_ROWS
+#: stream_read's kernel (csrc/probe_kernels.cu mirrors these as kRead*):
+#: warps a block, and a tile's columns on each row path (a warp's row: 32
+#: lanes of 8 cells; on the shifted path lane 31 owns none)
+READ_WARPS = 8
+READ_TILE_COLS = {"aligned": 256, "shifted": 248}
+#: the H100's resident stream_read blocks an SM (the card reports each
+#: instance's, ``read_blocks_per_sm``): what a CPU tensor's plan assumes
+H100_READ_BLOCKS_PER_SM = 4
+#: row paths -> the C entry point's ``aligned`` flag
+READ_PATHS = {"shifted": 0, "aligned": 1}
+#: 512-row blocks a thread block of the shifted path reads (about: the
+#: ranges' sizes differ by at most one). Neighbouring tiles there share
+#: cache lines at every tile boundary; short blocks dispatched tile by
+#: tile keep neighbours on the same rows, so that the L2 serves what they
+#: share (on the H100 one wave of long blocks ran 7% slower at the bench's
+#: panel 0, PERF.md)
+READ_SHIFT_ROW_BLOCKS = 4
 
 _limits: dict = {}
+_read_blocks: dict = {}
+_read_counts: dict = {}
 
 
 def _check_panel(R: torch.Tensor) -> tuple[int, int]:
@@ -110,145 +104,147 @@ def _check_panel(R: torch.Tensor) -> tuple[int, int]:
     return R.shape
 
 
-def _stages(stage_bytes: int, smem_optin: int) -> tuple[int, int]:
-    """(blocks an SM, stages a block) of a ring of ``stage_bytes`` stages:
-    STREAM_CTAS_PER_SM blocks, each with as many stages as fit its share
-    of the SM's shared memory (at most the upper bound of STREAM_STAGES).
-    Raises ValueError where that share holds fewer than the lower bound
-    (the H100's holds 3 of the largest stage, 32 KB)."""
-    lo, hi = STREAM_STAGES
-    cps = STREAM_CTAS_PER_SM
-    share = (smem_optin + SMEM_BLOCK_RESERVE) // cps - SMEM_BLOCK_RESERVE
-    stages = min(hi, (share - STREAM_SMEM_HEAD) // stage_bytes)
-    if stages < lo:
-        raise ValueError(f"{cps} blocks an SM of {lo} stages of {stage_bytes}"
-                         f" bytes do not fit {smem_optin} bytes of opt-in "
-                         f"shared memory a block")
-    return cps, stages
+def read_plan(M: int, W: int, offset: int = 0, sms: int = H100_SMS,
+              per_sm: int = H100_READ_BLOCKS_PER_SM) -> dict:
+    """How ``crtpu_stream_read`` reads an (M, W) bfloat16 panel whose
+    first cell lies ``offset`` bytes past a 16-byte boundary (even, 0-14)
+    on a card with ``sms`` SMs, each holding ``per_sm`` of the kernel's
+    blocks at once. Pure arithmetic, which the C side takes as given and
+    checks.
 
-
-def stream_plan(M: int, W: int, offset: int = 0,
-                smem_optin: int = H100_SMEM_OPTIN, sms: int = H100_SMS, *,
-                op: str = "rmw") -> dict:
-    """How the ring kernels (``crtpu_stream_rmw``, ``crtpu_stream_read``
-    at mode 0) stream an (M, W) bfloat16 panel whose first cell lies
-    ``offset`` bytes past a 16-byte boundary (even, 0-14), on a device with
-    ``smem_optin`` bytes of opt-in shared memory a block and ``sms`` SMs.
-    Pure arithmetic, which the C side takes as given and checks.
-
-    ``op="rmw"``: the cells as one flat run: ``head`` cells up to the first
-    16-byte boundary (all of them where fewer than 8 reach it), a body of
-    ``body_bytes`` (a multiple of 16) cut into ``chunks`` of ``chunk``
-    bytes (the last shorter), chunk c to block c mod ``grid``, and ``tail``
-    cells after it (fewer than 8).
-
-    ``op="read"``: the columns cut into ``strips`` strips of ``strip``
-    columns (the last narrower; at most STREAM_STRIP), each strip's M rows
-    into ``ranges`` ranges of ``per_cta`` rows (the last fewer; at least
-    STREAM_MIN_RANGE_ROWS where there are several), a block each: ``grid`` =
-    strips x ranges blocks, block b taking strip b mod strips and range
-    b // strips, at most ``ctas_per_sm`` x ``sms`` of them where the strips
-    allow; ``rows_per_stage`` rows a stage (at most
-    STREAM_MAX_SEGMENT_ROWS with several strips), each row's segment in a
-    slot of ``pitch`` bytes (its 16-byte-aligned span), or, with one
-    strip, the stage's rows as one span; ``blocks`` = ceil(M / 512) rows
-    of partials.
-
-    Both: ``stages`` of ``stage_bytes`` a block, ``smem_bytes`` of dynamic
-    shared memory (STREAM_SMEM_HEAD + stages x stage_bytes), ``threads``
-    a block (STREAM_THREADS consumers and a producer warp).
-    """
+    ``path``: "aligned" where offset is 0 and W a multiple of 8 (every row
+    starts on a 16-byte boundary), else "shifted"; ``warp_offsets``: the
+    bytes past a 16-byte boundary at which each of the 8 warps' rows start
+    (warp y reads the rows y, y + 8, ...; 8 rows are 16 W bytes). The
+    columns are ``tiles`` tiles of ``tile_cols`` (READ_TILE_COLS[path];
+    the last ragged); each tile's ``blocks`` = ceil(M / 512) row blocks go
+    to ``ranges`` ranges of whole row blocks whose sizes differ by at most
+    one (range k: row blocks [k blocks // ranges, (k + 1) blocks //
+    ranges)), a thread block each: ``grid`` = tiles x ranges, thread block
+    b taking tile b mod tiles and range b // tiles (``read_block``). On the
+    aligned path ``ranges`` is the most that keep the grid within one wave
+    of per_sm x sms blocks (at least 1, at most ``blocks``): of the grids
+    of one wave, the fullest, and its largest range the fewest row blocks.
+    On the shifted path a range is about READ_SHIFT_ROW_BLOCKS row blocks
+    (ceil(blocks / READ_SHIFT_ROW_BLOCKS) ranges), several waves."""
     if offset % 2 or not 0 <= offset < 16:
         raise ValueError(f"a bfloat16 panel starts at an even offset mod 16, "
                          f"got {offset}")
     if M <= 0 or W <= 0:
         raise ValueError(f"empty panel {M} x {W}")
-    if op == "rmw":
-        cps, stages = _stages(STREAM_CHUNK, smem_optin)
-        n = M * W
-        head = min(n, (16 - offset) % 16 // 2)
-        body = 2 * (n - head) // 16 * 16
-        chunks = -(-body // STREAM_CHUNK)
-        return {"op": op, "head": head, "body_bytes": body,
-                "chunk": STREAM_CHUNK, "chunks": chunks,
-                "tail": n - head - body // 2,
-                "grid": max(1, min(chunks, cps * sms)), "ctas_per_sm": cps,
-                "stages": stages, "stage_bytes": STREAM_CHUNK,
-                "smem_bytes": STREAM_SMEM_HEAD + stages * STREAM_CHUNK,
-                "threads": STREAM_BLOCK}
-    if op != "read":
-        raise ValueError(f"op must be 'rmw' or 'read', got {op!r}")
-    strips = -(-W // STREAM_STRIP)
-    strip = -(-W // strips)
-    pitch = -(-2 * strip // 16) * 16 + 16
-    rows = max(1, STREAM_STAGE_BYTES // pitch)
-    if strips > 1:
-        rows = min(rows, STREAM_MAX_SEGMENT_ROWS)
-    cps, stages = _stages(rows * pitch, smem_optin)
-    ranges = max(1, min(cps * sms // strips, M // STREAM_MIN_RANGE_ROWS))
-    per_cta = -(-M // ranges)
-    ranges = -(-M // per_cta)
-    return {"op": op, "strip": strip, "strips": strips, "pitch": pitch,
-            "rows_per_stage": rows, "per_cta": per_cta, "ranges": ranges,
-            "grid": strips * ranges,
-            "blocks": -(-M // BLOCK_ROWS), "ctas_per_sm": cps,
-            "stages": stages, "stage_bytes": rows * pitch,
-            "smem_bytes": STREAM_SMEM_HEAD + stages * rows * pitch,
-            "threads": STREAM_BLOCK}
+    path = read_path(offset, W)
+    cols = READ_TILE_COLS[path]
+    tiles, blocks = -(-W // cols), -(-M // BLOCK_ROWS)
+    ranges = (max(1, min(blocks, per_sm * sms // tiles)) if path == "aligned"
+              else -(-blocks // READ_SHIFT_ROW_BLOCKS))
+    return {"path": path, "warp_offsets": tuple((offset + 2 * y * W) % 16
+                                                for y in range(READ_WARPS)),
+            "tile_cols": cols, "tiles": tiles, "blocks": blocks,
+            "ranges": ranges, "grid": tiles * ranges}
 
 
-def _ring_plan(R: torch.Tensor, op: str) -> dict:
+def read_path(offset: int, W: int) -> str:
+    """The row path of a panel of width W whose first cell lies ``offset``
+    bytes past a 16-byte boundary: "aligned" where every row starts on
+    one (offset 0, W a multiple of 8), else "shifted"."""
+    return "aligned" if offset == 0 and W % 8 == 0 else "shifted"
+
+
+def read_block(plan: dict, b: int) -> tuple[int, int, int]:
+    """(tile, first row block, row block past the last) of thread block
+    ``b`` of ``plan``'s grid."""
+    k, nb, ranges = b // plan["tiles"], plan["blocks"], plan["ranges"]
+    return b % plan["tiles"], k * nb // ranges, (k + 1) * nb // ranges
+
+
+def read_sum_order(ranges: int) -> tuple:
+    """The order in which a tile's last block adds the ranges' column sums:
+    warp w the ranges w, w + 8, ... in order, then the warps' sums in warp
+    order (the outer tuple)."""
+    return tuple(tuple(range(w, ranges, READ_WARPS))
+                 for w in range(READ_WARPS))
+
+
+def read_blocks_per_sm(device: torch.device, nan_skip: bool,
+                       path: str) -> int:
+    """The stream_read instance's resident blocks an SM on ``device`` (a
+    CUDA device's occupancy, read once an instance and device; the H100's
+    for the CPU)."""
+    if device.type != "cuda":
+        return H100_READ_BLOCKS_PER_SM
+    key = (_index(device), nan_skip, path)
+    if key not in _read_blocks:
+        from .build import load
+        n = ctypes.c_int()
+        _launch(load("probe_kernels").crtpu_stream_read_blocks,
+                int(nan_skip), READ_PATHS[path], ctypes.byref(n))
+        _read_blocks[key] = n.value
+    return _read_blocks[key]
+
+
+def stream_read_plan(R: torch.Tensor, nan_skip: bool) -> dict:
+    """``read_plan`` for the panel R on its device (its offset, SMs and the
+    instance's occupancy)."""
     M, W = R.shape
-    smem_optin, sms = gather_limits(R.device)
-    return stream_plan(M, W, R.data_ptr() % 16, smem_optin, sms, op=op)
+    offset = R.data_ptr() % 16
+    per_sm = read_blocks_per_sm(R.device, nan_skip, read_path(offset, W))
+    return read_plan(M, W, offset, gather_limits(R.device)[1], per_sm)
 
 
-def stream_rmw(R: torch.Tensor, *, vec16: bool = False) -> torch.Tensor:
-    """P1/P2 rmw: R += 1 in bfloat16, in place; returns R. The ring
-    (``stream_plan``), or with ``vec16`` 16-byte vectors."""
+def _read_counters(R: torch.Tensor, tiles: int) -> torch.Tensor:
+    """The zeros the tiles' last-block counters start from, one buffer a
+    device and stream (the kernel leaves them zero)."""
+    key = (_index(R.device), _stream(R))
+    buf = _read_counts.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(tiles, dtype=torch.int32, device=R.device)
+        _read_counts[key] = buf
+    return buf
+
+
+def stream_rmw(R: torch.Tensor) -> torch.Tensor:
+    """P1/P2 rmw: R += 1 in bfloat16, in place; returns R."""
     M, W = _check_panel(R)
-    plan = None if vec16 else _ring_plan(R, "rmw")
     if R.device.type == "cpu":
         return stream_rmw_plain(R)
     from .build import load
-    fn = load("probe_kernels").crtpu_stream_rmw
-    if vec16:
-        _launch(fn, _ptr(R), M, W, 1, 0, 0, 0, 0, _stream(R))
-    else:
-        _launch(fn, _ptr(R), M, W, 0, plan["head"], plan["chunk"],
-                plan["stages"], plan["grid"], _stream(R))
-    count("stream_rmw_vec16" if vec16 else "stream_rmw")
+    _launch(load("probe_kernels").crtpu_stream_rmw, _ptr(R), M, W,
+            _stream(R))
+    count("stream_rmw")
     return R
 
 
-def stream_read(R: torch.Tensor, u: torch.Tensor | None = None, *,
-                vec16: bool = False) -> torch.Tensor:
+def stream_read(R: torch.Tensor, u: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """P1 read (with ``u``, (M,) float32) or P2's NaN-skip read floor
-    (without); the ring (``stream_plan``), or with ``vec16`` 16-byte
-    vectors. Returns g, (W,) float32."""
+    (without), by ``stream_read_plan``. Returns g, (W,) float32."""
     M, W = _check_panel(R)
     if u is not None and (u.dtype != torch.float32 or u.shape != (M,)
                           or u.device != R.device or not u.is_contiguous()):
         raise ValueError(f"u must be contiguous float32 of shape ({M},) on "
                          f"{R.device}")
-    plan = None if vec16 else _ring_plan(R, "read")
     if R.device.type == "cpu":
         return stream_read_plain(R, u)
+    return launch_read(R, u, stream_read_plan(R, u is None))
+
+
+def launch_read(R: torch.Tensor, u: torch.Tensor | None, plan: dict
+                ) -> torch.Tensor:
+    """One launch of stream_read's kernel on the CUDA panel R (checked by
+    ``stream_read``) as ``plan`` says: its path and ranges
+    (``scripts/sweep_timing.py --read-levers`` times other plans than
+    ``stream_read_plan``'s; the C side refuses the aligned path where R
+    does not allow it)."""
     from .build import load
+    M, W = R.shape
     opts = dict(dtype=torch.float32, device=R.device)
     g = torch.empty(W, **opts)
-    gpart = torch.empty((-(-M // BLOCK_ROWS), W), **opts)
-    args = [_ptr(R), None if u is None else _ptr(u), _ptr(gpart)]
-    if vec16:
-        args += [None, _ptr(g), M, W, 1, 0, 0, 0, 0, 0]
-    else:
-        gextra = (torch.empty((plan["grid"], plan["strip"]), **opts)
-                  if plan["ranges"] > 1 else None)
-        args += [None if gextra is None else _ptr(gextra), _ptr(g), M, W, 0,
-                 plan["strip"], plan["rows_per_stage"], plan["stages"],
-                 plan["grid"], plan["per_cta"]]
-    _launch(load("probe_kernels").crtpu_stream_read, *args, _stream(R))
-    count("stream_read_vec16" if vec16 else "stream_read")
+    gpart = torch.empty((plan["ranges"], W), **opts)
+    _launch(load("probe_kernels").crtpu_stream_read, _ptr(R),
+            None if u is None else _ptr(u), _ptr(gpart),
+            _ptr(_read_counters(R, plan["tiles"])), _ptr(g), M, W,
+            READ_PATHS[plan["path"]], plan["ranges"], _stream(R))
+    count("stream_read")
     return g
 
 
@@ -316,15 +312,19 @@ def gather_plan(S: int, L: int, n_idx: int, smem_limit: int, *,
             "idx_vec": (idx_offset + 4 * head) % 16 == 0}
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
 def gather_limits(device: torch.device) -> tuple[int, int]:
     """(opt-in shared memory a block, SMs) that ``gather_plan`` and
-    ``stream_plan`` take for ``device``: a CUDA device's, read once a
+    ``read_plan`` take for ``device``: a CUDA device's, read once a
     device through the kernel library; the H100's for the CPU (whose plain
     version has no limit of its own)."""
     if device.type != "cuda":
         return H100_SMEM_OPTIN, H100_SMS
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    index = _index(device)
     if index not in _limits:
         from .build import load
         smem, sms = ctypes.c_int(), ctypes.c_int()
@@ -408,6 +408,47 @@ def stream_read_plain(R: torch.Tensor, u: torch.Tensor | None = None
             g += torch.where(torch.isnan(x), 0.0, x).sum(0)
         else:
             g += x.sum(0) * u[r0]
+    return g
+
+
+def stream_read_in_order(R: torch.Tensor, u: torch.Tensor | None,
+                         plan: dict) -> torch.Tensor:
+    """stream_read's kernel's additions, in its order, on R's device, by
+    ``plan``'s ranges: within a range a thread of warp y adds the rows y, y
+    + 8, ... of each 512-row block in order (NaN-skip: into one sum, NaN
+    read as +0.0; weighted: a sum a block, then the range's sum + it times
+    u at the block's first row), a range's column sum is its 8 warps' in
+    warp order, and g adds the ranges in ``read_sum_order``. Every
+    addition a float32 one, rounded to nearest, none fused with a product:
+    the kernel's bits (the smoke holds them equal on the card; this loops
+    over rows in Python, for small panels)."""
+    M, W = R.shape
+    nb, ranges = plan["blocks"], plan["ranges"]
+    opts = dict(dtype=torch.float32, device=R.device)
+    parts = []
+    for k in range(ranges):
+        acc = torch.zeros((READ_WARPS, W), **opts)
+        for b in range(k * nb // ranges, (k + 1) * nb // ranges):
+            x = torch.zeros((BLOCK_ROWS, W), **opts)
+            x[:min(M, (b + 1) * BLOCK_ROWS) - b * BLOCK_ROWS] = \
+                R[b * BLOCK_ROWS:(b + 1) * BLOCK_ROWS]
+            x = x.view(-1, READ_WARPS, W)        # [i, y]: row 8 i + y
+            if u is None:
+                x = torch.where(torch.isnan(x), 0.0, x)
+            s = acc if u is None else torch.zeros_like(acc)
+            for i in range(x.shape[0]):
+                s = s + x[i]
+            acc = s if u is None else acc + s * u[b * BLOCK_ROWS]
+        part = torch.zeros(W, **opts)
+        for y in range(READ_WARPS):
+            part = part + acc[y]
+        parts.append(part)
+    g = torch.zeros(W, **opts)
+    for warp in read_sum_order(ranges):
+        q = torch.zeros(W, **opts)
+        for k in warp:
+            q = q + parts[k]
+        g = g + q
     return g
 
 

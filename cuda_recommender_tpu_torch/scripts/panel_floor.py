@@ -8,16 +8,12 @@ Per bfloat16 panel (the headline stair's two panels at their true shapes;
 the port has no block padding), each mode's ms per call, GB/s and share of
 3.35 TB/s:
 
-  rmw        control: R <- R + 1 in place, no other work, through the
-             streams' ring (bulk copies into shared-memory stages; the
-             cells walked flat, so the Pallas control's grid order is no
-             parameter);
-  read       control: the u-weighted column sums of 512-row blocks, the
-             same ring's reads;
-  rmw_vec16  the same rmw in 16-byte vectors, a batch a thread: on the
-             H100 the faster of the two, what a read-modify-write stream
+  rmw        control: R <- R + 1 in place, no other work, in 16-byte
+             vectors (the cells walked flat, so the Pallas control's grid
+             order is no parameter): what a read-modify-write stream
              reaches (the bench's yardstick, ``bench.ACHIEVABLE``);
-  read_vec16 the same read in 16-byte vectors (likewise);
+  read       control: the u-weighted column sums of 512-row blocks, in
+             16-byte vectors (likewise, for a read);
   uv         K1, panel_update_vsweep (2 + 2 B/cell);
   us         K2, panel_usweep (2 B/cell).
 
@@ -48,9 +44,8 @@ from .common import PEAK_BYTES_S, card, cold_copies, cycling, device_panel, \
 #: hand stair (4096, 2048) under 6.5e9 cells
 HEADLINE_PANELS = ((330128, 17770), (150061, 4096))
 #: bytes each mode moves per panel cell
-BYTES_PER_CELL = {"rmw": 4, "read": 2, "rmw_vec16": 4, "read_vec16": 2,
-                  "uv": 4, "us": 2}
-CONTROLS = ("rmw", "read", "rmw_vec16", "read_vec16")
+BYTES_PER_CELL = {"rmw": 4, "read": 2, "uv": 4, "us": 2}
+CONTROLS = ("rmw", "read")
 #: timed launches per mode, after WARMUP untimed ones
 REPS, WARMUP = 20, 3
 #: the headline's rank, for the implied time per outer iteration
@@ -69,8 +64,6 @@ def panel_modes(shapes, device, *, modes=CONTROLS) -> list:
         calls = {
             "rmw": lambda R: pr.stream_rmw(R),
             "read": lambda R: pr.stream_read(R, u1),
-            "rmw_vec16": lambda R: pr.stream_rmw(R, vec16=True),
-            "read_vec16": lambda R: pr.stream_read(R, u1, vec16=True),
             "uv": lambda R: pk.panel_update_vsweep(R, u1, u2, v1, v2),
             "us": lambda R: pk.panel_usweep(R, v1),
         }

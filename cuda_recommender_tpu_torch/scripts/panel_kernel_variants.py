@@ -9,13 +9,10 @@ pattern (cell (r, c) observed, value 1, where (7r + 13c) % 41 == 0; NaN
 elsewhere), each run timed by CUDA events over REPS chained launches
 after one warm-up launch:
 
-  rmw_floor  the read-modify-write floor: R <- R + 1, no sweep, through
-             the streams' ring (bulk copies into shared-memory stages)
-  rmw_floor_vec16   the same in 16-byte vectors, a batch a thread
-  read_floor the read floor: g = column sums with NaN read as 0, through
-             the ring (column strips, a thread's columns summed in
-             registers)
-  read_floor_vec16  the same in 16-byte vectors, rows realigned by shuffles
+  rmw_floor  the read-modify-write floor: R <- R + 1, no sweep, in
+             16-byte vectors (``probe_kernels.stream_rmw``)
+  read_floor the read floor: g = column sums with NaN read as 0, in
+             16-byte vectors (``probe_kernels.stream_read``)
   rmw_add_   ``R.add_(1)``, the one PyTorch call that does rmw_floor's work
   read_nansum  ``torch.nansum(R, 0)``, the one PyTorch call that does
              read_floor's work
@@ -25,8 +22,8 @@ after one warm-up launch:
              initial panel through as many chained launches as A0
   B0         K2, panel_usweep
 
-The floors run in turns with their PyTorch call (ring, 16-byte, call,
-call, 16-byte, ring; ``sweep_timing.time_turns``) on one panel each; then
+The floors run in turns with their PyTorch call (floor, call, call,
+floor; ``sweep_timing.time_turns``) on one panel each; then
 A1 against A0: the stored residuals' bit mismatches (0 expected: both
 round to nearest even) and max |g diff|. Prints one line per run and a
 JSON summary with the launch counts.
@@ -89,12 +86,10 @@ def run(M: int, W: int, device, seed: int = 0) -> dict:
 
     R = pattern_panel(M, W, device)
     for tags, nbytes, fns in (
-            (("rmw_floor", "rmw_floor_vec16", "rmw_add_"), 4 * cells,
-             (lambda: pr.stream_rmw(R), lambda: pr.stream_rmw(R, vec16=True),
-              lambda: R.add_(1))),
-            (("read_floor", "read_floor_vec16", "read_nansum"), 2 * cells,
+            (("rmw_floor", "rmw_add_"), 4 * cells,
+             (lambda: pr.stream_rmw(R), lambda: R.add_(1))),
+            (("read_floor", "read_nansum"), 2 * cells,
              (lambda: pr.stream_read(R),
-              lambda: pr.stream_read(R, vec16=True),
               lambda: torch.nansum(R, 0, dtype=torch.float32)))):
         for tag, turns in zip(tags, time_turns(fns, device, REPS)):
             report(tag, nbytes, None if turns[0] is None else sum(turns) / 2)

@@ -6,8 +6,8 @@ ptxas' report, per instance, for one checkout of the port.
         [--against FILE] [--dump DIR]
 
 Compiles ``csrc/panel_kernels.cu`` (or, with ``--source probe_kernels``,
-``csrc/probe_kernels.cu``, whose stream kernels and their reductions it
-reports) of the checkout ``--root`` (default: this one) to a cubin with
+``csrc/probe_kernels.cu``, whose stream kernels it reports) of the
+checkout ``--root`` (default: this one) to a cubin with
 the build's flags (``ops/build.py``), reads
 ptxas' registers, stack and spills of every kernel, disassembles it with
 ``cuobjdump -sass`` and counts, for each ``col_sweep_kernel`` and
@@ -18,7 +18,12 @@ instruction text. A column sweep's loop body handles ``rows`` rows of 8
 cells a lane, so its counts over 8·rows are per cell: for the conversions,
 which lie on the loop's main path, the count each cell executes; for all
 instructions, a static count that includes code only the rare branches
-run. ``--against`` compares with an earlier ``--out`` (another
+run. For each stream kernel it also finds the innermost loops that load
+16-byte vectors (a branch back to a lower address closes a loop) and
+counts each one's instructions per 16 bytes a lane loads, the vectors
+being its FADDs over 8 (a vector's 8 cells each add once): the row
+loops of the read's aligned path and of each of its shifted path's 8
+offsets. ``--against`` compares with an earlier ``--out`` (another
 checkout's): which instances' SASS is unchanged; ``--dump`` writes each
 kernel's instructions into a file of its own. Needs ``nvcc`` and
 ``cuobjdump`` (the CUDA toolkit): without them it exits 2.
@@ -45,7 +50,8 @@ F16_TO_F32 = "HADD2.F32"
 _CELLS_PER_LANE = 8
 
 _FUNC = re.compile(r"Function : (\S+)")
-_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;")
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+_BRANCH = re.compile(r"\bBRA(?:\.\S+)?\s+0x([0-9a-f]+)")
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
@@ -53,7 +59,7 @@ _REGS = re.compile(r"Used (\d+) registers")
 #: source -> the kernels of it that the report covers (a regex of the
 #: mangled name)
 KERNELS = {"panel_kernels": r"(col|row)_sweep_kernel",
-           "probe_kernels": r"stream_\w+_kernel|(ring|tile)_reduce_kernel"}
+           "probe_kernels": r"stream_\w+_kernel"}
 
 
 def parse_ptxas(log: str) -> dict:
@@ -77,9 +83,10 @@ def parse_ptxas(log: str) -> dict:
     return out
 
 
-def parse_sass(text: str) -> dict:
+def parse_sass(text: str, addresses: bool = False) -> dict:
     """``cuobjdump -sass`` output -> mangled name -> its instructions
-    (text without address and encoding; NOPs dropped)."""
+    (text without address and encoding; NOPs dropped), or with
+    ``addresses`` (address, text) pairs."""
     out, cur = {}, None
     for line in text.splitlines():
         m = _FUNC.search(line)
@@ -87,8 +94,37 @@ def parse_sass(text: str) -> dict:
             cur = out.setdefault(m.group(1), [])
             continue
         m = _INSTR.search(line)
-        if m and cur is not None and opcode(m.group(1)) != "NOP":
-            cur.append(m.group(1))
+        if m and cur is not None and opcode(m.group(2)) != "NOP":
+            cur.append((int(m.group(1), 16), m.group(2)) if addresses
+                       else m.group(2))
+    return out
+
+
+def vector_loops(instrs: list) -> list:
+    """The innermost loops of (address, text) ``instrs`` that load 16-byte
+    vectors (an LDG of 128 bits), a loop being the instructions from a
+    branch's target up to a branch back to it: each one's [first, last]
+    address, instructions, vectors (its FADDs over 8: the 8 cells of a
+    vector each add once) and instructions per 16 bytes."""
+    loops = []
+    for at, text in instrs:
+        m = _BRANCH.search(text)
+        if not m or int(m.group(1), 16) > at:
+            continue
+        start = int(m.group(1), 16)
+        body = [t for a, t in instrs if start <= a <= at]
+        ops = [opcode(t) for t in body]
+        if any(op.startswith("LDG") and ".128" in op for op in ops):
+            loops.append((start, at, ops))
+    out = []
+    for start, end, ops in loops:
+        if any(start <= s2 and e2 <= end and (s2, e2) != (start, end)
+               for s2, e2, _ in loops):
+            continue                      # holds an inner vector loop
+        vectors = sum(op.startswith("FADD") for op in ops) / 8
+        out.append({"loop": [start, end], "instructions": len(ops),
+                    "vectors": vectors,
+                    "per_16_bytes": len(ops) / vectors if vectors else None})
     return out
 
 
@@ -190,9 +226,10 @@ def report(root: str, dump: str | None = None,
         if done.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{done.stderr[-4000:]}")
         ptxas = parse_ptxas(done.stdout + done.stderr)
-        sass = parse_sass(subprocess.run(
-            [_tool("cuobjdump"), "-sass", cubin], capture_output=True,
-            text=True, check=True).stdout)
+        text = subprocess.run([_tool("cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    sass, addressed = parse_sass(text), parse_sass(text, addresses=True)
     names = _demangle(sorted(sass))
     out = {}
     for mangled, instrs in sass.items():
@@ -201,6 +238,8 @@ def report(root: str, dump: str | None = None,
         name = label(names.get(mangled, mangled))
         out[name] = {**ptxas.get(mangled, {}),
                      **summarize(instrs, rows_per_iteration(name))}
+        if source == "probe_kernels":
+            out[name]["vector_loops"] = vector_loops(addressed[mangled])
         if dump:
             os.makedirs(dump, exist_ok=True)
             fname = re.sub(r"[^A-Za-z0-9_]+", "_", name).strip("_")
@@ -224,6 +263,12 @@ def _line(name: str, rec: dict, old: dict | None) -> str:
         text += (f"; a cell: {per['conversions']:.3f} conversions, "
                  f"{per['f16_to_f32']:.3f} f16->f32, "
                  f"{per['instructions_static']:.2f} instructions (static)")
+    loops = [lp["per_16_bytes"] for lp in rec.get("vector_loops", ())
+             if lp["per_16_bytes"] is not None]
+    if loops:
+        text += (f"; {len(loops)} vector loop(s), "
+                 f"{min(loops):.2f}-{max(loops):.2f} instructions per 16 "
+                 f"bytes ({', '.join(f'{x:.2f}' for x in loops)})")
     if old is not None:
         text += ("; SASS unchanged" if old["sha256"] == rec["sha256"] else
                  f"; SASS differs (was {old['instructions']} instructions, "

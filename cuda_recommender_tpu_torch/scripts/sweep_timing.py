@@ -5,7 +5,7 @@ version (K5 also against ``torch.linalg.solve``, the gathers against
 that computes each function), for one checkout of the port.
 
     python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
-        [--gathers | --fp8 [--outputs FILE] | --streams]
+        [--gathers | --fp8 [--outputs FILE] | --streams | --read-levers]
 
 ``--root`` imports the package from another checkout (an unpacked copy of
 another commit; default: the checkout that holds this file), so that one
@@ -32,9 +32,11 @@ one differs.
 With ``--streams`` it times P1/P2's streams instead (``time_streams``: the
 rmw, the u-weighted read and the NaN-skip read at STREAM_SHAPES, each the
 checkout's own kernel, ``stream_rmw(R)`` / ``stream_read(R[, u])``, beside
-its 16-byte instance, its plain version and its PyTorch call, in turns);
-the names are the same in older checkouts, so that one script times the
-parent's streams and this one's.
+its plain version and its PyTorch call, in turns); run an older
+checkout's copy of this file to time its streams. With ``--read-levers``
+it times ``stream_read`` at the same shapes under its own plan and under
+plans that each take one lever of its design away (``read_lever_plans``),
+in turns.
 ``chip_smoke.py`` times its phases 6, 9, 15, 19 and 42 through
 ``nan_sweeps``, ``gj_solves``, ``masked_sweeps``, ``time_streams``,
 ``time_fp8`` and ``time_sweeps``, and
@@ -378,58 +380,60 @@ def time_fp8(device, reps: int = REPS) -> dict:
     return out
 
 
+def _stream_panel(i: int, M: int, W: int, device):
+    """The streams' i-th panel: a NaN-sentinel panel first, the variant
+    matrix's NaN pattern after it."""
+    from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
+        pattern_panel
+
+    return (nan_panel(M, W, device, seed=M)[0] if i == 0 else
+            pattern_panel(M, W, device))
+
+
 def time_streams(device, reps: int = STREAM_REPS, shapes=None) -> dict:
     """P1/P2's streams at each of ``shapes`` (default STREAM_SHAPES; the
     first a NaN-sentinel panel, the others the variant matrix's NaN
     pattern): the rmw (``R.add_(1)``),
     the u-weighted read (``torch.mv(R.t(), u)``, u rounded to bf16) and the
     NaN-skip read (``torch.nansum``), each in turns plain, PyTorch call,
-    16-byte instance, the checkout's kernel, and back (``time_turns``).
-    Returns {"stream_... MxW": {ms (the kernel), vec16_ms, plain_ms,
-    library_ms, each one's two turns, bytes, flops, bound_ms, GB_s,
-    share_of_peak}}; bytes count each input read once and each output
-    written once."""
+    the checkout's kernel, and back (``time_turns``). Returns {"stream_...
+    MxW": {ms (the kernel), plain_ms, library_ms, each one's two turns,
+    bytes, flops, bound_ms, GB_s, share_of_peak}}; bytes count each input
+    read once and each output written once."""
     import torch
 
     from cuda_recommender_tpu_torch.ops import probe_kernels as pr
     from cuda_recommender_tpu_torch.scripts.common import PEAK_BYTES_S, \
         PEAK_F32_FLOP_S, rate
-    from cuda_recommender_tpu_torch.scripts.panel_kernel_variants import \
-        pattern_panel
 
     def mean(turns):
         return None if turns[0] is None else sum(turns) / 2
 
     out = {}
     for i, (M, W) in enumerate(shapes or STREAM_SHAPES):
-        R = (nan_panel(M, W, device, seed=M)[0] if i == 0 else
-             pattern_panel(M, W, device))
+        R = _stream_panel(i, M, W, device)
         u = torch.randn(M, device=device)
         u_lib = u.to(R.dtype)
         cells = M * W
         calls = {
             "stream_rmw": (lambda: pr.stream_rmw(R),
-                           lambda: pr.stream_rmw(R, vec16=True),
                            lambda: pr.stream_rmw_plain(R),
                            lambda: R.add_(1), 4 * cells),
             "stream_read": (lambda: pr.stream_read(R, u),
-                            lambda: pr.stream_read(R, u, vec16=True),
                             lambda: pr.stream_read_plain(R, u),
                             lambda: torch.mv(R.t(), u_lib),
                             2 * cells + 4 * (-(-M // 512) + W)),
             "stream_read_nan_skip": (
                 lambda: pr.stream_read(R),
-                lambda: pr.stream_read(R, vec16=True),
                 lambda: pr.stream_read_plain(R),
                 lambda: torch.nansum(R, 0, dtype=torch.float32),
                 2 * cells + 4 * W)}
-        for name, (kern, vec, plain, lib, nbytes) in calls.items():
-            got = time_turns([plain, lib, vec, kern], device, reps)
-            ms = mean(got[3])
+        for name, (kern, plain, lib, nbytes) in calls.items():
+            got = time_turns([plain, lib, kern], device, reps)
+            ms = mean(got[2])
             bound = 1e3 * max(nbytes / PEAK_BYTES_S, cells / PEAK_F32_FLOP_S)
-            rec = {**rate(nbytes, ms), "vec16_ms": mean(got[2]),
-                   "plain_ms": mean(got[0]), "library_ms": mean(got[1]),
-                   "turns": list(got[3]), "vec16_turns": list(got[2]),
+            rec = {**rate(nbytes, ms), "plain_ms": mean(got[0]),
+                   "library_ms": mean(got[1]), "turns": list(got[2]),
                    "library_turns": list(got[1]), "bytes": nbytes,
                    "flops": cells, "bound_ms": bound}
             key = f"{name} {M}x{W}"
@@ -438,11 +442,72 @@ def time_streams(device, reps: int = STREAM_REPS, shapes=None) -> dict:
                 print(f"{key}: not measured ({device.type})", flush=True)
             else:
                 print(f"{key}: kernel {ms:.3f} ms ({100 * bound / ms:.1f}% "
-                      f"of its {bound:.3f} ms bound), 16-byte "
-                      f"{rec['vec16_ms']:.3f}, library "
+                      f"of its {bound:.3f} ms bound), library "
                       f"{rec['library_ms']:.3f}, plain {rec['plain_ms']:.3f}"
                       f"; turns {rec['turns']}", flush=True)
         del R, u, u_lib, calls
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def read_lever_plans(M: int, W: int, plan: dict, per_sm: int,
+                     sms: int) -> dict:
+    """stream_read's plan ``plan`` of an (M, W) panel (``read_plan``, on a
+    card of ``sms`` SMs that each hold ``per_sm`` of its blocks) and plans
+    that change one lever of it: "shifted" (the shifted row path's plan
+    where the plan takes the aligned one), "one wave" (the most ranges that
+    fit one wave of per_sm x sms blocks) and "k row blocks" (k = 1, 4: k
+    512-row blocks a thread block, several waves; at k = 1 the grid is
+    sized to the panel as the earlier design's was, and a tile's last
+    block adds ceil(M / 512) sums), each where it differs from the
+    plan."""
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+
+    out = {"design": plan}
+    if plan["path"] == "aligned":       # a plan of the shifted path's tiles
+        out["shifted"] = pr.read_plan(M, W, 2, sms, per_sm)
+    nb, tiles = plan["blocks"], plan["tiles"]
+    for name, ranges in (("one wave", max(1, min(nb, per_sm * sms // tiles))),
+                         ("1 row block", nb), ("4 row blocks", -(-nb // 4))):
+        if ranges != plan["ranges"]:
+            out[name] = dict(plan, ranges=ranges, grid=tiles * ranges)
+    return out
+
+
+def time_read_levers(device, reps: int = STREAM_REPS, shapes=None) -> dict:
+    """stream_read (weighted and NaN-skip) at each of ``shapes`` (default
+    STREAM_SHAPES, on ``time_streams``' panels) under each of
+    ``read_lever_plans``, in turns (``time_turns``). Returns {"mode MxW
+    lever": {ms, turns, ranges, path}}; on the CPU (no kernel to time) the
+    plans with ms None."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import probe_kernels as pr
+
+    out = {}
+    for i, (M, W) in enumerate(shapes or STREAM_SHAPES):
+        R = _stream_panel(i, M, W, device)
+        u = torch.randn(M, device=device)
+        for mode, uu in (("stream_read", u), ("stream_read_nan_skip", None)):
+            plan = pr.stream_read_plan(R, uu is None)
+            per_sm = pr.read_blocks_per_sm(R.device, uu is None, plan["path"])
+            plans = read_lever_plans(M, W, plan, per_sm,
+                                     pr.gather_limits(R.device)[1])
+            fns = [lambda p=p: pr.launch_read(R, uu, p)
+                   for p in plans.values()]
+            got = (time_turns(fns, device, reps) if device.type == "cuda"
+                   else [(None, None)] * len(fns))
+            for (lever, plan), turns in zip(plans.items(), got):
+                key = f"{mode} {M}x{W} {lever}"
+                ms = None if turns[0] is None else sum(turns) / 2
+                out[key] = {"ms": ms, "turns": list(turns),
+                            "ranges": plan["ranges"], "path": plan["path"]}
+                print(f"{key}: " + ("not measured" if ms is None else
+                                    f"{ms:.4f} ms, turns {list(turns)}")
+                      + f" ({plan['path']}, {plan['ranges']} ranges)",
+                      flush=True)
+        del R, u
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -553,6 +618,9 @@ def main(argv=None) -> int:
                         "K5")
     p.add_argument("--streams", action="store_true",
                    help="time P1/P2's streams instead of the sweeps and K5")
+    p.add_argument("--read-levers", action="store_true",
+                   help="time stream_read's plan against plans without "
+                        "each of its levers instead")
     p.add_argument("--outputs", metavar="FILE",
                    help="with --fp8: write the fp8 outputs' digests to "
                         "FILE, or hold them bit-equal to it where it exists")
@@ -573,6 +641,8 @@ def main(argv=None) -> int:
         kernels = time_gathers(device)
     elif args.streams:
         kernels = time_streams(device)
+    elif args.read_levers:
+        kernels = time_read_levers(device)
     elif args.fp8:
         kernels = {key: rec for recs in time_fp8(device).values()
                    for key, rec in recs.items()}

@@ -120,13 +120,11 @@ def test_bench_counts_the_tail_and_the_ideal():
 
 
 def test_achievable_from_measured_controls():
-    """The panel controls named in bench.ACHIEVABLE (an rmw and a read of
-    panel_floor's modes "rmw", "read", "rmw_vec16", "read_vec16") stand
-    for the card; the others ride along and do not enter."""
-    assert len(bench.ACHIEVABLE) == 2
-    assert set(bench.ACHIEVABLE) <= set(panel_floor.CONTROLS)
-    assert set(panel_floor.CONTROLS) == {"rmw", "read", "rmw_vec16",
-                                         "read_vec16"}
+    """The panel controls named in bench.ACHIEVABLE (panel_floor's modes
+    "rmw" and "read", one design each) stand for the card; a control not
+    named would ride along and not enter."""
+    assert bench.ACHIEVABLE == ("rmw", "read")
+    assert set(panel_floor.CONTROLS) == {"rmw", "read"}
     rmw, read = bench.ACHIEVABLE
     assert rmw.startswith("rmw") and read.startswith("read")
     ms = {rmw: (1.5, 0.5), read: (0.75, 0.25)}
@@ -221,8 +219,7 @@ def test_panel_floor_script_on_cpu():
     recs = [json.loads(x) for x in lines]
     assert rc == 0 and [r["shape"] for r in recs[:2]] == [[1100, 260],
                                                           [600, 64]]
-    assert set(recs[0]) == {"shape", "rmw", "read", "rmw_vec16",
-                            "read_vec16", "uv", "us"}
+    assert set(recs[0]) == {"shape", "rmw", "read", "uv", "us"}
     assert recs[2]["implied"]["panel_ms_per_rank"] is None
     assert math.isclose(recs[2]["implied"]["bound_s_per_iter"],
                         6 * (1100 * 260 + 600 * 64) * 40 / 3.35e12)
@@ -238,15 +235,17 @@ def test_variant_matrix_script_on_cpu():
 
 
 def test_variant_matrix_reports_16_byte_floors():
-    """The floors come through the ring and in 16-byte vectors, beside the
+    """The floors come in 16-byte vectors (one design each), beside the
     PyTorch call that does the same work, each a line of its own and a key
     of the summary."""
     rc, lines = _run(panel_kernel_variants.main, ["70", "30", "--device",
                                                   "cpu"])
     out = json.loads(lines[-1])
     assert rc == 0
-    for tag in ("rmw_floor", "read_floor", "rmw_floor_vec16",
-                "read_floor_vec16", "rmw_add_", "read_nansum"):
+    tags = ("rmw_floor", "read_floor", "rmw_add_", "read_nansum")
+    assert {key for key in out if key.startswith(("rmw", "read"))} == \
+        set(tags)
+    for tag in tags:
         assert tag in out and out[tag]["GB_s"] is None
         assert any(line.split(":")[0].strip() == tag for line in lines)
 
@@ -284,9 +283,8 @@ def test_sweep_timing_script_on_cpu(monkeypatch):
 
 def test_sweep_timing_streams_on_cpu(monkeypatch):
     """``--streams``: the rmw, the weighted and the NaN-skip read at each
-    stream shape, each beside its 16-byte instance, its plain version and
-    its PyTorch call, bytes as the bound counts them, times "not measured"
-    on the CPU."""
+    stream shape, each beside its plain version and its PyTorch call,
+    bytes as the bound counts them, times "not measured" on the CPU."""
     monkeypatch.setattr(sweep_timing, "STREAM_SHAPES", ((70, 33), (41, 90)))
     monkeypatch.setattr(sys, "path", list(sys.path))
     rc, lines = _run(sweep_timing.main, ["--device", "cpu", "--streams"])
@@ -296,13 +294,42 @@ def test_sweep_timing_streams_on_cpu(monkeypatch):
         f"{name} {M}x{W}" for M, W in ((70, 33), (41, 90))
         for name in ("stream_rmw", "stream_read", "stream_read_nan_skip"))
     for key, r in out["kernels"].items():
-        assert r["ms"] is r["vec16_ms"] is r["plain_ms"] is None
+        assert r["ms"] is r["plain_ms"] is None
         assert r["library_ms"] is None
         M, W = (int(x) for x in key.split(" ")[1].split("x"))
         want = {"stream_rmw": 4 * M * W,
                 "stream_read": 2 * M * W + 4 * (-(-M // 512) + W),
                 "stream_read_nan_skip": 2 * M * W + 4 * W}[key.split(" ")[0]]
         assert r["bytes"] == want and r["bound_ms"] > 0
+    assert len(lines) == 1 + len(out["kernels"])
+
+
+def test_sweep_timing_read_levers_on_cpu(monkeypatch):
+    """``--read-levers``: both reads at each stream shape under
+    stream_read's plan and under each plan that changes one lever of it
+    (where it differs): the shifted path for an aligned panel, one wave,
+    a 512-row block or 4 a thread block; times "not measured" on the
+    CPU."""
+    monkeypatch.setattr(sweep_timing, "STREAM_SHAPES",
+                        ((1100, 264), (1041, 90)))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    rc, lines = _run(sweep_timing.main, ["--device", "cpu", "--read-levers"])
+    out = json.loads(lines[-1])
+    assert rc == 0
+    # (path, ranges) of each lever: 3 row blocks; the aligned 1100 x 264
+    # takes one wave, the shifted 1041 x 90 a range of up to 4 row blocks
+    want = {"1100x264": {"design": ("aligned", 3), "shifted": ("shifted", 1),
+                         "4 row blocks": ("aligned", 1)},
+            "1041x90": {"design": ("shifted", 1), "one wave": ("shifted", 3),
+                        "1 row block": ("shifted", 3)}}
+    assert sorted(out["kernels"]) == sorted(
+        f"{mode} {shape} {lever}" for shape, levers in want.items()
+        for lever in levers
+        for mode in ("stream_read", "stream_read_nan_skip"))
+    for key, r in out["kernels"].items():
+        _, shape, lever = key.split(" ", 2)
+        assert r["ms"] is None
+        assert (r["path"], r["ranges"]) == want[shape][lever]
     assert len(lines) == 1 + len(out["kernels"])
 
 

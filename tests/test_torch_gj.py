@@ -178,8 +178,8 @@ def test_one_launch_registry():
     assert set(launches.launch_counts()) == {
         "panel_update_vsweep", "panel_vsweep", "panel_usweep",
         "fused_update_vsweep", "masked_vsweep", "masked_usweep", "gj_solve",
-        "panel_update_vsweep_irne", "stream_rmw", "stream_read",
-        "stream_rmw_vec16", "stream_read_vec16", "gather", "gather_smem",
+        "panel_update_vsweep_irne", "stream_rmw", "stream_read", "gather",
+        "gather_smem",
         "panel_update_vsweep_fp8", "panel_update_vsweep_fp8_delta_first",
         "panel_vsweep_fp8", "panel_usweep_fp8", "fused_update_vsweep_fp8",
         "fused_update_vsweep_fp8_delta_first", "masked_vsweep_fp8",

@@ -18,10 +18,17 @@ f32 -> bf16 conversion (JAX writes 0x7FC0, this torch's CPU 0xFFFF), so
 against JAX a stored NaN must be NaN at the same cell; against the port's
 own K1 every bit is equal.
 
-P3's host logic is held here too: ``gather_plan``'s choice of path and
-kernel at the bench's shapes and at the shared-memory limit, its split of
-the index around the output's 16-byte boundaries, and the wrapper's
-refusals; the kernels themselves run only on the card (chip_smoke.py).
+The read's host logic is held here too: ``read_plan``'s work split (every
+cell read once, every 512-row block in one thread block's range, one wave
+of balanced ranges) and its fixed order of additions, which
+``stream_read_in_order`` repeats on the host: against the plain version
+and the Pallas bodies within 1e-5 of Σ|terms| (the smoke holds the kernel
+bit-equal to it on the card); and the kernel's NaN test on pair words, on
+every bf16 bit pattern. P3's host logic too: ``gather_plan``'s choice of
+path and kernel at the bench's shapes and at the shared-memory limit, its
+split of the index around the output's 16-byte boundaries, and the
+wrapper's refusals; the kernels themselves run only on the card
+(chip_smoke.py).
 
 Importing the scripts sets three JAX compilation-cache options (and puts
 the repository on sys.path); the fixture restores them.
@@ -143,37 +150,27 @@ def test_rmw_matches_pallas(scripts, script, rowmajor, M, W):
     np.testing.assert_array_equal(_tbits(got), _jbits(want))
 
 
-def test_rmw_plain_formula_ragged():
-    """Ragged (M, W): each cell becomes bf16(f32(x) + 1), once."""
-    x = _panel(37, 53, seed=1) * np.float32(1000.0)
+@pytest.mark.parametrize("M,W", [(37, 53), (1024, 256)])
+def test_rmw_plain_formula_ragged(M, W):
+    """Each cell becomes bf16(f32(x) + 1), once: on a ragged (M, W), on a
+    block-multiple one, and on a view whose first cell is 2 W bytes into
+    its buffer (off a 16-byte boundary where 2 W is not a multiple of 16).
+    On the CPU: the plain version, no launch."""
+    x = _panel(M, W, seed=M + 3) * np.float32(1000.0)
     _, t = _bf16(x)
     want = (t.to(torch.float32) + 1.0).to(torch.bfloat16)
+    launches.reset_launch_counts()
     np.testing.assert_array_equal(_tbits(pr.stream_rmw(t.clone())),
                                   _tbits(want))
-
-
-@pytest.mark.parametrize("M,W", [(1024, 256), (37, 53)])
-def test_rmw_vec16_matches_pallas_and_k1_pattern(scripts, M, W):
-    """The 16-byte-vector rmw computes the same cells as the ring and, at
-    a block-multiple shape, the Pallas rmw; also on a view whose first cell
-    is off a 16-byte boundary. On the CPU: the plain version, no launch."""
-    x = _panel(M, W, seed=M + 3) * np.float32(300.0)
-    j, t = _bf16(x)
-    launches.reset_launch_counts()
-    got = pr.stream_rmw(t.clone(), vec16=True)
+    view = t.clone()[1:]
+    np.testing.assert_array_equal(_tbits(pr.stream_rmw(view)),
+                                  _tbits(want[1:]))
     assert set(launches.launch_counts().values()) == {0}
-    np.testing.assert_array_equal(_tbits(got), _tbits(pr.stream_rmw(t.clone())))
-    if M % BM == 0 and W % 128 == 0:
-        want = _rmw_call(scripts["panel_floor"]._rmw_kernel, j, BM, 128, False)
-        np.testing.assert_array_equal(_tbits(got), _jbits(want))
-    view = t.clone()[1:]                              # base 2 W bytes in
-    np.testing.assert_array_equal(_tbits(pr.stream_rmw(view, vec16=True)),
-                                  _tbits(got[1:]))
 
 
-# ------------------------------------------------------ the streams' ring plan
+# ------------------------------------------------------------ the read's plan
 
-#: stream_plan's shapes: the bench's two panels, the variant matrix's, and
+#: read_plan's shapes: the bench's two panels, the variant matrix's, and
 #: ragged small ones (3 x 5 has fewer cells than two 16-byte vectors, 1 x 7
 #: fewer than one)
 PLAN_SHAPES = ((330_128, 17_770), (150_061, 4_096), (165_376, 18_432),
@@ -181,150 +178,107 @@ PLAN_SHAPES = ((330_128, 17_770), (150_061, 4_096), (165_376, 18_432),
 OFFSETS = range(0, 16, 2)
 
 
-def _check_rmw_plan(M, W, off, plan):
-    """Every cell once: the head cells, then the body's chunks (16-byte
-    aligned, multiples of 16, disjoint and in order, dealt to the blocks in
-    turn), then the tail; every stage in the block's shared memory; the
-    copies inside the 16-byte granules that hold the panel."""
-    n = M * W
-    head, body, tail = plan["head"], plan["body_bytes"], plan["tail"]
-    assert head + body // 2 + tail == n and 0 <= head < 8 and 0 <= tail < 8
-    assert body % 16 == 0 and (body == 0 or (off + 2 * head) % 16 == 0)
-    chunk, chunks = plan["chunk"], plan["chunks"]
-    assert chunk % 16 == 0 and chunks == -(-body // chunk)
-    starts = off + 2 * head + chunk * np.arange(chunks, dtype=np.int64)
-    sizes = np.minimum(chunk, off + 2 * head + body - starts)
-    assert np.all(starts % 16 == 0) and np.all(sizes % 16 == 0)
-    assert np.all(sizes > 0) and sizes.sum() == body
-    assert np.all(starts[1:] == starts[:-1] + sizes[:-1])  # disjoint, in order
-    assert starts[:1].min(initial=16) >= off and \
-        (starts + sizes).max(initial=0) <= off + 2 * n
-    grid = plan["grid"]
-    assert 1 <= grid <= plan["ctas_per_sm"] * pr.H100_SMS
-    assert grid == 1 or grid <= chunks                 # no block without work
-    per = np.bincount(np.arange(chunks) % grid, minlength=grid)
-    assert per.max() - per.min() <= 1             # balanced to a chunk
-    assert plan["stage_bytes"] == chunk
-
-
-def _check_read_plan(M, W, off, plan):
-    """Every cell once: the strips cut the columns (each at most a strip of
-    the block's threads), each strip's rows go to its blocks in equal
-    contiguous ranges (at least 512 rows where there are several, so that
-    a 512-row block of a strip is split between at most two blocks), and
-    each row's 16-byte-aligned span lies in its slot of the stage (or,
-    with one strip, a stage's rows in one span of the stage) and inside
-    the 16-byte granules that hold the panel."""
-    strip, strips = plan["strip"], plan["strips"]
-    assert strip <= pr.STREAM_STRIP and -(-W // strip) == strips
-    assert (strips - 1) * strip < W <= strips * strip
-    widths = np.minimum(strip, W - strip * np.arange(strips))
-    assert np.all(widths > 0) and widths.sum() == W
-    per, ranges, grid = plan["per_cta"], plan["ranges"], plan["grid"]
-    assert grid == strips * ranges and (ranges - 1) * per < M <= ranges * per
-    assert ranges == 1 or per >= pr.STREAM_MIN_RANGE_ROWS
-    assert grid <= max(strips, plan["ctas_per_sm"] * pr.H100_SMS)
-    rows, pitch = plan["rows_per_stage"], plan["pitch"]
-    assert pitch % 16 == 0 and plan["stage_bytes"] == rows * pitch
-    assert strips == 1 or rows <= pr.STREAM_MAX_SEGMENT_ROWS
-    # block b: strip b mod strips, rows [k per, (k + 1) per), k = b // strips
-    b = np.arange(grid)
-    s_of, r0 = b % strips, (b // strips) * per
-    r1 = np.minimum(M, r0 + per)
-    cover = np.zeros((strips, M), np.int64)
-    for s, lo, hi in zip(s_of, r0, r1):
-        cover[s, lo:hi] += 1
-    assert np.all(cover == 1)
-    # every segment's span: in its slot, 16-byte aligned, in the granules
-    q = np.arange(strips * M, dtype=np.int64)
-    s, r = q // M, q % M
-    a0 = off + 2 * (r * W + s * strip)
-    a, e = a0 // 16 * 16, -(-(a0 + 2 * widths[s]) // 16) * 16
-    lo, hi = 0, -(-(off + 2 * M * W) // 16) * 16
-    assert a.min() >= lo and e.max() <= hi
-    if strips > 1:
-        assert np.all(e - a <= pitch)
-    else:                # a stage's rows, one span from its first row on
-        first = (r // per) * per + (r % per) // rows * rows
-        last = np.minimum(first + rows, np.minimum(M, (r // per + 1) * per))
-        span = -(-(off + 2 * last * W) // 16) * 16 - \
-            (off + 2 * first * W) // 16 * 16
-        assert span.max() <= rows * pitch
-    # a 512-row block of a strip meets at most two ranges
-    b0 = np.arange(0, M, pr.BLOCK_ROWS)
-    last_row = np.minimum(M, b0 + pr.BLOCK_ROWS) - 1
-    assert np.all(last_row // per - b0 // per <= 1)
-
-
-@pytest.mark.parametrize("op", ["rmw", "read"])
+@pytest.mark.parametrize("off", OFFSETS)
 @pytest.mark.parametrize("M,W", PLAN_SHAPES)
-def test_stream_plan_covers_every_cell_once(M, W, op):
-    """The ring's plan at the bench's panels, the variant matrix's and
-    ragged small shapes, at every even offset of the first cell mod 16:
-    every cell once, spans and chunks 16-byte aligned and whole 16-byte
-    granules of the panel, every block's stages within the H100's opt-in
-    shared memory and two blocks within an SM's."""
-    for off in OFFSETS:
-        plan = pr.stream_plan(M, W, off, op=op)
-        assert plan["op"] == op and plan["threads"] == pr.STREAM_BLOCK
-        assert pr.STREAM_STAGES[0] <= plan["stages"] <= pr.STREAM_STAGES[1]
-        assert plan["smem_bytes"] == pr.STREAM_SMEM_HEAD + \
-            plan["stages"] * plan["stage_bytes"] <= pr.H100_SMEM_OPTIN
-        assert plan["ctas_per_sm"] * (plan["smem_bytes"] +
-                                      pr.SMEM_BLOCK_RESERVE) <= \
-            pr.H100_SMEM_OPTIN + pr.SMEM_BLOCK_RESERVE
-        (_check_rmw_plan if op == "rmw" else _check_read_plan)(M, W, off,
-                                                               plan)
+def test_read_plan_covers_every_cell_once(M, W, off):
+    """At the bench's panels, the variant matrix's and ragged small
+    shapes, at every even offset of the first cell mod 16: the tiles cover
+    the columns once, each tile's ranges cover its row blocks once (every
+    512-row block in exactly one thread block's range, ranges within one
+    row block of each other), the grid within one wave of the H100's
+    resident blocks (or one range a tile), the aligned path only where
+    every row starts on a 16-byte boundary, and each warp's rows at one
+    offset."""
+    plan = pr.read_plan(M, W, off)
+    tiles, nb, ranges = plan["tiles"], plan["blocks"], plan["ranges"]
+    cols = plan["tile_cols"]
+    assert cols == pr.READ_TILE_COLS[plan["path"]]
+    assert (tiles - 1) * cols < W <= tiles * cols
+    assert nb == -(-M // BM) and 1 <= ranges <= nb
+    assert plan["grid"] == tiles * ranges
+    if plan["path"] == "aligned":             # the fullest single wave
+        wave = pr.H100_READ_BLOCKS_PER_SM * pr.H100_SMS
+        assert plan["grid"] <= wave or ranges == 1
+        assert ranges == nb or (ranges + 1) * tiles > wave
+    else:                               # short blocks, dispatched tile-fast
+        assert ranges == -(-nb // pr.READ_SHIFT_ROW_BLOCKS)
+    cover = np.zeros((tiles, nb), np.int64)
+    sizes = []
+    for b in range(plan["grid"]):
+        tile, b0, b1 = pr.read_block(plan, b)
+        assert 0 <= tile < tiles and 0 <= b0 < b1 <= nb
+        cover[tile, b0:b1] += 1
+        sizes.append(b1 - b0)
+    assert np.all(cover == 1)
+    assert max(sizes) - min(sizes) <= 1
+    seen = np.zeros(W, np.int64)                  # a tile's columns
+    for tile in range(tiles):
+        seen[tile * cols:(tile + 1) * cols] += 1
+    assert np.all(seen == 1)
+    aligned = off == 0 and W % 8 == 0
+    assert plan["path"] == ("aligned" if aligned else "shifted")
+    rows = np.arange(min(M, 4 * BM))
+    starts = (off + 2 * rows * W) % 16        # each row's first byte mod 16
+    for y, warp_off in enumerate(plan["warp_offsets"]):
+        assert np.all(starts[rows % pr.READ_WARPS == y] == warp_off)
+    assert aligned == (set(plan["warp_offsets"]) == {0} and W % 8 == 0)
 
 
-def test_stream_plan_balances_the_waves():
-    """At the variant matrix's shape the read's 9 strips x 29 row ranges
-    are 261 blocks, one wave of the 264 that run at once (2 an SM), each
-    5,703 rows (5,692 the last), where whole 512-row blocks
-    would run 2.45 waves on 132 SMs; at the bench's panel 1, 2 x 132. The
-    rmw's chunks differ by at most one a block."""
-    read = pr.stream_plan(165_376, 18_432, op="read")
-    assert (read["strips"], read["strip"], read["ranges"]) == (9, 2048, 29)
-    assert read["grid"] == 261 <= 2 * pr.H100_SMS
-    assert read["per_cta"] == 5_703
-    assert 165_376 - 28 * read["per_cta"] == 5_692
-    panel1 = pr.stream_plan(150_061, 4_096, op="read")
-    assert (panel1["strips"], panel1["ranges"], panel1["grid"]) == \
-        (2, 132, 264)
-    rmw = pr.stream_plan(165_376, 18_432, op="rmw")
-    assert rmw["grid"] == 264 and rmw["chunks"] == 186_048
+@pytest.mark.parametrize("M,W", PLAN_SHAPES)
+def test_read_plan_sums_in_a_fixed_order(M, W):
+    """A tile's last block adds every range's sums once, in a fixed order:
+    warp w the ranges w, w + 8, ... in increasing order, then the warps in
+    order; the order depends on the number of ranges alone."""
+    ranges = pr.read_plan(M, W)["ranges"]
+    order = pr.read_sum_order(ranges)
+    assert len(order) == pr.READ_WARPS
+    assert sorted(k for warp in order for k in warp) == list(range(ranges))
+    for w, warp in enumerate(order):
+        assert list(warp) == sorted(warp)
+        assert all(k % pr.READ_WARPS == w for k in warp)
+    assert order == pr.read_sum_order(ranges)
 
 
-def test_stream_plan_refuses_what_does_not_fit():
-    """An odd offset (not a bfloat16 address), an empty panel, an unknown
-    op and an opt-in whose share of an SM holds fewer than three stages
-    a block at two blocks an SM raise: the plan is one choice, made for
-    the H100's opt-in, which holds it. The least opt-in that holds three
-    32 KB stages for each of two blocks plans them."""
-    for kwargs in ({"offset": 3}, {"offset": 16}, {"op": "copy"}):
-        with pytest.raises(ValueError):
-            pr.stream_plan(8, 8, **kwargs)
-    with pytest.raises(ValueError, match="empty"):
-        pr.stream_plan(0, 8)
-    least = 2 * (3 * pr.STREAM_CHUNK + pr.STREAM_SMEM_HEAD +
-                 pr.SMEM_BLOCK_RESERVE) - pr.SMEM_BLOCK_RESERVE
-    assert least == 197_888 < pr.H100_SMEM_OPTIN
-    for optin in (3 * pr.STREAM_CHUNK, 150_000):
-        for op in ("rmw", "read"):
-            with pytest.raises(ValueError, match="do not fit"):
-                pr.stream_plan(64, 64, 0, optin, op=op)
-    with pytest.raises(ValueError, match="do not fit"):
-        pr.stream_plan(64, 64, 0, least - 2)
-    plan = pr.stream_plan(64, 64, 0, least)
-    assert plan["ctas_per_sm"] == pr.STREAM_CTAS_PER_SM == 2
-    assert plan["stages"] == pr.STREAM_STAGES[0] == 3
+def test_read_plan_balances_the_waves():
+    """At 4 resident blocks an SM on 132 SMs (528 at once), on the aligned
+    path: the bench's panel 1, 16 tiles of 294 row blocks, 33 ranges of 8
+    or 9 (528 blocks, one wave); the variant matrix's 72 tiles of 323 row
+    blocks, 7 ranges of 46 or 47 (504), where a 512-row block a thread
+    block would be 4,704 and 23,256 blocks; at 8 an SM 66 and 14 ranges.
+    On the shifted path (panel 0: 72 tiles of 248 columns, 645 row
+    blocks) 162 ranges of 3 or 4 row blocks, whatever the occupancy."""
+    for (M, W), want in (((150_061, 4_096), (16, 294, 33)),
+                         ((165_376, 18_432), (72, 323, 7))):
+        plan = pr.read_plan(M, W, 0, 132, 4)
+        assert (plan["path"], plan["tiles"], plan["blocks"],
+                plan["ranges"]) == ("aligned", *want)
+        assert plan["grid"] <= 4 * 132
+    assert [pr.read_plan(M, W, 0, 132, 8)["ranges"] for M, W in
+            PLAN_SHAPES[1:3]] == [66, 14]
+    for per_sm in (3, 4, 8):
+        plan = pr.read_plan(330_128, 17_770, 0, 132, per_sm)
+        assert (plan["path"], plan["tiles"], plan["blocks"],
+                plan["ranges"]) == ("shifted", 72, 645, 162)
+        sizes = {b1 - b0 for _, b0, b1 in (pr.read_block(plan, b)
+                                           for b in range(plan["grid"]))}
+        assert sizes == {3, 4}
 
 
-def test_ring_constants_mirror_the_plan():
-    """The kernels' kRing* constants are the plan's STREAM_* ones, and both
-    entry points refuse fewer stages than the plan's fewest: a one-stage
-    rmw ring never loads its second chunk, so the C side must not take
-    it."""
+def test_read_plan_refuses_what_is_not_a_panel():
+    """An odd offset (not a bfloat16 address) or one of 16 and over, and
+    an empty panel, raise."""
+    for kwargs in ({"offset": 3}, {"offset": 16}, {"offset": -2}):
+        with pytest.raises(ValueError, match="even offset"):
+            pr.read_plan(8, 8, **kwargs)
+    for M, W in ((0, 8), (8, 0)):
+        with pytest.raises(ValueError, match="empty"):
+            pr.read_plan(M, W)
+
+
+def test_read_constants_mirror_the_plan():
+    """The kernel's kRead* constants and row-block height are the plan's,
+    and its C entry point refuses the aligned path off a 16-byte boundary
+    or at a width that is not a multiple of 8."""
     src = (Path(pr.__file__).resolve().parent.parent / "csrc" /
            "probe_kernels.cu").read_text()
 
@@ -333,22 +287,21 @@ def test_ring_constants_mirror_the_plan():
         assert m, name
         return int(m.group(1))
 
-    assert const("kRingThreads") == pr.STREAM_THREADS
-    assert const("kRingThreads") + 32 == pr.STREAM_BLOCK
-    assert const("kRingCols") == pr.STREAM_COLS_PER_THREAD
-    assert const("kRingHead") == pr.STREAM_SMEM_HEAD
-    assert const("kRingMinStages") == pr.STREAM_STAGES[0]
-    assert pr.STREAM_STAGES[1] <= const("kRingMaxStages")
-    for entry in ("crtpu_stream_rmw", "crtpu_stream_read"):
-        body = src[src.index(f"int {entry}("):]
-        body = body[:body.index("\n}\n")]
-        assert "stages < kRingMinStages" in body, entry
+    assert const("kReadWarps") == pr.READ_WARPS
+    assert 32 * const("kVecElems") == pr.READ_TILE_COLS["aligned"]
+    assert 31 * const("kVecElems") == pr.READ_TILE_COLS["shifted"]
+    assert "kShiftTileCols = kReadTileCols - kVecElems" in src
+    assert const("kTileRows") == pr.BLOCK_ROWS
+    body = src[src.index("int crtpu_stream_read("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (aligned && ((reinterpret_cast<uintptr_t>(R) & 15) || " \
+        "W % kVecElems))" in body
+    assert "ranges > nb" in body
 
 
 def test_stream_wrappers_take_the_plain_version_on_the_cpu():
-    """On a CPU tensor (a view off a 16-byte boundary too) the ring
-    wrappers take the plain versions, count nothing and plan all the same
-    (the plan's refusals raise there too)."""
+    """On a CPU tensor (a view off a 16-byte boundary too) the wrappers
+    take the plain versions and count nothing."""
     x = _panel(600, 90, seed=4) * np.float32(300.0)
     _, t = _bf16(x)
     want = pr.stream_rmw_plain(t.clone())
@@ -365,6 +318,51 @@ def _tbits_t(x):
     return x.contiguous().view(torch.int16)
 
 
+def test_zero_nan_pair_on_every_bf16():
+    """The kernel's NaN test on a pair word (zero_nan_pair): in (w |
+    0x80008000) - 0x7F817F81, bit 15 (31) is set exactly where the low
+    (high) half is a bf16 NaN, for every 16-bit pattern of one half beside
+    every pattern class of the other (no borrow across the halves)."""
+    h = np.arange(1 << 16, dtype=np.uint32)
+    nan = np.isnan((h << 16).view(np.float32))
+    for other in (0x0000, 0x7F80, 0x7F81, 0x8000, 0xFFFF, 0x3F80):
+        lo = ((h | (other << 16)) | 0x80008000) - 0x7F817F81
+        np.testing.assert_array_equal((lo >> 15) & 1 == 1, nan)
+        assert np.all(((lo >> 31) & 1 == 1) ==
+                      np.isnan(np.uint32(other << 16).view(np.float32)))
+        hi = (((h << 16) | other) | 0x80008000) - 0x7F817F81
+        np.testing.assert_array_equal((hi >> 31) & 1 == 1, nan)
+        assert np.all(((hi >> 15) & 1 == 1) ==
+                      np.isnan(np.uint32(other << 16).view(np.float32)))
+
+
+#: plans of stream_read_in_order: the H100's, and one range a row block
+#: (the most ranges a plan may take)
+def _plans(M, W):
+    return [pr.read_plan(M, W), pr.read_plan(M, W, 0, 4 * M, 1)]
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("M,W", [(1537, 300), (3, 2), (1100, 264),
+                                 (2053, 17)])
+def test_read_in_order_matches_plain(M, W, nan):
+    """The kernel's order of additions (stream_read_in_order) under each
+    plan against the plain version within 1e-5 of Σ|terms|: ragged rows and
+    columns, under one 16-byte vector, several ranges a tile; NaN-skip with
+    40% NaN; the same bits from one call to the next."""
+    x = _panel(M, W, seed=M + W, nan_frac=0.4 if nan else 0.0)
+    _, t = _bf16(x)
+    u = None if nan else torch.from_numpy(
+        np.random.default_rng(M).normal(size=M).astype(np.float32))
+    scale = pr.stream_read_plain(t.abs(), None if u is None else u.abs())
+    for plan in _plans(M, W):
+        got = pr.stream_read_in_order(t, u, plan)
+        assert np.isfinite(got.numpy()).all()
+        _close(got.numpy(), pr.stream_read_plain(t, u).numpy(),
+               scale.numpy())
+        assert torch.equal(got, pr.stream_read_in_order(t, u, plan))
+
+
 # ------------------------------------------------------------------- P1 read
 
 def _read_call(kernel, Rd, u_row, bm, bw):
@@ -379,50 +377,38 @@ def _read_call(kernel, Rd, u_row, bm, bw):
         interpret=True)(Rd, u_row)
 
 
+def _in_buffer(t, view):
+    """t itself, or (view) a copy of it one row into a buffer of one row
+    more (its first cell 2 W bytes past the buffer's)."""
+    if not view:
+        return t
+    buf = torch.zeros((t.shape[0] + 1, t.shape[1]), dtype=t.dtype)
+    buf[1:] = t
+    return buf[1:]
+
+
+@pytest.mark.parametrize("view", [False, True])
 @pytest.mark.parametrize("M,W", [(1536, 256), (512, 128), (2048, 384)])
-def test_read_matches_pallas(scripts, M, W):
+def test_read_matches_pallas(scripts, M, W, view):
     """P1's read: g[j] = Σ_b u[512 b] Σ_{i in b} R[i, j] (the weight is u at
-    the block's first row, not a per-row matvec)."""
+    the block's first row, not a per-row matvec), through the wrapper and
+    through the kernel's order of additions under each plan, also on a view
+    one row into its buffer."""
     x = _panel(M, W, seed=M)
     u = np.random.default_rng(M + 1).normal(size=M).astype(np.float32)
     j, t = _bf16(x)
+    t = _in_buffer(t, view)
     want = np.asarray(_read_call(scripts["panel_floor"]._read_kernel, j,
                                  jnp.asarray(u)[None, :], BM, 128))[0]
     ut = torch.from_numpy(u)
     got = pr.stream_read(t, ut).numpy()
     scale = pr.stream_read_plain(t.abs(), ut.abs()).numpy()
     _close(got, want, scale)
+    for plan in _plans(M, W):
+        _close(pr.stream_read_in_order(t, ut, plan).numpy(), want, scale)
     # not a matvec: a per-row weighting differs
     matvec = (t.to(torch.float32).t() @ ut).numpy()
     assert np.abs(matvec - got).max() > 1e3 * RTOL * scale.max()
-
-
-@pytest.mark.parametrize("nan", [False, True])
-def test_read_vec16_matches_pallas(scripts, nan):
-    """The 16-byte-vector read computes P1's weighted read (and, without
-    u, P2's NaN-skip read floor) as K1's pattern does: against the Pallas
-    bodies within 1e-5 of Σ|terms|."""
-    M, W = 1536, 256
-    x = _panel(M, W, seed=21, nan_frac=0.4 if nan else 0.0)
-    u = np.random.default_rng(22).normal(size=M).astype(np.float32)
-    j, t = _bf16(x)
-    if nan:
-        want = np.asarray(pl.pallas_call(
-            scripts["panel_kernel_variants"]._read_kernel,
-            grid=(W // 128, M // BM),
-            in_specs=[pl.BlockSpec((BM, 128), lambda jw, im: (im, jw))],
-            out_specs=pl.BlockSpec((1, 128), lambda jw, im: (0, jw)),
-            out_shape=jax.ShapeDtypeStruct((1, W), jnp.float32),
-            interpret=True)(j))[0]
-        got = pr.stream_read(t, vec16=True).numpy()
-        scale = pr.stream_read(t.abs(), vec16=True).numpy()
-    else:
-        ut = torch.from_numpy(u)
-        want = np.asarray(_read_call(scripts["panel_floor"]._read_kernel, j,
-                                     jnp.asarray(u)[None, :], BM, 128))[0]
-        got = pr.stream_read(t, ut, vec16=True).numpy()
-        scale = pr.stream_read_plain(t.abs(), ut.abs()).numpy()
-    _close(got, want, scale)
 
 
 def test_read_plain_formula_ragged():
@@ -441,9 +427,11 @@ def test_read_plain_formula_ragged():
 
 # -------------------------------------------------------------- P2 read floor
 
-@pytest.mark.parametrize("M,W", [(1024, 256), (1536, 128)])
+@pytest.mark.parametrize("M,W", [(1024, 256), (1536, 128), (1536, 256)])
 def test_read_floor_matches_pallas(scripts, M, W):
-    """P2's read floor: NaN-skip column sums, NaNs present."""
+    """P2's read floor: NaN-skip column sums, NaNs present, through the
+    wrapper and through the kernel's order of additions under each
+    plan."""
     x = _panel(M, W, seed=W, nan_frac=0.4)
     j, t = _bf16(x)
     kern = scripts["panel_kernel_variants"]._read_kernel
@@ -457,6 +445,8 @@ def test_read_floor_matches_pallas(scripts, M, W):
     scale = pr.stream_read(t.abs()).numpy()
     assert np.isfinite(got).all()
     _close(got, want, scale)
+    for plan in _plans(M, W):
+        _close(pr.stream_read_in_order(t, None, plan).numpy(), want, scale)
 
 
 def test_read_floor_plain_formula_ragged():
@@ -789,10 +779,12 @@ def test_build_binds_the_probe_kernels():
     argtype per C parameter (test_torch_gj.py checks the parse for every
     source)."""
     assert set(build.SIGNATURES["probe_kernels"]) == {
-        "crtpu_stream_rmw", "crtpu_stream_read", "crtpu_gather",
-        "crtpu_gather_limits"}
-    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_rmw"]) == 9
-    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_read"]) == 14
+        "crtpu_stream_rmw", "crtpu_stream_read", "crtpu_stream_read_blocks",
+        "crtpu_gather", "crtpu_gather_limits"}
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_rmw"]) == 4
+    assert len(build.SIGNATURES["probe_kernels"]["crtpu_stream_read"]) == 10
+    assert len(build.SIGNATURES["probe_kernels"]
+               ["crtpu_stream_read_blocks"]) == 3
     assert len(build.SIGNATURES["probe_kernels"]["crtpu_gather"]) == 9
     assert len(build.SIGNATURES["probe_kernels"]
                ["crtpu_gather_limits"]) == 3

@@ -117,16 +117,48 @@ def test_exits_2_without_the_toolkit(monkeypatch, capsys):
 
 
 def test_probe_source_reports_the_streams_only():
-    """``--source probe_kernels`` covers the stream kernels and their
-    reductions, not the gathers; the default covers the sweeps."""
-    names = ["_ZN12_GLOBAL__N_122stream_rmw_ring_kernelEP13__nv_bfloat16iPcxiii",
-             "_ZN12_GLOBAL__N_123stream_read_ring_kernelILb1EEEvPK13__nv_bfloat16PKfPfS6_iiiiix",
-             "_ZN12_GLOBAL__N_121stream_rmw_vec_kernelEP13__nv_bfloat16iP5uint4xS1_i",
-             "_ZN12_GLOBAL__N_118ring_reduce_kernelEPKfS1_Pfiiiix",
-             "_ZN12_GLOBAL__N_118tile_reduce_kernelEPKfPfii",
+    """``--source probe_kernels`` covers the stream kernels, not the
+    gathers; the default covers the sweeps."""
+    names = ["_ZN12_GLOBAL__N_121stream_rmw_vec_kernelEP13__nv_bfloat16iP5uint4xS1_i",
+             "_ZN12_GLOBAL__N_118stream_read_kernelILb1ELb1EEEvPK13__nv_bfloat16PKfPfPjS6_iii",
+             "_ZN12_GLOBAL__N_118stream_read_kernelILb0ELb0EEEvPK13__nv_bfloat16PKfPfPjS6_iii",
              "_ZN12_GLOBAL__N_116gather_l2_kernelILi0ELb1EEEvPKfPKiPfixiix",
              "_ZN12_GLOBAL__N_116col_sweep_kernelIfNS_7NanMaskELb1EEEvv"]
     got = [n for n in names if re.search(sr.KERNELS["probe_kernels"], n)]
-    assert got == names[:5]
+    assert got == names[:3]
     assert [n for n in names if re.search(sr.KERNELS["panel_kernels"], n)] \
-        == names[6:]
+        == names[4:]
+
+
+LOOPS = """
+		Function : _Z4readv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;  /* 0x0 */
+        /*0020*/                   FADD R8, R8, R4 ;                        /* 0x0 */
+        /*0030*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64+0x10] ;  /* 0x0 */
+""" + "".join(f"""        /*{0x40 + 16 * i:04x}*/                   FADD R9, R9, R5 ;                        /* 0x0 */
+""" for i in range(15)) + """        /*0130*/               @P0 BRA 0x10 ;                               /* 0x0 */
+        /*0140*/                   LDG.E R20, desc[UR4][R6.64] ;            /* 0x0 */
+        /*0150*/                   FADD R21, R21, R20 ;                     /* 0x0 */
+        /*0160*/               @P1 BRA 0x140 ;                              /* 0x0 */
+        /*0170*/                   BRA 0x0 ;                                /* 0x0 */
+        /*0180*/                   EXIT ;                                   /* 0x0 */
+"""
+
+
+def test_vector_loops_count_instructions_per_16_bytes():
+    """A stream kernel's innermost loops that load 16-byte vectors: the
+    loop 0x10-0x130 (2 LDG.128, 16 FADDs: 2 vectors of 8 cells, 19
+    instructions) is one; the scalar loop 0x140-0x160 loads no vector, and
+    the loop 0x0-0x170 holds the first, so neither counts. The addressed
+    parse keeps the plain one's text."""
+    addressed = sr.parse_sass(LOOPS, addresses=True)["_Z4readv"]
+    assert [t for _, t in addressed] == sr.parse_sass(LOOPS)["_Z4readv"]
+    assert addressed[1] == (0x10, "LDG.E.128.CONSTANT R4, desc[UR4][R2.64]")
+    loops = sr.vector_loops(addressed)
+    assert loops == [{"loop": [0x10, 0x130], "instructions": 19,
+                      "vectors": 2.0, "per_16_bytes": 9.5}]
+    rec = {**sr.summarize([t for _, t in addressed], None),
+           "vector_loops": loops}
+    assert "1 vector loop(s), 9.50-9.50 instructions per 16 bytes" in \
+        sr._line("stream_read_kernel<true, true>", rec, None)
