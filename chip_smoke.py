@@ -7,7 +7,12 @@ Builds the hand-written kernels from ``cuda_recommender_tpu_torch/csrc``
 PyTorch version on the card; the column sweeps, which move 16-byte vectors,
 also at every row alignment (widths of every residue mod 16, W < 8, views
 one element off a 16-byte boundary between guard cells, and the transposed
-stair's odd-width panel 0); K5 bit-equal to its plain version at the edges
+stair's odd-width panel 0); the row sweeps (K2, ``masked_usweep``) at every
+case of their plan (``check_row_sweeps``: W = 1, W < 8, odd widths, M = 1,
+M under the SM count, one to eight chunks, several segments with a ragged
+last one, views at every offset within a 16-byte unit and one row in, and
+Yahoo r1_t's 912 x 1,948,883 panel 0), in phases 3, 11 and 42 for every
+residual dtype x mask; K5 bit-equal to its plain version at the edges
 of every width it instantiates, on separate tensors and on views of the
 ALS gram one float off a 16-byte boundary. Then it drives the port's
 paths:
@@ -251,6 +256,23 @@ ALIGN_EXTRA = ((1, 1), (3, 9), (9, 3), (5, 300))
 #: elements a checked view starts into its buffer: its base is one element
 #: off a 16-byte boundary, and guard cells lie on both sides of it
 VIEW_OFFSET = 1
+#: the row sweep's checks (K2, masked_usweep; ops/panel_kernels.py::
+#: row_sweep_plan), shapes that take every case of its plan: W = 1, W < 8,
+#: odd widths (rows start at every byte their cell size allows), M = 1 and
+#: M under the SM count, one chunk, 2 and 8 chunks, one segment of 2 spans
+#: with a ragged end, several segments with a ragged last one (M = 1
+#: among them); each also as views at every offset (elements) that moves
+#: its first cell within a 16-byte unit, and one row into its buffer
+ROW_SWEEP_SHAPES = ((1, 1), (7, 1), (3, 5), (1, 7), (1031, 9), (130, 1031),
+                    (65, 2049), (200, 8193), (37, 24_577), (1, 70_001))
+#: ... and r1_t's panel 0 (Yahoo r1 transposed: 912 x 1,948,883, 238
+#: segments), no view
+ROW_SWEEP_WIDE = (912, 1_948_883)
+#: panels whose row 1 ends and row 3 starts with a non-finite cell (NaN
+#: beside a mask, where K4 at fp8 stores NaN on overflow; ±inf with the
+#: NaN sentinel), as views at every offset: the rows beside them must keep
+#: their own sums, one segment and several
+ROW_SWEEP_NONFINITE = ((5, 1031), (4, 30_001))
 #: the transposed stair's panel 0 (items as rows, 13,464 x 480,189 bf16):
 #: an odd width at full size, so that every row starts at its own offset
 ODD_PANEL = (13_464, 480_189)
@@ -964,13 +986,15 @@ def _guarded_view(X: torch.Tensor, offset: int):
 
 
 def _hold(what, kern, plain, scale, X, offset, ratios,
-          nonfinite=False) -> float:
+          nonfinite=False, same_view=False) -> float:
     """``kern`` against ``plain`` on copies of the panel X (the kernel's in
     a guarded view ``offset`` elements into its buffer, unless None):
     stored residual bit-equal, guard cells untouched, a second kernel run
-    bit-identical, g and h within RTOL of sum(|terms|) (``scale`` of the
-    stored panel for g, h itself; ``nonfinite`` as ``_close``). Returns
-    the largest |g, h error|."""
+    (on a fresh copy; with ``same_view``, a read-only sweep whose sum order
+    follows the rows' alignment, on the same view) bit-identical, g and h
+    within RTOL of sum(|terms|) (``scale`` of the stored panel for g, h
+    itself; ``nonfinite`` as ``_close``). Returns the largest |g, h
+    error|."""
     n = X.numel()
     if offset is None:
         buf, Rk = None, X.clone()
@@ -980,7 +1004,7 @@ def _hold(what, kern, plain, scale, X, offset, ratios,
     Rp, R2 = X.clone(), X.clone()
     gk, hk = kern(Rk)
     gp, hp = plain(Rp)
-    g2, h2 = kern(R2)
+    g2, h2 = kern(Rk if same_view else R2)
     _sync(X.device)
     if not torch.equal(_bits(Rk), _bits(Rp)):
         raise AssertionError(f"{what}: stored residual differs in "
@@ -1061,6 +1085,115 @@ def check_alignment(device) -> dict:
           f" residual bit-equal, guard cells untouched, repeatable; largest "
           f"error / sum|terms| {max(ratios):.2e} (bar {RTOL}); max|dg|,|dh| "
           f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    return worst
+
+
+def _row_cases(dtype, mask_dtype, M, W, device, seed):
+    """(name, kernel, plain version, sum(|terms|) of g, panel) of the row
+    sweep on a seeded (M, W) panel of ``dtype``: K2 on a NaN-sentinel
+    panel (``mask_dtype`` None), else masked_usweep beside a mask of
+    ``mask_dtype``."""
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    ab = _fp8_abs if dtype == FP8 else torch.abs
+    if dtype == FP8:
+        R, Mk, vecs = _fp8_panel(M, W, device, seed, mask_dtype)
+    elif mask_dtype is None:
+        (R, vecs), Mk = random_panel(M, W, dtype, device, seed), None
+    else:
+        R, Mk, vecs = random_masked(M, W, dtype, mask_dtype, device, seed)
+    v = vecs[2]
+    if Mk is None:
+        return (pk.instance_name("panel_usweep", dtype),
+                lambda X: pk.panel_usweep(X, v),
+                lambda X: pk.panel_usweep_plain(X, v),
+                lambda X: pk.panel_usweep_plain(ab(X), v.abs())[0], R)
+    return (pk.instance_name("masked_usweep", dtype),
+            lambda X: ck.masked_usweep(X, Mk, v),
+            lambda X: ck.masked_usweep_plain(X, Mk, v),
+            lambda X: ck.masked_usweep_plain(ab(X), Mk, v.abs())[0], R)
+
+
+def _hold_nonfinite_rows(dtype, mdt, views, device, worst, ratios) -> int:
+    """The row sweep at ROW_SWEEP_NONFINITE, each panel's row 1 ending and
+    row 3 starting with a non-finite cell, against its plain version
+    (_hold with ``nonfinite``: rows 1 and 3 as the plain version has them,
+    every other row finite and within RTOL), on the panel and as views at
+    ``views``' offsets. Not for an fp8 residual with the NaN sentinel,
+    whose cells are finite or NaN (skipped). Returns the cases held."""
+    from cuda_recommender_tpu_torch.ops.densify import FP8_NAN_BITS
+
+    n = 0
+    for M, W in ROW_SWEEP_NONFINITE:
+        name, kern, plain, scale, X = _row_cases(dtype, mdt, M, W, device,
+                                                 seed=M * W + 9)
+        if dtype == FP8:
+            X.view(torch.uint8)[1, W - 1] = FP8_NAN_BITS
+            X.view(torch.uint8)[3, 0] = FP8_NAN_BITS | 0x80
+        else:
+            bad = float("nan") if mdt is not None else float("inf")
+            X[1, W - 1], X[3, 0] = bad, -bad
+        for offset in views + [W]:
+            what = (f"{name} {str(dtype)[6:]} {M}x{W} "
+                    f"{'NaN' if mdt is None else str(mdt)[6:]} non-finite "
+                    f"row ends" + (f" view +{offset}" if offset else ""))
+            worst[name] = max(worst.get(name, 0.0), _hold(
+                what, kern, plain, scale, X, offset, ratios, nonfinite=True,
+                same_view=True))
+            n += 1
+    return n
+
+
+def check_row_sweeps(device, dtypes, mask_dtypes, worst) -> dict:
+    """The row sweep (K2 with the NaN sentinel, masked_usweep with a
+    mask) of each residual dtype x mask dtype (None: the sentinel)
+    against its plain version (_hold: g and h within RTOL of
+    sum(|terms|), a second run on the same view bit-identical (its sums'
+    order follows the rows' alignment), guard cells untouched) at
+    ROW_SWEEP_SHAPES, each on the panel itself and as guarded views at
+    every offset that moves its first cell within a 16-byte unit and one
+    row in, and at ROW_SWEEP_WIDE; and, but for fp8 with the sentinel,
+    with non-finite cells at rows' ends (``_hold_nonfinite_rows``).
+    Prints each shape's plan (segments, chunks, grid). Updates ``worst``
+    (name -> largest |g, h error|) and returns it."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    t0 = time.perf_counter()
+    ratios, n = [], 0
+    for dtype in dtypes:
+        size = torch.empty((), dtype=dtype).element_size()
+        views = [None, *range(1, 16 // size)]
+        for mdt in mask_dtypes:
+            plans = []
+            for M, W in (*ROW_SWEEP_SHAPES, ROW_SWEEP_WIDE):
+                name, kern, plain, scale, X = _row_cases(
+                    dtype, mdt, M, W, device, seed=M * W + 5)
+                p = pk.residual_plan(X)
+                plans.append(f"{M}x{W}: {p['segments']} seg, {p['chunks']} "
+                             f"chunks, grid {p['grid']}")
+                offsets = ([None] if (M, W) == ROW_SWEEP_WIDE
+                           else views + [W])
+                for offset in offsets:
+                    what = (f"{name} {str(dtype)[6:]} {M}x{W} "
+                            f"{'NaN' if mdt is None else str(mdt)[6:]}"
+                            + (f" view +{offset}" if offset else ""))
+                    worst[name] = max(worst.get(name, 0.0), _hold(
+                        what, kern, plain, scale, X, offset, ratios,
+                        same_view=True))
+                    n += 1
+                del X
+            if dtype != FP8 or mdt is not None:
+                n += _hold_nonfinite_rows(dtype, mdt, views, device, worst,
+                                          ratios)
+            torch.cuda.empty_cache()
+            print(f"[check] row sweep {str(dtype)[6:]} "
+                  f"{'NaN' if mdt is None else str(mdt)[6:] + ' mask'}: "
+                  + "; ".join(plans), flush=True)
+    print(f"[check] row sweep: {n} panels and views, within RTOL, "
+          f"repeatable, guard cells untouched; largest error / sum|terms| "
+          f"{max(ratios):.2e} (bar {RTOL}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
     return worst
 
@@ -3209,7 +3342,8 @@ def check_fp8(device) -> dict:
     """Phase 42: every fp8 instance (K1 and K4 in both store orders, K3,
     K2, the masked sweeps) x NaN / bf16 / int8 masks against its plain
     version (_hold: stored residual bit-equal, g and h within RTOL of
-    sum(|terms|), repeat runs bit-identical): at phase 3's shapes and row
+    sum(|terms|), repeat runs bit-identical, the row sweeps' on the same
+    view): at phase 3's shapes and row
     alignments (each small panel also as a view one element into a
     guarded buffer), and K1-K3 at the headline's panel 0; then the
     planted overflow (check_fp8_overflow) and the boundary grid
@@ -3230,7 +3364,8 @@ def check_fp8(device) -> dict:
                         f"{'NaN' if mdt is None else str(mdt)[6:]}"
                         + (f" view +{offset}" if offset else ""))
                 worst[name] = max(worst[name], _hold(
-                    what, kern, plain, scale, X, offset, ratios))
+                    what, kern, plain, scale, X, offset, ratios,
+                    same_view="usweep" in name))
         del R, Mk, vecs
         if M * W > 1 << 24:
             torch.cuda.empty_cache()
@@ -3521,8 +3656,10 @@ def main() -> int:
           f"{' '.join(native.FLAGS)}) in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    phase("3 kernel checks (and the column sweeps at every row alignment)")
+    phase("3 kernel checks (the row sweep at every case of its plan, the "
+          "column sweeps at every row alignment)")
     worst = check_kernels(dev, CHECK_SHAPES)
+    check_row_sweeps(dev, (torch.float32, torch.bfloat16), (None,), worst)
     align = check_alignment(dev)
     for name in worst:
         worst[name] = max(worst[name], align.get(name, 0.0))
@@ -3566,6 +3703,8 @@ def main() -> int:
     phase("11 K4 and masked sweep checks (f32, bf16 residual x bf16, int8 "
           "mask)")
     masked_worst = check_masked_kernels(dev, MASKED_CHECK_SHAPES)
+    check_row_sweeps(dev, (torch.float32, torch.bfloat16),
+                     (torch.bfloat16, torch.int8), masked_worst)
     for name in masked_worst:
         masked_worst[name] = max(masked_worst[name], align.get(name, 0.0))
 
@@ -3811,6 +3950,8 @@ def main() -> int:
           "and int8 masks; once and delta-first) against their plain "
           "versions, a planted overflow, and their times")
     fp8_worst = check_fp8(dev)
+    check_row_sweeps(dev, (FP8,), (None, torch.bfloat16, torch.int8),
+                     fp8_worst)
     fp8_times = time_fp8()
     print(f"[timing] card: {smi}", flush=True)
 

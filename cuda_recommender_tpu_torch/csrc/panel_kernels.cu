@@ -73,8 +73,47 @@
 // its rows in order, then the 8 warps' sums are added in order; the strip's
 // shift moves a column to another block, not its order), then one thread
 // per column adds the partials in order. No float atomics: runs repeat bit
-// for bit. The u-sweeps give each row to one warp, which walks the whole
-// row and reduces with a fixed butterfly, so they need no second pass.
+// for bit.
+//
+// The u-sweeps (row_sweep_kernel, one template over the residual and the
+// mask) split each row across the card, in the same 8-cell runs a lane as
+// the column sweeps. A row's runs start where its first cell lies in its
+// first unit (16 bytes; 8 at 1 byte a cell): run k holds the columns
+// [8k - s, 8k - s + 8), s the row's shift (its first cell's place in that
+// unit, 0-7 cells). Rows a multiple of ``inter`` = unit / gcd(unit, W *
+// size) apart share their shift, so a block takes rows of one such class,
+// and its runs cover the same columns on every row it reads. A warp's
+// item is a chunk of a row, 128 runs (4 a lane: 1024 cells); 8 chunks are
+// a span (8192 cells). A row of at most 3 spans is one segment (the
+// headline's 17,770 columns, the dense path's 10,677 and 4,096); a wider
+// row is cut into segments of one span (Yahoo's 1.9M-column panel into
+// 238). A block takes 32 rows, so that every panel, a short, wide one
+// too, gives the card many small blocks and its last wave stays short.
+// The segments depend on W, the cell size and the shift alone, so a row's
+// sums depend on its own cells, v and its alignment, never on how many
+// rows share its panel. A block (segment, row group) stages each span's v
+// in shared memory once, shifted to its class (an (M, W) panel's v is
+// read once a block, not once a cell), then deals the span's live chunks
+// x its rows to its 8 warps in turn, so that every warp has work whatever
+// the width. An item's warp sums its lanes by a fixed butterfly, the block
+// adds a row's chunks in chunk order and its spans in span order. A row
+// of one segment is written straight to g, h; otherwise each block writes
+// its rows' segment sums to (segments, M) partials, and the last block of
+// a row group to finish (an int counter a group, __threadfence, no float
+// atomics; the counter resets itself) adds them in segment order. Only a
+// row's first and last run hold cells of another row (or bytes past the
+// tensor's ends). v is 0 there, so a finite one adds +-0 and leaves the
+// sums' bits alone; but such a cell need not be finite (a NaN or inf
+// times 0 is NaN). So an item that holds either run and whose sums come
+// out NaN is summed again, by a slow path that zeroes the cells outside
+// the row first: a row's sums depend on its own cells alone, and the
+// common case pays one test an item. (An fp8 residual with the NaN
+// sentinel needs no second pass: every byte is a finite e4m3fn value or
+// NaN, and a NaN is skipped.) An unobserved cell adds +0.0 to g and 0 to
+// h by a select, not a branch (at fp8, bound by its instructions, it is
+// skipped by a predicated FMA and add instead: the same bits in fewer
+// instructions).
+// No TMA and no tensor cores: a product-free stream needs neither.
 //
 // Rounding: the delta is formed as fl(fl(uo*vo) - fl(up*vp)) (times the mask
 // in explicit mode) and added with explicit _rn intrinsics, so nvcc's FMA
@@ -149,8 +188,16 @@ constexpr int kInterleave = sizeof(T) == 1 ? 128 : 64;
 // 2 and 4 (at 4 bytes one strip more than needed, which covers no cell)
 template <typename T>
 constexpr int kMaxShift = sizeof(T) == 1 ? kLine - 1 : kLine / 2 - 1;
-constexpr int kRowWarps = 8;      // rows (one warp each) per u-sweep block
-constexpr int kRowLoads = 8;      // loads in flight per lane in the u-sweep
+constexpr int kRowWarps = 8;      // warps a row-sweep block
+constexpr int kRowRuns = 4;       // runs (8 cells each) a lane holds of a row
+constexpr int kChunkRuns = 32 * kRowRuns;  // a warp's runs of a row: a chunk
+constexpr int kSpanChunks = 8;    // chunks a span
+constexpr int kSpanRuns = kSpanChunks * kChunkRuns;  // 1024 runs, 8192 cells
+constexpr int kRowBlockRows = 32; // rows a row-sweep block
+constexpr int kRowSegmentSpans = 3;  // spans a row of one segment, at most
+// residual bytes a lane loads of a batch of items: 128 (f32 1 item, bf16
+// 2, fp8 4; beside an explicit mask 1)
+constexpr int kRowBatchBytes = 128;
 constexpr int kReduceThreads = 256;
 
 // Mask storage: NanMask = no mask array (the residual's NaN sentinel marks
@@ -164,14 +211,6 @@ struct Fp8 {
 
 template <typename MaskT>
 constexpr bool kExplicit = !std::is_same<MaskT, NanMask>::value;
-
-__device__ __forceinline__ float load_mask(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float load_mask(const int8_t* p) {
-  return static_cast<float>(*p);
-}
 
 // Two fp8 e4m3fn cells (the low 16 bits of v, the first in the low byte)
 // -> their f16x2, exact (e4m3 fits f16); 0x7F / 0xFF give NaN.
@@ -192,11 +231,6 @@ __device__ __forceinline__ float2 fp8x2_decode(uint32_t v) {
       : "=f"(lo), "=f"(hi)
       : "r"(h2));
   return make_float2(lo, hi);
-}
-
-// One fp8 e4m3fn cell (the low 8 bits of b) -> float, exact.
-__device__ __forceinline__ float fp8_decode(uint32_t b) {
-  return fp8x2_decode(b & 0xFFu).x;
 }
 
 // A lane's 8 fp8 cells (packed as in memory: cell e in byte e % 4 of word
@@ -238,16 +272,6 @@ __device__ __forceinline__ void fp8_encode8(const float (&x)[kColsPerThread],
 #pragma unroll
   for (int e = 0; e < kColsPerThread; ++e)
     if (fp8_over(x[e])) w[e / 4] |= 1u << (8 * (e & 3));
-}
-
-__device__ __forceinline__ float load_cell(const float* p) { return *p; }
-
-__device__ __forceinline__ float load_cell(const Fp8* p) {
-  return fp8_decode(p->bits);
-}
-
-__device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
 }
 
 // Rounding policies of the update's store (see the header).
@@ -750,62 +774,267 @@ __global__ void __launch_bounds__(kReduceThreads)
   h[c] = hs;
 }
 
-// Row sweep: one warp per row walks all W columns (kRowLoads loads in
-// flight per lane, 4 accumulators), then a fixed butterfly reduces the warp.
+// A row-sweep lane's run of 8 cells x (mask mk where explicit) against
+// its 8 values of v into the lane's sums ga, ha.
 template <typename T, typename MaskT>
-__global__ void __launch_bounds__(kRowWarps * 32)
-    row_sweep_kernel(const T* __restrict__ R, const MaskT* __restrict__ Mk,
-                     const float* __restrict__ v, float* __restrict__ g,
-                     float* __restrict__ h, int M, int W) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
-  if (r >= M) return;  // whole warp leaves together
-  const size_t roff = static_cast<size_t>(r) * static_cast<size_t>(W);
-  const T* row = R + roff;
-  float gs[4] = {0.f, 0.f, 0.f, 0.f};
-  float hs[4] = {0.f, 0.f, 0.f, 0.f};
-  int c = lane;
-  for (; c + 32 * (kRowLoads - 1) < W; c += 32 * kRowLoads) {
-    float x[kRowLoads], mk[kRowLoads];  // all loads first: in flight per lane
+__device__ __forceinline__ void row_run_sum(const float (&x)[kColsPerThread],
+                                            const float (&mk)[kColsPerThread],
+                                            const float4& lo, const float4& hi,
+                                            float& ga, float& ha) {
+  const float vc[kColsPerThread] = {lo.x, lo.y, lo.z, lo.w,
+                                    hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-    for (int q = 0; q < kRowLoads; ++q) {
-      x[q] = load_cell(row + c + 32 * q);
-      if constexpr (kExplicit<MaskT>) mk[q] = load_mask(Mk + roff + c + 32 * q);
+  for (int e = 0; e < kColsPerThread; ++e) {
+    const float vv = __fmul_rn(vc[e], vc[e]);
+    if constexpr (kExplicit<MaskT>) {
+      ga = __fmaf_rn(x[e], vc[e], ga);
+      ha = __fmaf_rn(vv, mk[e], ha);
+    } else if constexpr (sizeof(T) == 1) {
+      // fp8, bound by its instructions: an observed cell adds by a
+      // predicated FMA and add, as the column sweep's fp8_sweep
+      if (!isnan(x[e])) {
+        ga = __fmaf_rn(x[e], vc[e], ga);
+        ha = __fadd_rn(ha, vv);
+      }
+    } else {
+      // an unobserved cell adds +0.0 to g and 0 to h: the bits of
+      // skipping it (the sums start at +0.0)
+      const bool obs = !isnan(x[e]);
+      ga = __fmaf_rn(obs ? x[e] : 0.f, vc[e], ga);
+      ha = __fadd_rn(ha, obs ? vv : 0.f);
     }
+  }
+}
+
+// A row-sweep item's sums from its lanes' (a fixed butterfly over the
+// warp: every lane gets the same bits).
+__device__ __forceinline__ float2 row_item_total(const float (&ga)[2],
+                                                 const float (&ha)[2]) {
+  float gs = __fadd_rn(ga[0], ga[1]), hs = __fadd_rn(ha[0], ha[1]);
 #pragma unroll
-    for (int q = 0; q < kRowLoads; ++q) {
-      const float vc = v[c + 32 * q];
-      if constexpr (kExplicit<MaskT>) {
-        gs[q & 3] += x[q] * vc;
-        hs[q & 3] += __fmul_rn(vc, vc) * mk[q];
-      } else if (!isnan(x[q])) {
-        gs[q & 3] += x[q] * vc;
-        hs[q & 3] += vc * vc;
+  for (int off = 16; off > 0; off >>= 1) {
+    gs = __fadd_rn(gs, __shfl_xor_sync(0xffffffffu, gs, off));
+    hs = __fadd_rn(hs, __shfl_xor_sync(0xffffffffu, hs, off));
+  }
+  return make_float2(gs, hs);
+}
+
+// The row sweep's slow path (see the header): the sums of the item whose
+// runs start at run ``run0`` of the row at ``roff`` (its runs in the span
+// from ``kr0``), loaded again and summed as the fast path sums them, with
+// the cells outside the row zeroed. Every lane of the warp calls it.
+template <typename T, typename MaskT>
+__device__ __noinline__ float2 row_item_zeroed(
+    const T* __restrict__ R, const MaskT* __restrict__ Mk, size_t roff,
+    int W, int run0, int kr0, int shift, const float4* vlo,
+    const float4* vhi) {
+  using MaskE = std::conditional_t<kExplicit<MaskT>, MaskT, int8_t>;
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  const int lane = threadIdx.x % 32;
+  const uintptr_t row = reinterpret_cast<uintptr_t>(R + roff);
+  float ga[2] = {0.f, 0.f}, ha[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kRowRuns; ++j) {
+    const int c0 = kColsPerThread * (run0 + lane + 32 * j) - shift;
+    uint32_t xw[Run<T>::kWords];
+    Loaded<MaskE> m;
+    float x[kColsPerThread], mk[kColsPerThread];
+    load_res<T>(row + static_cast<intptr_t>(c0) * kSize, c0, W, xw);
+    if constexpr (kExplicit<MaskT>) {
+      load_mask(Mk + roff, W, c0, lane == 31, m);
+      unpack_mask<MaskE, true>(m, lane, mk);
+    }
+    cells<T>(xw, x);
+#pragma unroll
+    for (int e = 0; e < kColsPerThread; ++e)
+      if (c0 + e < 0 || c0 + e >= W) x[e] = mk[e] = 0.f;
+    const int kr = kr0 + lane + 32 * j;
+    row_run_sum<T, MaskT>(x, mk, vlo[kr], vhi[kr], ga[j & 1], ha[j & 1]);
+  }
+  return row_item_total(ga, ha);
+}
+
+// Row sweep (K2, masked_usweep): g[r] = sum_c R[r, c] v[c] (over observed
+// cells in NaN mode), h[r] = sum_c fl(v[c]^2) m[r, c]. Block b takes
+// segment b % segments of row group b / segments: the rows q + inter (i0
+// + i), i < kRowBlockRows, of class q = group % inter, i0 = kRowBlockRows
+// (group / inter). A row of one segment has all its ``spans`` in it, else
+// segment s is span s. For each span of its segment the block stages the
+// span's v in shared memory, shifted by the class's shift (run k's 8
+// columns at [8k, 8k + 8), 0 outside the row) and split in two planes of
+// 4 (a lane's two 16-byte reads of a run fall on consecutive 16 bytes of
+// its warp: no bank conflict); then the span's live chunks (nch, 1-8) x
+// the rows are items, item k (row k / nch, chunk k % nch) warp k % 8's:
+// every warp has work whatever the width. Lane l of an item holds the
+// chunk's runs l + 32 j, j < kRowRuns, and a warp loads a batch of items
+// (128 residual bytes a lane) before it sums any; an item that holds the
+// row's first or last run and sums to NaN takes the slow path (the
+// header).
+// With segments > 1, gpart and hpart hold (segments, M) floats and count
+// a zero a group (left so).
+// Resident row-sweep blocks an SM the compiler keeps registers for: 3 (85
+// registers), or 2 (128) where a residual of 4 bytes a cell, or 2 beside a
+// bf16 mask, needs them for its mask (at 3 it spilled up to 172 bytes).
+template <typename T, typename MaskT>
+constexpr int kRowMinBlocks =
+    kExplicit<MaskT> && sizeof(T) + sizeof(std::conditional_t<
+                                        kExplicit<MaskT>, MaskT, int8_t>) >=
+                            4
+        ? 2
+        : 3;
+
+template <typename T, typename MaskT>
+__global__ void __launch_bounds__(kRowWarps * 32,
+                                  (kRowMinBlocks<T, MaskT>))
+    row_sweep_kernel(const T* __restrict__ R, const MaskT* __restrict__ Mk,
+                     const float* __restrict__ v, float* __restrict__ gpart,
+                     float* __restrict__ hpart, unsigned* __restrict__ count,
+                     float* __restrict__ g, float* __restrict__ h, int M,
+                     int W, int inter, int runs, int spans, int segments) {
+  using MaskE = std::conditional_t<kExplicit<MaskT>, MaskT, int8_t>;
+  using Rn = Run<T>;
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  constexpr int kRows =
+      kExplicit<MaskT> ? 1 : kRowBatchBytes / (kRowRuns * Rn::kBytes);
+  // whether a cell outside the row can make a sum NaN (see the header)
+  constexpr bool kSlowPath = kExplicit<MaskT> || kSize > 1;
+  __shared__ float4 vlo[kSpanRuns], vhi[kSpanRuns];
+  __shared__ float sg[kRowBlockRows][kSpanChunks];
+  __shared__ float sh[kRowBlockRows][kSpanChunks];
+  __shared__ bool last_block;
+  const int seg = blockIdx.x % segments, grp = blockIdx.x / segments;
+  const int q = grp % inter, i0 = (grp / inter) * kRowBlockRows;
+  const int nrows = min(kRowBlockRows, (M - q + inter - 1) / inter - i0);
+  if (nrows <= 0) return;  // a class with fewer rows: the whole block
+  const int shift = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(R) +
+       static_cast<size_t>(q) * static_cast<size_t>(W) * kSize) %
+      Rn::kUnit) / kSize;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  const bool last_lane = lane == 31;
+  // the run that holds a row's last cell (a row's first cell is in run 0)
+  const int last_run = (W - 1 + shift) / kColsPerThread;
+  float acc_g = 0.f, acc_h = 0.f;  // thread t < nrows: row i0 + t's sums
+
+  const int span_end = segments == 1 ? spans : seg + 1;
+  for (int span = segments == 1 ? 0 : seg; span < span_end; ++span) {
+    const int nch = min(kSpanChunks,
+                        (runs - span * kSpanRuns + kChunkRuns - 1) /
+                            kChunkRuns);
+    __syncthreads();  // the last span's readers of vlo, vhi, sg, sh
+    // the span's v, shifted: run k's cells e < 4 in vlo[k], e >= 4 in
+    // vhi[k]
+    const int col0 = span * kSpanRuns * kColsPerThread - shift;
+    for (int i = t; i < nch * kChunkRuns * kColsPerThread;
+         i += kRowWarps * 32) {
+      const int c = col0 + i;
+      const float x = (c >= 0 && c < W) ? __ldg(v + c) : 0.f;
+      float* plane = reinterpret_cast<float*>((i & 4) ? vhi : vlo);
+      plane[(i >> 3) * 4 + (i & 3)] = x;
+    }
+    __syncthreads();
+
+    const int items = nrows * nch;
+    for (int k = w; k < items; k += kRowWarps * kRows) {
+      // the batch's loads (residual and mask) before any sum
+      uint32_t xs[kRows][kRowRuns][Rn::kWords];
+      Loaded<MaskE> ms[kRows][kRowRuns];
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+        const int kb = k + b * kRowWarps;
+        if (kb >= items) break;
+        const int ii = kb / nch, ch = kb % nch;
+        const size_t roff = static_cast<size_t>(q + inter * (i0 + ii)) *
+                            static_cast<size_t>(W);
+        const uintptr_t row = reinterpret_cast<uintptr_t>(R + roff);
+#pragma unroll
+        for (int j = 0; j < kRowRuns; ++j) {
+          const int c0 =
+              kColsPerThread * (span * kSpanRuns + ch * kChunkRuns + lane +
+                                32 * j) -
+              shift;
+          load_res<T>(row + static_cast<intptr_t>(c0) * kSize, c0, W,
+                      xs[b][j]);
+          if constexpr (kExplicit<MaskT>)
+            load_mask(Mk + roff, W, c0, last_lane, ms[b][j]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+        const int kb = k + b * kRowWarps;
+        if (kb >= items) break;
+        const int ii = kb / nch, ch = kb % nch;
+        float ga[2] = {0.f, 0.f}, ha[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kRowRuns; ++j) {
+          const int kr = ch * kChunkRuns + lane + 32 * j;  // run in span
+          float x[kColsPerThread], mk[kColsPerThread];
+          cells<T>(xs[b][j], x);
+          if constexpr (kExplicit<MaskT>)
+            unpack_mask<MaskE, true>(ms[b][j], lane, mk);
+          row_run_sum<T, MaskT>(x, mk, vlo[kr], vhi[kr], ga[j & 1],
+                                ha[j & 1]);
+        }
+        float2 tot = row_item_total(ga, ha);
+        if constexpr (kSlowPath) {
+          // an item with the row's first or last run whose sums are NaN:
+          // uniform over the warp, and rare (the header)
+          const int run0 = span * kSpanRuns + ch * kChunkRuns;
+          if ((isnan(tot.x) || isnan(tot.y)) &&
+              (run0 == 0 ||
+               (last_run >= run0 && last_run < run0 + kChunkRuns)))
+            tot = row_item_zeroed<T, MaskT>(
+                R, Mk,
+                static_cast<size_t>(q + inter * (i0 + ii)) *
+                    static_cast<size_t>(W),
+                W, run0, ch * kChunkRuns, shift, vlo, vhi);
+        }
+        const float gs = tot.x, hs = tot.y;
+        if (lane == 0) {
+          sg[ii][ch] = gs;
+          sh[ii][ch] = hs;
+        }
+      }
+    }
+    __syncthreads();
+    // the span's chunks in chunk order
+    if (t < nrows) {
+      for (int c = 0; c < nch; ++c) {
+        acc_g = __fadd_rn(acc_g, sg[t][c]);
+        acc_h = __fadd_rn(acc_h, sh[t][c]);
       }
     }
   }
-  for (; c < W; c += 32) {
-    const float x = load_cell(row + c);
-    const float vc = v[c];
-    if constexpr (kExplicit<MaskT>) {
-      gs[0] += x * vc;
-      hs[0] += __fmul_rn(vc, vc) * load_mask(Mk + roff + c);
-    } else if (!isnan(x)) {
-      gs[0] += x * vc;
-      hs[0] += vc * vc;
+
+  const int r = q + inter * (i0 + t);  // thread t's row (t < nrows)
+  if (segments == 1) {
+    if (t < nrows) {
+      g[r] = acc_g;
+      h[r] = acc_h;
     }
+    return;
   }
-  float gt = (gs[0] + gs[1]) + (gs[2] + gs[3]);
-  float ht = (hs[0] + hs[1]) + (hs[2] + hs[3]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    gt += __shfl_xor_sync(0xffffffffu, gt, off);
-    ht += __shfl_xor_sync(0xffffffffu, ht, off);
+  if (t < nrows) {
+    gpart[static_cast<size_t>(seg) * M + r] = acc_g;
+    hpart[static_cast<size_t>(seg) * M + r] = acc_h;
   }
-  if (lane == 0) {
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last_block = atomicAdd(count + grp, 1u) == segments - 1u;
+  __syncthreads();
+  if (!last_block) return;
+  // the group's last block: each row's segments in segment order
+  __threadfence();
+  if (t < nrows) {
+    float gt = 0.f, ht = 0.f;
+    for (int k = 0; k < segments; ++k) {
+      gt = __fadd_rn(gt, __ldcg(gpart + static_cast<size_t>(k) * M + r));
+      ht = __fadd_rn(ht, __ldcg(hpart + static_cast<size_t>(k) * M + r));
+    }
     g[r] = gt;
     h[r] = ht;
   }
+  if (t == 0) count[grp] = 0u;
 }
 
 template <typename T, typename MaskT, bool kUpdate, typename Round = RoundCvt,
@@ -833,14 +1062,45 @@ void launch_col_sweep(void* R, const void* Mk, const void* uo, const void* up,
       static_cast<float*>(g), static_cast<float*>(h), nparts, W);
 }
 
+// Launches the row sweep by ops/panel_kernels.py::row_sweep_plan's
+// ``inter``, ``runs``, ``segments`` and ``groups``; cudaErrorInvalidValue
+// (nothing launched) where they would leave a cell or a row out or break
+// the segment rule, or where a plan of more than one segment lacks its
+// partials or counters.
 template <typename T, typename MaskT>
-void launch_row_sweep(const void* R, const void* Mk, const void* v, void* g,
-                      void* h, int M, int W, cudaStream_t stream) {
+int launch_row_sweep(const void* R, const void* Mk, const void* v,
+                     void* gpart, void* hpart, void* count, void* g, void* h,
+                     int M, int W, int inter, int runs, int segments,
+                     int groups, cudaStream_t stream) {
+  constexpr int kUnit = Run<T>::kUnit;
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  // the rows a class apart must share their shift, the runs cover the
+  // widest shifted row, the groups every row of every class
+  const int max_shift =
+      inter == 1 ? static_cast<int>(reinterpret_cast<uintptr_t>(R) % kUnit) /
+                       kSize
+                 : kUnit / kSize - 1;
+  const int spans = (runs + kSpanRuns - 1) / kSpanRuns;
+  const long long grid = static_cast<long long>(segments) * groups;
+  if (inter <= 0 || kUnit % inter != 0 ||
+      static_cast<long long>(W) * kSize * inter % kUnit != 0 ||
+      static_cast<long long>(runs) * kColsPerThread <
+          static_cast<long long>(W) + max_shift ||
+      segments != (spans <= kRowSegmentSpans ? 1 : spans) ||
+      static_cast<long long>(groups) * kRowBlockRows <
+          static_cast<long long>(inter) * ((M + inter - 1) / inter) ||
+      groups % inter != 0 || grid > 0x7fffffffLL ||
+      (segments > 1 && (gpart == nullptr || hpart == nullptr ||
+                        count == nullptr)))
+    return cudaErrorInvalidValue;
   row_sweep_kernel<T, MaskT>
-      <<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0, stream>>>(
+      <<<static_cast<unsigned>(grid), kRowWarps * 32, 0, stream>>>(
           static_cast<const T*>(R), static_cast<const MaskT*>(Mk),
-          static_cast<const float*>(v), static_cast<float*>(g),
-          static_cast<float*>(h), M, W);
+          static_cast<const float*>(v), static_cast<float*>(gpart),
+          static_cast<float*>(hpart), static_cast<unsigned*>(count),
+          static_cast<float*>(g), static_cast<float*>(h), M, W, inter, runs,
+          spans, segments);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // residual dtype codes shared with ops/panel_kernels.py
@@ -913,14 +1173,20 @@ bool col_sweep(int dtype, int order, void* R, const void* Mk, const void* uo,
 }
 
 template <typename MaskT>
-void row_sweep(int dtype, const void* R, const void* Mk, const void* v,
-               void* g, void* h, int M, int W, cudaStream_t s) {
+int row_sweep(int dtype, const void* R, const void* Mk, const void* v,
+              void* gpart, void* hpart, void* count, void* g, void* h, int M,
+              int W, int inter, int runs, int segments, int groups,
+              cudaStream_t s) {
   if (dtype == kFloat32)
-    launch_row_sweep<float, MaskT>(R, Mk, v, g, h, M, W, s);
-  else if (dtype == kBFloat16)
-    launch_row_sweep<__nv_bfloat16, MaskT>(R, Mk, v, g, h, M, W, s);
-  else
-    launch_row_sweep<Fp8, MaskT>(R, Mk, v, g, h, M, W, s);
+    return launch_row_sweep<float, MaskT>(R, Mk, v, gpart, hpart, count, g,
+                                          h, M, W, inter, runs, segments,
+                                          groups, s);
+  if (dtype == kBFloat16)
+    return launch_row_sweep<__nv_bfloat16, MaskT>(
+        R, Mk, v, gpart, hpart, count, g, h, M, W, inter, runs, segments,
+        groups, s);
+  return launch_row_sweep<Fp8, MaskT>(R, Mk, v, gpart, hpart, count, g, h, M,
+                                      W, inter, runs, segments, groups, s);
 }
 
 }  // namespace
@@ -979,14 +1245,23 @@ int crtpu_update_vsweep_irne(void* R, const void* uo, const void* up,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row sweep (K2, masked_usweep) by ops/panel_kernels.py::
+// row_sweep_plan (its ``interleave``, ``runs``, ``segments`` and
+// ``groups``); with more than one segment, gpart and hpart hold
+// (segments, M) floats and count the row groups' zeros (left so).
 int crtpu_usweep(const void* R, int dtype, const void* Mk, int mask_dtype,
-                 const void* v, void* g, void* h, int M, int W, void* stream) {
+                 const void* v, void* gpart, void* hpart, void* count,
+                 void* g, void* h, int M, int W, int inter, int runs,
+                 int segments, int groups, void* stream) {
   if (bad_args(dtype, M, W)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = with_mask(Mk, mask_dtype, [&](auto tag) {
-    row_sweep<typename decltype(tag)::type>(dtype, R, Mk, v, g, h, M, W, s);
+  int err = cudaErrorInvalidValue;
+  with_mask(Mk, mask_dtype, [&](auto tag) {
+    err = row_sweep<typename decltype(tag)::type>(
+        dtype, R, Mk, v, gpart, hpart, count, g, h, M, W, inter, runs,
+        segments, groups, s);
   });
-  return ok ? static_cast<int>(cudaGetLastError()) : cudaErrorInvalidValue;
+  return err;
 }
 
 }  // extern "C"

@@ -43,7 +43,11 @@ SIGNATURES = {
         "crtpu_update_vsweep": [_p, _i, _p, _i, _i, _p, _p, _p, _p, _p, _p,
                                 _p, _p, _i, _i, _i, _p],
         "crtpu_vsweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
-        "crtpu_usweep": [_p, _i, _p, _i, _p, _p, _p, _i, _i, _p],
+        # R, dtype, mask, mask code, v, segment partials, group counters,
+        # g, h, rows, width, row classes, runs, segments, groups
+        # (row_sweep_plan), stream
+        "crtpu_usweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                         _i, _i, _i, _p],
         # R, vectors, strip partials, g, h, rows, width, rows per strip,
         # stream (K1 rounded by integer RNE, bf16 only)
         "crtpu_update_vsweep_irne": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i,

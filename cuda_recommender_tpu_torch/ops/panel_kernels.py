@@ -41,6 +41,8 @@ launches.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .densify import FP8, round_to_storage
@@ -68,6 +70,27 @@ _MAX_SHIFT = 63
 #: rows q, q + 64, ... of band b (csrc/panel_kernels.cu's kInterleave; 128
 #: at 1 byte a cell, where 64 rows of an odd width span 64 mod 128 bytes)
 _INTERLEAVE = 64
+#: per device and stream, the row sweep's group counters (zeros that the
+#: kernel leaves zero)
+_row_counts: dict = {}
+
+#: the row sweep (K2, masked_usweep; csrc/panel_kernels.cu mirrors these as
+#: kColsPerThread, kRowRuns, kRowWarps, kSpanChunks, kRowSegmentSpans,
+#: kRowBlockRows): a lane's run of cells, its runs of a chunk (a warp's
+#: item: 32 x ROW_RUNS runs of a row), a block's warps, the chunks a span.
+#: A row of at most ROW_SEGMENT_SPANS spans is one segment; a wider row has
+#: a segment a span. A block takes ROW_BLOCK_ROWS rows: of 64, 32 and 16,
+#: the best or within 3.2% of it on the H100 at every panel of the Yahoo
+#: stairs and the headline but r1_t's panel 1, where 64 ran 5-12% faster
+#: (PERF.md §6)
+ROW_RUN_CELLS = 8
+ROW_RUNS = 4
+ROW_WARPS = 8
+ROW_SPAN_CHUNKS = 8
+ROW_SEGMENT_SPANS = 3
+ROW_BLOCK_ROWS = 32
+ROW_CHUNK_RUNS = 32 * ROW_RUNS
+ROW_SPAN_RUNS = ROW_SPAN_CHUNKS * ROW_CHUNK_RUNS
 
 #: cells per chunk of the plain versions (bounds their f32 temporaries)
 _PLAIN_CHUNK_CELLS = 1 << 26
@@ -192,16 +215,89 @@ def _col_sweep(name: str, R, M, u_add, u_sub, v_add, v_sub,
     return g, h
 
 
+def row_sweep_plan(M: int, W: int, cell_bytes: int, offset: int = 0) -> dict:
+    """How the row sweep (csrc/panel_kernels.cu ``row_sweep_kernel``)
+    covers an (M, W) residual of ``cell_bytes`` a cell whose first cell
+    lies ``offset`` bytes past a 16-byte boundary (8-byte at 1 byte a
+    cell). Pure arithmetic; the wrapper launches by it, and the C side
+    refuses a plan that leaves a cell or a row out.
+
+    A row's run k holds the columns [8k - s, 8k - s + 8), s its shift:
+    its first cell's place in its first unit (``unit`` bytes: 16, or 8 at
+    1 byte a cell). Rows ``interleave`` = unit /
+    gcd(unit, W * cell_bytes) apart share their shift; ``max_shift`` is
+    the largest a row can have (the offset's where every row shares it).
+    ``runs`` cover the widest row, in ``spans`` of ROW_SPAN_RUNS runs
+    (ROW_SPAN_CHUNKS chunks of ROW_CHUNK_RUNS); ``chunks`` are the first
+    span's (its live chunks, ``span_chunks``: a block deals a span's live
+    chunks x its rows to its warps). A segment is ``segment_spans`` spans
+    (``segment_cells`` columns): all of them where a row has at most
+    ROW_SEGMENT_SPANS, else one; ``segments`` a row. The rows go
+    ROW_BLOCK_ROWS to a group, of one class each: ``groups`` = interleave
+    x ceil(ceil(M / interleave) / ROW_BLOCK_ROWS), and the grid is
+    segments x groups blocks of ROW_WARPS warps (block b: segment b %
+    segments of group b // segments)."""
+    if M <= 0 or W <= 0:
+        raise ValueError(f"empty residual {M} x {W}")
+    unit = 8 if cell_bytes == 1 else 16
+    inter = unit // math.gcd(unit, W * cell_bytes % unit)
+    max_shift = (offset % unit // cell_bytes if inter == 1
+                 else unit // cell_bytes - 1)
+    runs = -(-(W + max_shift) // ROW_RUN_CELLS)
+    spans = -(-runs // ROW_SPAN_RUNS)
+    segment_spans = spans if spans <= ROW_SEGMENT_SPANS else 1
+    segments = -(-spans // segment_spans)
+    per_class = -(-M // inter)
+    groups = inter * -(-per_class // ROW_BLOCK_ROWS)
+    return {"unit": unit, "interleave": inter, "max_shift": max_shift,
+            "runs": runs, "chunks": span_chunks(runs, 0), "spans": spans,
+            "segment_spans": segment_spans,
+            "segment_cells": segment_spans * ROW_SPAN_RUNS * ROW_RUN_CELLS,
+            "segments": segments, "groups": groups,
+            "grid": segments * groups}
+
+
+def span_chunks(runs: int, span: int) -> int:
+    """The live chunks of span ``span`` of a row of ``runs`` runs."""
+    return min(ROW_SPAN_CHUNKS,
+               -(-(runs - span * ROW_SPAN_RUNS) // ROW_CHUNK_RUNS))
+
+
+def residual_plan(R: torch.Tensor) -> dict:
+    """``row_sweep_plan`` of the residual R (its shape, cell size and
+    offset)."""
+    M, W = R.shape
+    return row_sweep_plan(M, W, R.element_size(), R.data_ptr() % 16)
+
+
+def _row_counters(R: torch.Tensor, groups: int) -> torch.Tensor:
+    """The zeros the row groups' last-block counters start from, one
+    buffer a device and stream (the kernel leaves them zero)."""
+    key = (R.device.index, _stream(R))
+    buf = _row_counts.get(key)
+    if buf is None or buf.numel() < groups:
+        buf = torch.zeros(groups, dtype=torch.int32, device=R.device)
+        _row_counts[key] = buf
+    return buf
+
+
 def _row_sweep(name: str, R, M, v):
-    """Launch a row sweep on CUDA tensors: K2, or masked_usweep with a mask
-    ``M``; counted under ``name``."""
+    """Launch a row sweep on CUDA tensors (K2, or masked_usweep with a mask
+    ``M``) by ``residual_plan``; counted under ``name``'s instance."""
     from .build import load
+    plan = residual_plan(R)
     rows, width = R.shape
     opts = dict(dtype=torch.float32, device=R.device)
     g, h = torch.empty(rows, **opts), torch.empty(rows, **opts)
+    parts = (None, None, None)
+    if plan["segments"] > 1:
+        gp = torch.empty((plan["segments"], rows), **opts)
+        hp = torch.empty((plan["segments"], rows), **opts)
+        parts = (_ptr(gp), _ptr(hp), _ptr(_row_counters(R, plan["groups"])))
     _launch(load("panel_kernels").crtpu_usweep, _ptr(R),
-            _DTYPE_CODE[R.dtype], *_mask_args(M), _ptr(v), _ptr(g), _ptr(h),
-            rows, width, _stream(R))
+            _DTYPE_CODE[R.dtype], *_mask_args(M), _ptr(v), *parts, _ptr(g),
+            _ptr(h), rows, width, plan["interleave"], plan["runs"],
+            plan["segments"], plan["groups"], _stream(R))
     count(instance_name(name, R.dtype))
     return g, h
 

@@ -23,7 +23,13 @@ run. For each stream kernel it also finds the innermost loops that load
 counts each one's instructions per 16 bytes a lane loads, the vectors
 being its FADDs over 8 (a vector's 8 cells each add once): the row
 loops of the read's aligned path and of each of its shifted path's 8
-offsets. ``--against`` compares with an earlier ``--out`` (another
+offsets. For each row sweep instance it finds the innermost loops that
+load from device memory (its item loop) and counts each one's
+instructions per 16 bytes of its loads (the LDGs' widths: residual and
+mask), and for the row and column sweeps the blocks an SM holds at once
+by their registers and shared memory (``blocks_per_sm``: the H100's
+65,536 registers and 228 KB an SM). ``--against`` compares with an
+earlier ``--out`` (another
 checkout's): which instances' SASS is unchanged; ``--dump`` writes each
 kernel's instructions into a file of its own. Needs ``nvcc`` and
 ``cuobjdump`` (the CUDA toolkit): without them it exits 2.
@@ -56,6 +62,20 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+#: an LDG's width in bytes by its size suffix (4 without one)
+_LDG_BYTES = {".128": 16, ".64": 8, ".U16": 2, ".S16": 2, ".U8": 1,
+              ".S8": 1}
+#: the H100's registers and shared memory an SM (the latter less 1 KB a
+#: block the system reserves: 233,472 bytes), its threads and blocks an
+#: SM, and registers allocated 8 a thread at a time
+SM_REGISTERS = 65_536
+SM_SHARED = 233_472
+BLOCK_RESERVED_SHARED = 1_024
+SM_THREADS = 2_048
+SM_BLOCKS = 32
+#: threads a block of the kernels whose blocks an SM the report counts
+BLOCK_THREADS = {"row_sweep_kernel": 256, "col_sweep_kernel": 256}
 #: source -> the kernels of it that the report covers (a regex of the
 #: mangled name)
 KERNELS = {"panel_kernels": r"(col|row)_sweep_kernel",
@@ -80,6 +100,9 @@ def parse_ptxas(log: str) -> dict:
         m = _REGS.search(line)
         if m:
             cur["registers"] = int(m.group(1))
+        m = _SMEM.search(line)
+        if m:
+            cur["smem"] = int(m.group(1))
     return out
 
 
@@ -100,32 +123,70 @@ def parse_sass(text: str, addresses: bool = False) -> dict:
     return out
 
 
-def vector_loops(instrs: list) -> list:
-    """The innermost loops of (address, text) ``instrs`` that load 16-byte
-    vectors (an LDG of 128 bits), a loop being the instructions from a
-    branch's target up to a branch back to it: each one's [first, last]
-    address, instructions, vectors (its FADDs over 8: the 8 cells of a
-    vector each add once) and instructions per 16 bytes."""
+def _innermost_loops(instrs: list, holds) -> list:
+    """(first, last address, opcodes) of each innermost loop of (address,
+    text) ``instrs`` that has an opcode ``holds`` accepts, a loop being
+    the instructions from a branch's target up to a branch back to it."""
     loops = []
     for at, text in instrs:
         m = _BRANCH.search(text)
         if not m or int(m.group(1), 16) > at:
             continue
         start = int(m.group(1), 16)
-        body = [t for a, t in instrs if start <= a <= at]
-        ops = [opcode(t) for t in body]
-        if any(op.startswith("LDG") and ".128" in op for op in ops):
+        ops = [opcode(t) for a, t in instrs if start <= a <= at]
+        if any(holds(op) for op in ops):
             loops.append((start, at, ops))
+    return [(start, end, ops) for start, end, ops in loops
+            if not any(start <= s2 and e2 <= end and (s2, e2) != (start, end)
+                       for s2, e2, _ in loops)]
+
+
+def vector_loops(instrs: list) -> list:
+    """The innermost loops of (address, text) ``instrs`` that load 16-byte
+    vectors (an LDG of 128 bits): each one's [first, last] address,
+    instructions, vectors (its FADDs over 8: the 8 cells of a vector each
+    add once) and instructions per 16 bytes."""
     out = []
-    for start, end, ops in loops:
-        if any(start <= s2 and e2 <= end and (s2, e2) != (start, end)
-               for s2, e2, _ in loops):
-            continue                      # holds an inner vector loop
+    for start, end, ops in _innermost_loops(
+            instrs, lambda op: op.startswith("LDG") and ".128" in op):
         vectors = sum(op.startswith("FADD") for op in ops) / 8
         out.append({"loop": [start, end], "instructions": len(ops),
                     "vectors": vectors,
                     "per_16_bytes": len(ops) / vectors if vectors else None})
     return out
+
+
+def ldg_bytes(op: str) -> int:
+    """The bytes a lane's LDG of opcode ``op`` loads (0 for another
+    opcode)."""
+    if not op.startswith("LDG"):
+        return 0
+    return next((n for suf, n in _LDG_BYTES.items() if suf in op), 4)
+
+
+def load_loops(instrs: list) -> list:
+    """The innermost loops of (address, text) ``instrs`` that load from
+    device memory (an LDG): each one's [first, last] address,
+    instructions, bytes a lane loads (its LDGs' widths) and instructions
+    per 16 of those bytes."""
+    out = []
+    for start, end, ops in _innermost_loops(
+            instrs, lambda op: op.startswith("LDG")):
+        nbytes = sum(ldg_bytes(op) for op in ops)
+        out.append({"loop": [start, end], "instructions": len(ops),
+                    "bytes": nbytes,
+                    "per_16_bytes": 16 * len(ops) / nbytes})
+    return out
+
+
+def blocks_per_sm(registers: int, smem: int, threads: int) -> int:
+    """The blocks of ``threads`` threads an H100 SM holds at once with
+    ``registers`` a thread (allocated 8 at a time) and ``smem`` bytes of
+    shared memory a block."""
+    regs = -(-registers // 8) * 8 * threads
+    return min(SM_REGISTERS // regs,
+               SM_SHARED // (smem + BLOCK_RESERVED_SHARED),
+               SM_THREADS // threads, SM_BLOCKS)
 
 
 def opcode(instr: str) -> str:
@@ -240,6 +301,12 @@ def report(root: str, dump: str | None = None,
                      **summarize(instrs, rows_per_iteration(name))}
         if source == "probe_kernels":
             out[name]["vector_loops"] = vector_loops(addressed[mangled])
+        if name.startswith("row_sweep_kernel"):
+            out[name]["load_loops"] = load_loops(addressed[mangled])
+        threads = BLOCK_THREADS.get(name.split("<")[0])
+        if threads and "registers" in out[name]:
+            out[name]["blocks_per_sm"] = blocks_per_sm(
+                out[name]["registers"], out[name].get("smem", 0), threads)
         if dump:
             os.makedirs(dump, exist_ok=True)
             fname = re.sub(r"[^A-Za-z0-9_]+", "_", name).strip("_")
@@ -269,6 +336,13 @@ def _line(name: str, rec: dict, old: dict | None) -> str:
         text += (f"; {len(loops)} vector loop(s), "
                  f"{min(loops):.2f}-{max(loops):.2f} instructions per 16 "
                  f"bytes ({', '.join(f'{x:.2f}' for x in loops)})")
+    loads = [lp["per_16_bytes"] for lp in rec.get("load_loops", ())]
+    if loads:
+        text += (f"; {len(loads)} load loop(s), "
+                 f"{', '.join(f'{x:.2f}' for x in loads)} instructions per "
+                 f"16 bytes loaded")
+    if "blocks_per_sm" in rec:
+        text += f"; {rec['blocks_per_sm']} blocks an SM"
     if old is not None:
         text += ("; SASS unchanged" if old["sha256"] == rec["sha256"] else
                  f"; SASS differs (was {old['instructions']} instructions, "

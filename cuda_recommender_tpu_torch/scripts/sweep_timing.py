@@ -5,7 +5,8 @@ version (K5 also against ``torch.linalg.solve``, the gathers against
 that computes each function), for one checkout of the port.
 
     python cuda_recommender_tpu_torch/scripts/sweep_timing.py [--root DIR]
-        [--gathers | --fp8 [--outputs FILE] | --streams | --read-levers]
+        [--gathers | --fp8 [--outputs FILE] | --streams | --read-levers |
+         --row-sweep]
 
 ``--root`` imports the package from another checkout (an unpacked copy of
 another commit; default: the checkout that holds this file), so that one
@@ -37,6 +38,15 @@ checkout's copy of this file to time its streams. With ``--read-levers``
 it times ``stream_read`` at the same shapes under its own plan and under
 plans that each take one lever of its design away (``read_lever_plans``),
 in turns.
+With ``--row-sweep`` it times the row sweep instead (``time_row_sweep``:
+K2 at bf16 at every panel shape of the Yahoo r1_t and c15_t stairs, read
+from ``results/yahoo_robustness.jsonl``, at the headline's panels and at
+NAN_SHAPES, K2 at fp8 at the headline's panel 0, and masked_usweep at
+MASKED_SHAPE for f32, bf16 and fp8 residuals beside a bf16 and an int8
+mask), each beside its bound and its plain version, and for each stair
+40 x the sum of its panels' times beside the record's profiled K2 time.
+It uses only the wrappers, so ``--root`` times an older checkout's row
+sweep too.
 ``chip_smoke.py`` times its phases 6, 9, 15, 19 and 42 through
 ``nan_sweeps``, ``gj_solves``, ``masked_sweeps``, ``time_streams``,
 ``time_fp8`` and ``time_sweeps``, and
@@ -70,6 +80,15 @@ VARIANT_SHAPE = (165_376, 18_432)
 #: matrix's NaN pattern)
 STREAM_SHAPES = (NAN_SHAPES[0], VARIANT_SHAPE, (150_061, 4_096))
 STREAM_REPS = 5
+#: the row sweep's stairs (``--row-sweep``): the Yahoo jobs whose panels it
+#: times, and the records that hold their panels and profiled K2 times
+ROW_STAIRS = ("r1_t", "c15_t")
+ROW_RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           os.pardir, "results", "yahoo_robustness.jsonl")
+#: the headline's panels (the hand stair at Netflix-100M dims)
+HEADLINE_PANELS = ((330_128, 17_770), (150_061, 4_096))
+#: the rank's K2 launches a stair panel takes an iteration (k = 40)
+ROW_K = 40
 #: K5: the ALS headline's rows side (ml20M's users) at k = 10, 40 (the
 #: headline) and 128 (the kernel's widest)
 GJ_S = 138_493
@@ -513,6 +532,108 @@ def time_read_levers(device, reps: int = STREAM_REPS, shapes=None) -> dict:
     return out
 
 
+def stair_panels(job: str) -> tuple:
+    """(the (rows, width) of each panel, the profiled K2 ms an iteration)
+    of Yahoo job ``job``'s record in ROW_RECORDS."""
+    with open(ROW_RECORDS) as f:
+        rec = next(r for r in map(json.loads, f) if r.get("name") == job)
+    return ([(r1 - r0, w) for r0, r1, w in rec["panels"]],
+            (rec.get("busy_ms_by_part") or {}).get("K2"))
+
+
+def _row_plan_text(R) -> str:
+    """The row sweep's plan of R where the checkout has one."""
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    plan_of = getattr(pk, "residual_plan", None)
+    if plan_of is None:
+        return "the checkout has no row_sweep_plan"
+    p = plan_of(R)
+    return (f"{p['segments']} segments of {p['segment_spans']} spans, "
+            f"{p['chunks']} chunks, grid {p['grid']}")
+
+
+def _time_row(name, calls, what, device, reps) -> dict:
+    """``time_sweeps`` of the row sweep's calls, each record with its
+    bound (bytes over the HBM rate) and the plan it ran."""
+    from cuda_recommender_tpu_torch.scripts.common import PEAK_BYTES_S
+
+    out = time_sweeps(calls, what, device, reps)
+    for rec in out.values():
+        rec["bound_ms"] = 1e3 * rec["bytes"] / PEAK_BYTES_S
+    return out
+
+
+def time_row_sweep(device, reps: int = REPS) -> dict:
+    """The row sweep (see the file's head) at its shapes, in turns with
+    its plain version (``time_sweeps``). Returns {"name shape what":
+    record}; with {"stair job": {...}} for each stair: 40 x the sum of its
+    panels' ms, the bound's, and the record's profiled K2 ms."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import ccd_kernels as ck
+    from cuda_recommender_tpu_torch.ops import panel_kernels as pk
+
+    fp8 = torch.float8_e4m3fn
+    out, stairs = {}, {}
+
+    def k2(M, W, dtype, what):
+        R, (_, _, vo, _) = nan_panel(M, W, device, seed=M + W, dtype=dtype)
+        name = pk.instance_name("panel_usweep", dtype)
+        print(f"[plan] {name} {M}x{W}: {_row_plan_text(R)}", flush=True)
+        got = _time_row(name, {name: (
+            lambda: pk.panel_usweep(R, vo),
+            lambda: pk.panel_usweep_plain(R, vo),
+            R.element_size() * M * W + 4 * (W + 2 * M), 3 * M * W)},
+            what, device, reps)
+        del R
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return next(iter(got.values()))
+
+    for job in ROW_STAIRS:
+        shapes, profiled = stair_panels(job)
+        recs = []
+        for i, (M, W) in enumerate(shapes):
+            rec = k2(M, W, torch.bfloat16, f"{M}x{W} bf16, {job} panel {i}")
+            out[f"panel_usweep {M}x{W} bf16 {job} panel {i}"] = rec
+            recs.append(rec)
+        ms = (None if recs[0]["ms"] is None else
+              ROW_K * sum(r["ms"] for r in recs))
+        bound = ROW_K * sum(r["bound_ms"] for r in recs)
+        stairs[f"stair {job}"] = {"ms_per_iter": ms,
+                                  "bound_ms_per_iter": bound,
+                                  "profiled_ms_per_iter": profiled}
+        print(f"[stair] {job}: K2 {ROW_K} x the panels' ms = "
+              + ("not measured" if ms is None else f"{ms:.1f} ms")
+              + f" an iteration, bound {bound:.1f} ms, the record's "
+              f"profiled K2 {profiled} ms", flush=True)
+    for M, W in dict.fromkeys(HEADLINE_PANELS + NAN_SHAPES):
+        out[f"panel_usweep {M}x{W} bf16"] = k2(M, W, torch.bfloat16,
+                                               f"{M}x{W} bf16")
+    M, W = NAN_SHAPES[0]
+    out[f"panel_usweep_fp8 {M}x{W} fp8"] = k2(M, W, fp8, f"{M}x{W} fp8")
+    M, W = MASKED_SHAPE
+    for dtype in (torch.float32, torch.bfloat16, fp8):
+        for mdt in (torch.bfloat16, torch.int8):
+            R, Mk, (_, _, va, _) = masked_panel(M, W, dtype, mdt, device,
+                                                seed=7)
+            name = pk.instance_name("masked_usweep", dtype)
+            print(f"[plan] {name} {M}x{W}: {_row_plan_text(R)}", flush=True)
+            out.update(_time_row(name, {name: (
+                lambda: ck.masked_usweep(R, Mk, va),
+                lambda: ck.masked_usweep_plain(R, Mk, va),
+                M * W * (R.element_size() + Mk.element_size())
+                + 4 * (W + 2 * M), 4 * M * W)},
+                f"{M}x{W} {str(dtype)[6:]}, {str(mdt)[6:]} mask", device,
+                reps))
+            del R, Mk
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    out.update(stairs)
+    return out
+
+
 def fp8_outputs(device, seed: int = 5) -> dict:
     """Each fp8 instance run once on one seeded input at FP8_OUTPUT_SHAPE
     (a NaN panel; a masked residual beside a bf16 and an int8 mask): "name
@@ -621,6 +742,10 @@ def main(argv=None) -> int:
     p.add_argument("--read-levers", action="store_true",
                    help="time stream_read's plan against plans without "
                         "each of its levers instead")
+    p.add_argument("--row-sweep", action="store_true",
+                   help="time the row sweep (K2, masked_usweep) at the "
+                        "Yahoo stairs', the headline's and the dense "
+                        "path's shapes instead")
     p.add_argument("--outputs", metavar="FILE",
                    help="with --fp8: write the fp8 outputs' digests to "
                         "FILE, or hold them bit-equal to it where it exists")
@@ -643,6 +768,8 @@ def main(argv=None) -> int:
         kernels = time_streams(device)
     elif args.read_levers:
         kernels = time_read_levers(device)
+    elif args.row_sweep:
+        kernels = time_row_sweep(device)
     elif args.fp8:
         kernels = {key: rec for recs in time_fp8(device).values()
                    for key, rec in recs.items()}

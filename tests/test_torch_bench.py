@@ -304,6 +304,54 @@ def test_sweep_timing_streams_on_cpu(monkeypatch):
     assert len(lines) == 1 + len(out["kernels"])
 
 
+def test_sweep_timing_row_sweep_on_cpu(monkeypatch, tmp_path):
+    """``--row-sweep``: K2 at each panel of the two stairs (read from the
+    Yahoo records), at the headline's panels and NAN_SHAPES, K2 fp8 and
+    masked_usweep at f32, bf16 and fp8 beside both masks, each beside its
+    plain version and its bound; a line a stair with 40 x its panels'
+    times next to the record's profiled K2; times "not measured" on the
+    CPU."""
+    recs = tmp_path / "yahoo.jsonl"
+    recs.write_text("".join(json.dumps(
+        {"name": job, "panels": panels, "busy_ms_by_part": {"K2": k2}}) + "\n"
+        for job, panels, k2 in (
+            ("r1_t", [[0, 3, 700], [3, 40, 33]], 559.3),
+            ("c15_t", [[0, 5, 301]], 329.5))))
+    monkeypatch.setattr(sweep_timing, "ROW_RECORDS", str(recs))
+    monkeypatch.setattr(sweep_timing, "HEADLINE_PANELS", ((70, 33),))
+    monkeypatch.setattr(sweep_timing, "NAN_SHAPES", ((70, 33), (9, 301)))
+    monkeypatch.setattr(sweep_timing, "MASKED_SHAPE", (40, 17))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    rc, lines = _run(sweep_timing.main, ["--device", "cpu", "--row-sweep"])
+    out = json.loads(lines[-1])
+    assert rc == 0 and out["root"] == ROOT
+    ks = out["kernels"]
+    assert [k for k in ks if k.startswith("panel_usweep ")] == [
+        "panel_usweep 3x700 bf16 r1_t panel 0",
+        "panel_usweep 37x33 bf16 r1_t panel 1",
+        "panel_usweep 5x301 bf16 c15_t panel 0",
+        "panel_usweep 70x33 bf16", "panel_usweep 9x301 bf16"]
+    assert "panel_usweep_fp8 70x33 fp8" in ks
+    assert sorted(k.split(" ")[0] for k in ks
+                  if k.startswith("masked_usweep")) == \
+        ["masked_usweep"] * 4 + ["masked_usweep_fp8"] * 2
+    for key, r in ks.items():
+        if key.startswith("stair"):
+            continue
+        assert r["ms"] is None and r["plain_ms"] is None
+        assert r["bound_ms"] == pytest.approx(1e3 * r["bytes"] / 3.35e12)
+    assert ks["panel_usweep 3x700 bf16 r1_t panel 0"]["bytes"] == \
+        2 * 3 * 700 + 4 * (700 + 6)
+    stair = ks["stair r1_t"]
+    assert stair["ms_per_iter"] is None
+    assert stair["profiled_ms_per_iter"] == 559.3
+    assert stair["bound_ms_per_iter"] == pytest.approx(40 * (
+        ks["panel_usweep 3x700 bf16 r1_t panel 0"]["bound_ms"]
+        + ks["panel_usweep 37x33 bf16 r1_t panel 1"]["bound_ms"]))
+    assert sum(line.startswith("[stair]") for line in lines) == 2
+    assert sum(line.startswith("[plan]") for line in lines) == 12
+
+
 def test_sweep_timing_read_levers_on_cpu(monkeypatch):
     """``--read-levers``: both reads at each stream shape under
     stream_read's plan and under each plan that changes one lever of it

@@ -23,7 +23,11 @@ from cuda_recommender_tpu.ops import panel_pallas as jp
 from cuda_recommender_tpu_torch.ops import build, launches
 from cuda_recommender_tpu_torch.ops import panel_kernels as pk
 
-SHAPES = [(48, 64, 16, 32), (50, 70, 16, 32), (16, 128, 16, 128)]
+#: (M, W, bm, bw): the last is wider than a row-sweep segment (the card's
+#: K2 cuts its rows into 4 segments at f32 and bf16), and its Pallas
+#: kernels accumulate across 8 column blocks
+SHAPES = [(48, 64, 16, 32), (50, 70, 16, 32), (16, 128, 16, 128),
+          (8, 30_001, 8, 4096)]
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]
 
@@ -64,6 +68,8 @@ def _assert_residual(port, ref, name):
 @pytest.mark.parametrize("M,W,bm,bw", SHAPES)
 def test_panel_kernels_match_pallas(M, W, bm, bw, name, jdt, tdt):
     Rd, (uo, up, vo, vp) = _inputs(M, W, seed=M * W)
+    if W > 8192:
+        assert pk.row_sweep_plan(M, W, tdt.itemsize)["segments"] > 1
     launches.reset_launch_counts()
     j = {x: jnp.asarray(v) for x, v in zip(("uo", "up", "vo", "vp"),
                                             (uo, up, vo, vp))}

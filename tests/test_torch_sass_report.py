@@ -46,7 +46,8 @@ def test_parse_ptxas_and_sass():
     function, NOPs dropped, predicates kept in the text."""
     rep = sr.parse_ptxas(PTXAS)
     assert rep[MANGLED] == {"stack": 16, "spill_stores": 12,
-                            "spill_loads": 12, "registers": 128}
+                            "spill_loads": 12, "registers": 128,
+                            "smem": 16_384}
     assert rep["_Z3foov"]["registers"] == 32
     sass = sr.parse_sass(SASS)
     assert len(sass[MANGLED]) == 7 and sass["_Z3foov"] == ["EXIT"]
@@ -162,3 +163,37 @@ def test_vector_loops_count_instructions_per_16_bytes():
            "vector_loops": loops}
     assert "1 vector loop(s), 9.50-9.50 instructions per 16 bytes" in \
         sr._line("stream_read_kernel<true, true>", rec, None)
+
+
+def test_load_loops_count_instructions_per_16_bytes_loaded():
+    """A row sweep's innermost loops that load from device memory: the
+    loop 0x10-0x130 (2 LDG.128, 32 bytes a lane, 19 instructions) and the
+    scalar loop 0x140-0x160 (one 4-byte LDG, 3 instructions) both count;
+    the loop 0x0-0x170 holds them. The line reports both."""
+    addressed = sr.parse_sass(LOOPS, addresses=True)["_Z4readv"]
+    loops = sr.load_loops(addressed)
+    assert loops == [
+        {"loop": [0x10, 0x130], "instructions": 19, "bytes": 32,
+         "per_16_bytes": 9.5},
+        {"loop": [0x140, 0x160], "instructions": 3, "bytes": 4,
+         "per_16_bytes": 12.0}]
+    assert [sr.ldg_bytes(op) for op in ("LDG.E.64", "LDG.E.U16",
+                                        "LDG.E.128.CONSTANT", "LDG.E",
+                                        "FADD")] == [8, 2, 16, 4, 0]
+    rec = {**sr.summarize([t for _, t in addressed], None),
+           "load_loops": loops, "blocks_per_sm": 3}
+    line = sr._line("row_sweep_kernel<__nv_bfloat16, NanMask>", rec, None)
+    assert "2 load loop(s), 9.50, 12.00 instructions per 16 bytes" in line
+    assert line.endswith("; 3 blocks an SM")
+
+
+def test_blocks_per_sm_from_registers_and_shared_memory():
+    """The row sweep's blocks an SM: 256 threads at 80 registers (3), at
+    117 (allocated as 120: 2) and at 128; shared memory limits a block of
+    100 KB to 2; ptxas' smem figure is parsed."""
+    assert sr.blocks_per_sm(80, 36_865, 256) == 3
+    assert sr.blocks_per_sm(117, 36_865, 256) == 2
+    assert sr.blocks_per_sm(128, 4_097, 256) == 2
+    assert sr.blocks_per_sm(32, 100_000, 256) == 2
+    assert sr.blocks_per_sm(16, 0, 256) == 8
+    assert sr.parse_ptxas(PTXAS)[MANGLED]["smem"] == 16_384
