@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..data.sparse import RatingMatrix, TestCOO
+from ..utils.timing import span
 
 GOLDEN_RTOL = 0.1   # src/extras.cpp:223
 
@@ -75,17 +76,19 @@ def calrmse_device(test_i: torch.Tensor, test_j: torch.Tensor,
     cuda_src/CUDA_AUX.cu:3-27). W and H are entity-major, (m, k) and (n, k)
     (ALS), or rank-major, (k, m) and (k, n) (CCD++); each chunk gathers its
     factor rows, forms the predictions and adds its f32 sum of squared
-    errors to an f32 accumulator. Returns a 0-d f32 tensor (no host sync)."""
-    if not entity_major:
-        W, H = W.t(), H.t()                      # (m, k), (n, k) views
-    nnz = test_v.shape[0]
-    acc = torch.zeros((), dtype=torch.float32, device=W.device)
-    for s in range(0, nnz, chunk):
-        i, j = test_i[s:s + chunk], test_j[s:s + chunk]
-        pred = (W[i] * H[j]).sum(dim=1)
-        err = pred - test_v[s:s + chunk]
-        acc += (err * err).sum()
-    return torch.sqrt(acc / max(1, nnz))
+    errors to an f32 accumulator. Returns a 0-d f32 tensor (no host sync).
+    A profiler sees it as the span ``crtpu.eval.rmse``."""
+    with span("crtpu.eval.rmse"):
+        if not entity_major:
+            W, H = W.t(), H.t()                  # (m, k), (n, k) views
+        nnz = test_v.shape[0]
+        acc = torch.zeros((), dtype=torch.float32, device=W.device)
+        for s in range(0, nnz, chunk):
+            i, j = test_i[s:s + chunk], test_j[s:s + chunk]
+            pred = (W[i] * H[j]).sum(dim=1)
+            err = pred - test_v[s:s + chunk]
+            acc += (err * err).sum()
+        return torch.sqrt(acc / max(1, nnz))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -88,6 +88,7 @@ from ..ops.ell_ops import (deferred_flush, deferred_sweep, extend_zero,
                            sweep_partials)
 from ..ops.panel_kernels import (panel_update_vsweep, panel_usweep,
                                  panel_vsweep)
+from ..utils.timing import span
 from .ccd_dense import _half_sweep, rank1_update
 from .hybrid_state import (HybridState, hybrid_state_from_numpy,
                            hybrid_state_to_numpy, padded_panel_shape)
@@ -609,7 +610,11 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
     ``reduce(g, h) -> (g, h)`` (the sharded step, parallel/
     ccd_hybrid_sharded.py) sums each half-sweep's partials over the ranks
     before the division; ``plan`` is then the rank's part of the plan
-    (``local_plan``): its panels' row blocks and its shard of the tail."""
+    (``local_plan``): its panels' row blocks and its shard of the tail.
+
+    Profiler spans: each half-sweep's panel loop is ``crtpu.ccd.panels``,
+    its ELL tail and each flush ``crtpu.ccd.tail``; the zeroing, the
+    reduce, the divisions and the state writes are the caller's span."""
     rows, cols = plan.ell.rows_side, plan.ell.cols_side
     panels = plan.panels
     have_light = plan.nnz_light > 0
@@ -625,14 +630,71 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
         """Apply the group's 2G deferred deltas to both tail sides, then
         clear the tables. The flush needs slot-space own vectors: the 2G
         columns are remapped once here."""
-        OV = torch.stack(stacked_remap(V_def.unbind(1), d.ipos_safe))
-        OU = torch.stack(stacked_remap(U_def.unbind(1), d.upos_safe))
-        deferred_flush(d.idx_c, st.vals_c, cols, extend_zero(U_def), OV,
-                       dsigns)
-        deferred_flush(d.idx_r, st.vals_r, rows, extend_zero(V_def), OU,
-                       dsigns)
+        with span("crtpu.ccd.tail"):
+            OV = torch.stack(stacked_remap(V_def.unbind(1), d.ipos_safe))
+            OU = torch.stack(stacked_remap(U_def.unbind(1), d.upos_safe))
+            deferred_flush(d.idx_c, st.vals_c, cols, extend_zero(U_def), OV,
+                           dsigns)
+            deferred_flush(d.idx_r, st.vals_r, rows, extend_zero(V_def), OU,
+                           dsigns)
         U_def.zero_()
         V_def.zero_()
+
+    def cols_tail(st: HybridState, i: int, u, u_old, v_old, U_def, V_def,
+                  g, h) -> tuple:
+        """The v-sweep's ELL tail: (g, h) plus the tail's partials."""
+        with span("crtpu.ccd.tail"):
+            if G:
+                # against the frozen values, corrected for the group's
+                # recorded deltas in entity space
+                S0, Sc, h_l = deferred_sweep(
+                    d.idx_c, st.vals_c, cols,
+                    extend_zero(torch.cat([u[:, None], U_def], 1)))
+                g_e, h_e = fused_remap_combine([S0] + Sc, h_l,
+                                               d.slot_of_ipos, V_def.T,
+                                               dsigns)
+            else:
+                if i == 0:
+                    ovp, ovo = stacked_remap((st.v_pend, v_old),
+                                             d.ipos_safe)
+                    g_l, h_l = fused_update_sweep(
+                        d.idx_c, st.vals_c, cols,
+                        extend_zero(torch.stack([st.u_pend, u_old], -1)),
+                        owns=(ovp, ovo), signs=(-1.0, 1.0), sweep_col=1)
+                else:
+                    g_l, h_l = fused_sweep(
+                        d.idx_c, st.vals_c, cols,
+                        extend_zero(torch.stack([u, u], -1)), sweep_col=0)
+                g_e, h_e = stacked_remap((g_l, h_l), d.slot_of_ipos)
+            return g + g_e, h + h_e
+
+    def rows_tail(st: HybridState, i: int, v, u_old, v_old, U_def, V_def,
+                  gu, hu) -> tuple:
+        """The u-sweep's ELL tail: (gu, hu) plus the tail's partials."""
+        with span("crtpu.ccd.tail"):
+            if G:
+                S0r, Scr, h_lr = deferred_sweep(
+                    d.idx_r, st.vals_r, rows,
+                    extend_zero(torch.cat([v[:, None], V_def], 1)))
+                gu_e, hu_e = fused_remap_combine([S0r] + Scr, h_lr,
+                                                 d.slot_of_upos, U_def.T,
+                                                 dsigns)
+            else:
+                if i == 0:
+                    # the deferred subtract of rank t-1, the add-back, and
+                    # the sweep with the NEW v in one 3-wide gather pass
+                    oup, ouo = stacked_remap((st.u_pend, u_old),
+                                             d.upos_safe)
+                    g_lr, h_lr = fused_update_sweep(
+                        d.idx_r, st.vals_r, rows,
+                        extend_zero(torch.stack([st.v_pend, v_old, v], -1)),
+                        owns=(oup, ouo), signs=(-1.0, 1.0), sweep_col=2)
+                else:
+                    g_lr, h_lr = fused_sweep(
+                        d.idx_r, st.vals_r, rows,
+                        extend_zero(torch.stack([v, v], -1)), sweep_col=0)
+                gu_e, hu_e = stacked_remap((g_lr, h_lr), d.slot_of_upos)
+            return gu + gu_e, hu + hu_e
 
     def rank(st: HybridState, t: int, U_def, V_def) -> None:
         u_old, v_old = st.W[t], st.H[t]
@@ -647,81 +709,36 @@ def make_hybrid_outer_step(plan: HybridPlan, dplan: HybridDevicePlan,
         for i in range(maxinneriter):
             # ---- v-sweep (items): panel partials + ELL partials ----
             g, h = torch.zeros(n, **f32), torch.zeros(n, **f32)
-            for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
-                if i == 0:
-                    vecs = (u_old[r0:r1], st.u_pend[r0:r1], v_old[:w],
-                            st.v_pend[:w])
-                    gp, hp = (panel_update_vsweep(Rd, *vecs, order=order)
-                              if Mk is None else
-                              fused_update_vsweep(Rd, Mk, *vecs, order=order))
-                elif Mk is None:
-                    gp, hp = panel_vsweep(Rd, u[r0:r1])
-                else:
-                    gp, hp = masked_vsweep(Rd, Mk, u[r0:r1])
-                g[:w] += gp
-                h[:w] += hp
-            if have_light:
-                if G:
-                    # against the frozen values, corrected for the group's
-                    # recorded deltas in entity space
-                    S0, Sc, h_l = deferred_sweep(
-                        d.idx_c, st.vals_c, cols,
-                        extend_zero(torch.cat([u[:, None], U_def], 1)))
-                    g_e, h_e = fused_remap_combine([S0] + Sc, h_l,
-                                                   d.slot_of_ipos, V_def.T,
-                                                   dsigns)
-                else:
+            with span("crtpu.ccd.panels"):
+                for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
                     if i == 0:
-                        ovp, ovo = stacked_remap((st.v_pend, v_old),
-                                                 d.ipos_safe)
-                        g_l, h_l = fused_update_sweep(
-                            d.idx_c, st.vals_c, cols,
-                            extend_zero(torch.stack([st.u_pend, u_old], -1)),
-                            owns=(ovp, ovo), signs=(-1.0, 1.0), sweep_col=1)
+                        vecs = (u_old[r0:r1], st.u_pend[r0:r1], v_old[:w],
+                                st.v_pend[:w])
+                        gp, hp = (
+                            panel_update_vsweep(Rd, *vecs, order=order)
+                            if Mk is None else
+                            fused_update_vsweep(Rd, Mk, *vecs, order=order))
+                    elif Mk is None:
+                        gp, hp = panel_vsweep(Rd, u[r0:r1])
                     else:
-                        g_l, h_l = fused_sweep(
-                            d.idx_c, st.vals_c, cols,
-                            extend_zero(torch.stack([u, u], -1)), sweep_col=0)
-                    g_e, h_e = stacked_remap((g_l, h_l), d.slot_of_ipos)
-                g = g + g_e
-                h = h + h_e
+                        gp, hp = masked_vsweep(Rd, Mk, u[r0:r1])
+                    g[:w] += gp
+                    h[:w] += hp
+            if have_light:
+                g, h = cols_tail(st, i, u, u_old, v_old, U_def, V_def, g, h)
             v = _half_sweep(*reduce(g, h), lam, d.col_nnz, nmf)
 
             # ---- u-sweep (users) ----
             gu, hu = torch.zeros(m, **f32), torch.zeros(m, **f32)
-            for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
-                gp, hp = (panel_usweep(Rd, v[:w]) if Mk is None
-                          else masked_usweep(Rd, Mk, v[:w]))
-                gu[r0:r1] += gp
-                hu[r0:r1] += hp
+            with span("crtpu.ccd.panels"):
+                for (r0, r1, w), Rd, Mk in zip(panels, st.Rds, masks):
+                    gp, hp = (panel_usweep(Rd, v[:w]) if Mk is None
+                              else masked_usweep(Rd, Mk, v[:w]))
+                    gu[r0:r1] += gp
+                    hu[r0:r1] += hp
             if have_light:
-                if G:
-                    S0r, Scr, h_lr = deferred_sweep(
-                        d.idx_r, st.vals_r, rows,
-                        extend_zero(torch.cat([v[:, None], V_def], 1)))
-                    gu_e, hu_e = fused_remap_combine([S0r] + Scr, h_lr,
-                                                     d.slot_of_upos,
-                                                     U_def.T, dsigns)
-                else:
-                    if i == 0:
-                        # the deferred subtract of rank t-1, the add-back,
-                        # and the sweep with the NEW v in one 3-wide gather
-                        # pass
-                        oup, ouo = stacked_remap((st.u_pend, u_old),
-                                                 d.upos_safe)
-                        g_lr, h_lr = fused_update_sweep(
-                            d.idx_r, st.vals_r, rows,
-                            extend_zero(torch.stack([st.v_pend, v_old, v],
-                                                    -1)),
-                            owns=(oup, ouo), signs=(-1.0, 1.0), sweep_col=2)
-                    else:
-                        g_lr, h_lr = fused_sweep(
-                            d.idx_r, st.vals_r, rows,
-                            extend_zero(torch.stack([v, v], -1)),
-                            sweep_col=0)
-                    gu_e, hu_e = stacked_remap((g_lr, h_lr), d.slot_of_upos)
-                gu = gu + gu_e
-                hu = hu + hu_e
+                gu, hu = rows_tail(st, i, v, u_old, v_old, U_def, V_def,
+                                   gu, hu)
             u = _half_sweep(*reduce(gu, hu), lam, d.row_nnz, nmf)
 
         # ---- write back (src/CCD.cpp:128-134); the subtract of rank t's

@@ -1,1 +1,1 @@
-from .timing import Phases, profile_trace, sync, timeit  # noqa: F401
+from .timing import profile_trace, span, sync, timeit  # noqa: F401

@@ -272,21 +272,6 @@ def test_convert_native_and_numpy_write_the_same_files(tmp_path):
 
 # ------------------------------------------------------------ utils/timing
 
-def test_phases_accumulate_on_the_host_clock():
-    ph = timing.Phases()
-    for _ in range(2):
-        with ph.span("rank", result=torch.ones(3)):
-            torch.randn(64, 64) @ torch.randn(64, 64)
-        with ph.span("update"):
-            pass
-    assert set(ph.acc) == {"rank", "update"}
-    assert ph.acc["rank"] >= ph.last["rank"] > 0.0
-    assert ph.acc["update"] >= ph.last["update"] >= 0.0
-    line = ph.line()
-    assert line.startswith("rank ") and " update " in line and \
-        line.endswith("s")
-
-
 def test_timeit_and_sync():
     calls = []
 
@@ -302,5 +287,10 @@ def test_timeit_and_sync():
 
 def test_profile_trace_writes_a_trace(tmp_path):
     with timing.profile_trace(str(tmp_path)):
-        torch.randn(100) * 2
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
+        with timing.span("crtpu.step", {"oiter": 1}):
+            torch.randn(100) * 2
+    traces = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert traces
+    # the program's spans are what an operator reads in the trace
+    with open(tmp_path / traces[0]) as f:
+        assert '"crtpu.step"' in f.read()
