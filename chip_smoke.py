@@ -292,6 +292,28 @@ GJ_TIMED_KS = (10, 40, 128)
 GJ_F64_TOL = 5e-4      # rtol = atol against the f64 solve (test_pallas.py:87)
 GJ_F64_SYSTEMS = 4096  # systems checked against f64 at large S
 
+#: the ALS gram kernel's checks (phase 3): every bucket (E, p) of the ALS
+#: cells' layouts (benchmark/traffic ml20m and yahoo_r1 at their auto
+#: floors, both sides) at k = 40, the lane-packed, a floor, a split and
+#: the heaviest Yahoo item's bucket at every k of ALS_GRAM_KS
+ALS_GRAM_SHAPES = (
+    (32, 4), (71, 1), (77, 1), (136, 1), (163, 1), (246, 1), (320, 1),
+    (410, 1), (504, 1), (537, 1), (653, 1), (1078, 1), (1144, 1),
+    (1379, 1), (1398, 1), (2552, 1), (2900, 1), (3602, 1), (3734, 1),
+    (6646, 1), (7169, 1), (9839, 1), (14335, 1), (17023, 1), (23683, 1),
+    (28764, 1), (42223, 1), (74253, 1), (93337, 1), (121751, 1),
+    (321304, 1), (1222764, 1))
+ALS_GRAM_EDGES = ((32, 4), (77, 1), (2552, 1), (1222764, 1))
+ALS_GRAM_KS = (1, 15, 40, 64, 128)
+#: lanes of one check case at most (rows of a shape: as many as fit, at
+#: least one), and the rows of the other side's table
+ALS_GRAM_LANES = 1 << 21
+ALS_GRAM_OTHER = 100_000
+#: float32's unit roundoff: an f32 sum of n products by FMA is off the
+#: exact one by at most (n - 1)·u·Σ|terms| (each addition rounds once),
+#: and adding a slot's m segment sums m - 1 more roundings
+F32_U = 2.0 ** -24
+
 #: the JAX README's quick start (README.md:22-31): ml10M dims, k=10,
 #: lambda=0.05, golden dual run, every other knob default (AUTO -> dense,
 #: f32 residual, bf16 mask); 3 of its 5 iterations (the NumPy golden run
@@ -713,6 +735,127 @@ def check_gj(checks=GJ_CHECKS) -> float:
     return worst
 
 
+def _gram_case(E, p, k, device, seed, vec=True):
+    """One row group of a bucket (E, p) at rank k: as many rows as fit
+    ALS_GRAM_LANES lanes (at least one); seeded counts in [0, E], the
+    first slot full and the last empty; lanes past a slot's count point at
+    the zero slot (row ALS_GRAM_OTHER) with value 0, as data/ell.py fills
+    them; ``vec=False`` puts the table 4 bytes past a 16-byte boundary
+    (the kernel's 4-byte copies)."""
+    rows = max(1, ALS_GRAM_LANES // (E * p))
+    S, n = rows * p, ALS_GRAM_OTHER
+    gen = torch.Generator(device=device).manual_seed(seed)
+    counts = torch.randint(0, E + 1, (S,), generator=gen, device=device)
+    counts[0] = E
+    if S > 1:
+        counts[-1] = 0
+    real = torch.arange(E, device=device)[None, :] < counts[:, None]
+    idx = torch.where(real, torch.randint(0, n, (S, E), generator=gen,
+                                          device=device), n)
+    val = torch.where(real, 1 + 4 * torch.rand((S, E), generator=gen,
+                                               device=device), 0.0)
+    base = torch.randn(n * k + (0 if vec else 1), generator=gen,
+                       device=device)
+    other = base[(0 if vec else 1):].view(n, k)
+    return (idx.reshape(rows, E * p), val.reshape(rows, E * p),
+            counts.float(), other)
+
+
+def check_als_gram(device, shapes=None) -> float:
+    """Phase 3: ``als_gram`` (csrc/als_kernels.cu) against an f64 gram of
+    the same real lanes: every bucket shape of ALS_GRAM_SHAPES at k = 40
+    and ALS_GRAM_EDGES at every k of ALS_GRAM_KS, one on a table off a
+    16-byte boundary. Each entry within (lanes + segments)·u·Σ|terms| of
+    the f64 gram (the f32 summation's bound, ``F32_U``), the gram
+    symmetric bit for bit, empty slots exactly 0, a second run bit-equal,
+    and the launches ``launches_per_call`` a call. Returns the largest
+    error as a share of its bound."""
+    from cuda_recommender_tpu_torch.ops import als_kernels as ak
+    from cuda_recommender_tpu_torch.ops import launches as lc
+
+    shapes = ALS_GRAM_SHAPES if shapes is None else shapes
+    cases = ([(E, p, 40, True) for E, p in shapes]
+             + [(E, p, k, True) for E, p in ALS_GRAM_EDGES
+                for k in ALS_GRAM_KS if k != 40]
+             + [(E, p, 40, False) for E, p in ALS_GRAM_EDGES[:1]])
+    t0 = time.perf_counter()
+    worst, calls = 0.0, 0
+    lc.reset_launch_counts()
+    for i, (E, p, k, vec) in enumerate(cases):
+        idx, val, counts, other = _gram_case(E, p, k, device, 100 + i, vec)
+        got = ak.als_gram(idx, val, counts, other, E, p)
+        again = ak.als_gram(idx, val, counts, other, E, p)
+        calls += 2 * ak.launches_per_call(E)
+        torch.cuda.synchronize()
+        S = counts.shape[0]
+        table = torch.cat([other.double(), other.new_zeros((1, k),
+                                                           dtype=torch.float64)])
+        f = table[idx.reshape(S, E)]
+        f = torch.cat([f, val.reshape(S, E, 1).double()], dim=2)
+        want = torch.bmm(f.transpose(1, 2), f)
+        terms = torch.bmm(f.abs().transpose(1, 2), f.abs())
+        del f
+        lanes = min(E, ak.SEGMENT_LANES) + ak.segments(E)
+        bar = lanes * F32_U * terms
+        err = (got.double() - want).abs()
+        what = f"als_gram E={E} p={p} k={k}" + ("" if vec else " (4-byte)")
+        if bool((err > bar).any()):
+            raise AssertionError(f"{what}: off the f64 gram by "
+                                 f"{float(err.max()):.3e} over the bar")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"{what}: two runs differ in bits")
+        if not torch.equal(got.view(torch.int32),
+                           got.transpose(1, 2).view(torch.int32)):
+            raise AssertionError(f"{what}: not symmetric bit for bit")
+        if bool(got[counts == 0].any()):
+            raise AssertionError(f"{what}: an empty slot's gram is not 0")
+        share = float((err / bar.clamp_min(1e-300)).max())
+        worst = max(worst, share)
+        print(f"[check] {what}: S {S}, {int(counts.sum())} real lanes of "
+              f"{S * E}; max |got - f64| {float(err.max()):.3e}, "
+              f"{100 * share:.2f}% of its bound; repeatable, symmetric",
+              flush=True)
+        del idx, val, counts, other, got, again, want, terms, err, bar
+    got = lc.launch_counts()["als_gram"]
+    if got != calls:
+        raise AssertionError(f"als_gram launches {got}, want {calls}")
+    print(f"[check] als_gram: {len(cases)} cases, {calls} launches, "
+          f"largest error {100 * worst:.2f}% of its bound "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_als_gram(reps=3) -> dict:
+    """The ALS gram kernel over one outer iteration's groups at the ALS
+    headline's layout (phase 8's data; ``sweep_timing.als_assemblies``,
+    k = 40) against
+    its plain version, which is also the library yardstick (the gather and
+    f32 bmm the port ran before the kernel), in turns plain, kernel,
+    kernel, plain. Returns ms, plain_ms, library_ms, bound_ms, bound_by."""
+    from cuda_recommender_tpu_torch.data.datasets import synthetic_cached
+    from cuda_recommender_tpu_torch.data.ell import build_ell_pair
+    from cuda_recommender_tpu_torch.scripts import sweep_timing as st
+
+    A = ALS_HEADLINE
+    R, _ = synthetic_cached(A["m"], A["n"], A["nnz"], seed=1,
+                            test_fraction=0.02)
+    calls = st.als_assemblies(build_ell_pair(R, min_width="auto"), A["k"],
+                              torch.device("cuda"), seed=13)
+    rec = st.time_sweeps(calls, "ALS headline, an iteration",
+                         torch.device("cuda"), reps)[
+        "als_gram ALS headline, an iteration"]
+    b_ms, b_by = bound(rec["bytes"], rec["flops"])
+    print(f"[timing] als_gram an iteration: bound {b_ms:.3f} ms ({b_by}), "
+          f"{100 * b_ms / rec['ms']:.1f}% of it; kernel "
+          f"{rec['flops'] / rec['ms'] / 1e9:.2f} TFLOP/s on the full "
+          f"(k+1)^2", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    return dict(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                library_ms=rec["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+
+
 def run_als_headline(device, *, m, n, nnz, k, lam, iters,
                      metrics_file) -> dict:
     """train() at the ALS headline (ml20M dims, ``iters`` outer
@@ -778,6 +921,7 @@ def run_als_headline(device, *, m, n, nnz, k, lam, iters,
                              f"{rmse}")
     want = {name: 0 for name in launches}
     want["gj_solve"] = per_iter * iters
+    want["als_gram"] = plan["als_gram_launches_per_iter"] * iters
     if launches != want:
         raise AssertionError(f"ALS launches {launches}, want {want}")
 
@@ -2902,6 +3046,8 @@ def run_als_precisions(device, als) -> dict:
                                                 cfg.als_group_mb << 20, prec)
         want = {name: 0 for name in ln}
         want["gj_solve"] = per_iter * A["iters"]
+        want["als_gram"] = als_ell.als_gram_launches_per_iter(
+            ell, A["k"], cfg.als_group_mb << 20, prec) * A["iters"]
         if ln != want:
             raise AssertionError(f"ALS {prec}: launches {ln}, want {want}")
         _count(ln, launches)
@@ -2945,8 +3091,10 @@ def run_als_precisions(device, als) -> dict:
               f"{prof['idle_pct']:.2f}%, " + ", ".join(
                   f"{p} {ms:.3f} ms" for p, ms in parts.items())
               + f"; gram kernels {kernels}; the assembly's bound "
-              f"{b_ms:.3f} ms ({b_by}) against its gathers and products' "
-              f"{parts['bmm'] + parts['gather']:.3f}", flush=True)
+              f"{b_ms:.3f} ms ({b_by}) against its gram kernel, gathers "
+              f"and products' "
+              f"{parts['gram'] + parts['bmm'] + parts['gather']:.3f}",
+              flush=True)
         del res, step
     del R, T, tiles
     torch.cuda.empty_cache()
@@ -3657,13 +3805,14 @@ def main() -> int:
           flush=True)
 
     phase("3 kernel checks (the row sweep at every case of its plan, the "
-          "column sweeps at every row alignment)")
+          "column sweeps at every row alignment, K5, the ALS gram kernel)")
     worst = check_kernels(dev, CHECK_SHAPES)
     check_row_sweeps(dev, (torch.float32, torch.bfloat16), (None,), worst)
     align = check_alignment(dev)
     for name in worst:
         worst[name] = max(worst[name], align.get(name, 0.0))
     gj_worst = check_gj()
+    als_gram_worst = check_als_gram(dev)
 
     phase("4 headline run (train(), Netflix-100M dims, k=40, bf16, NaN "
           "sentinel, hand stair (4096, 2048), 6.5e9 cells)")
@@ -3693,8 +3842,10 @@ def main() -> int:
             tmp, "als.jsonl"), **ALS_HEADLINE)
 
     phase("9 K5 timing at the ALS headline's rows side (S=138,493; k=10, "
-          "40, 128), against its plain version and torch.linalg.solve")
+          "40, 128), against its plain version and torch.linalg.solve; the "
+          "ALS gram kernel over an iteration, against its plain version")
     gj_times = {k: time_gj(k) for k in GJ_TIMED_KS}
+    gram_times = time_als_gram()
     print(f"[timing] card: {smi}", flush=True)
 
     phase("10 ALS CLI with golden check")
@@ -4058,6 +4209,12 @@ def main() -> int:
                     "replaces": GJ_REPLACES,
                     "launches": paths["gj_solve"],
                     "max_abs_err": gj_worst, **gj_times[40]})
+    # the ALS gram kernel replaces no TPU kernel; its error is its largest
+    # share of the f32 summation's bound
+    kernels.append({"name": "als_gram", "route": "cuda",
+                    "source": f"{CSRC}/als_kernels.cu", "replaces": None,
+                    "launches": paths["als_gram"],
+                    "max_abs_err": als_gram_worst, **gram_times})
     # K4 and the masked sweeps: the dense headline's f32 residual
     kernels += [{"name": name, "route": "cuda",
                  "source": f"{CSRC}/panel_kernels.cu", "replaces": replaces,

@@ -5,8 +5,9 @@ shared library of its own with a plain C interface, which ctypes loads:
 ``panel_kernels.cu`` (the CCD++ residual passes: K1-K3 over NaN-sentinel
 panels, K4 and the masked sweeps over explicit-mask residuals, each at an
 f32, bf16 or fp8 residual, and K1's integer-rounding probe),
-``gj_kernels.cu`` (K5, the ALS batched solve) and ``probe_kernels.cu``
-(the stream and gather probes). The build happens at first
+``gj_kernels.cu`` (K5, the ALS batched solve), ``als_kernels.cu`` (the
+ALS gram assembly) and ``probe_kernels.cu`` (the stream and gather
+probes). The build happens at first
 use, into ``cuda_recommender_tpu_torch/_build/`` (listed in .gitignore),
 under a name keyed by the source's and the flags' hash, so an edited source
 rebuilds and an unchanged one loads at once. ``build()`` starts one
@@ -56,6 +57,12 @@ SIGNATURES = {
     "gj_kernels": {
         # A, A's batch and row strides, b, b's strides, x, S, k, stream
         "crtpu_gj_solve": [_p, _ll, _ll, _p, _ll, _ll, _p, _ll, _i, _p],
+    },
+    "als_kernels": {
+        # idx, val, counts, other, other's rows, out, partial grams (None
+        # unless slots split), S, E, segment lanes, k, stream
+        "crtpu_als_gram": [_p, _p, _p, _p, _ll, _p, _p, _ll, _i, _i, _i,
+                           _p],
     },
     "probe_kernels": {
         # R, rows, width, stream

@@ -110,11 +110,13 @@ def als_step(device, m, n, nnz, k, lam, precision="highest"):
             f"{precision}")
 
 
-#: the ALS step's kernels by part: the gram products (cuBLAS' f32 SIMT
-#: kernels and its Hopper bf16 kernels), the gathers ``table[idx]``
-#: (aten::index's kernels) and K5; the rest (casts, the rating column's
-#: copy, λ, the zeroing of empty slots) is "other"
-ALS_PARTS = (("bmm", re.compile(r"gemm|nvjet|xmma|cutlass")),
+#: the ALS step's kernels by part: the f32 gram kernel (``als_gram``, its
+#: segments' sum included), the bf16 gram products (cuBLAS' Hopper
+#: kernels; its f32 SIMT kernels where the plain f32 path runs), the
+#: gathers ``table[idx]`` (aten::index's kernels) and K5; the rest (casts,
+#: the rating column's copy, λ, the zeroing of empty slots) is "other"
+ALS_PARTS = (("gram", re.compile(r"als_gram")),
+             ("bmm", re.compile(r"gemm|nvjet|xmma|cutlass")),
              ("gather", re.compile(r"index|gather")),
              ("gj_solve", re.compile(r"gj_")))
 

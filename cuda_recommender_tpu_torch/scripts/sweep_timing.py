@@ -48,7 +48,8 @@ mask), each beside its bound and its plain version, and for each stair
 It uses only the wrappers, so ``--root`` times an older checkout's row
 sweep too.
 ``chip_smoke.py`` times its phases 6, 9, 15, 19 and 42 through
-``nan_sweeps``, ``gj_solves``, ``masked_sweeps``, ``time_streams``,
+``nan_sweeps``, ``gj_solves``, ``als_assemblies`` (the ALS gram
+kernel over an iteration's groups), ``masked_sweeps``, ``time_streams``,
 ``time_fp8`` and ``time_sweeps``, and
 checks K5 on ``spd_systems``, so that one place holds the calls, their
 bytes and their operations. Prints one line per
@@ -277,6 +278,47 @@ def gj_solves(k, S, device, seed) -> dict:
                          lambda: gk.gj_solve_plain(A, b),
                          4 * (A.numel() + 2 * b.numel()), S * k * k * (k + 1),
                          lambda: torch.linalg.solve(A, b))}
+
+
+def als_assemblies(ell, k, device, seed) -> dict:
+    """The ALS gram assembly of one outer iteration ("highest") over the
+    layout ``ell``: every (bucket, row group) of both sides (the trainer's
+    groups), against seeded factor tables of rank k. {"als_gram": (kernel
+    call, plain call, bytes, flops)}; the plain version is the port's
+    gather and f32 ``torch.bmm`` as they were before the kernel, so it is
+    also the library yardstick. Bytes and flops are
+    ``scripts/common.py::assembly_bound``'s: each rating's index (int64)
+    and value read and each slot's (k+1)^2 gram written once, 2 (k+1)^2
+    operations a rating and side."""
+    import torch
+
+    from cuda_recommender_tpu_torch.ops import als_kernels as ak
+    from cuda_recommender_tpu_torch.solvers import als_ell
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    W, H = (torch.randn((side.n_slots, k), generator=gen, device=device)
+            for side in (ell.rows_side, ell.cols_side))
+    groups = []
+    for side, other in ((ell.rows_side, H), (ell.cols_side, W)):
+        nnz = torch.as_tensor(side.slot_nnz, device=device)
+        for b, off in zip(side.buckets, side.bucket_offsets):
+            idx = torch.as_tensor(b.idx.astype("int64"), device=device)
+            val = torch.as_tensor(b.val, device=device)
+            for r0, r1 in als_ell._row_groups(b.rows, b.L, b.p, k):
+                groups.append((idx[r0:r1], val[r0:r1],
+                               nnz[off + r0 * b.p:off + r1 * b.p], other,
+                               b.E, b.p))
+
+    def run(fn):
+        for g in groups:
+            fn(*g)
+
+    nnz = int(ell.rows_side.slot_nnz.sum(dtype="float64"))
+    slots = ell.rows_side.n_slots + ell.cols_side.n_slots
+    return {"als_gram": (lambda: run(ak.als_gram),
+                         lambda: run(ak.als_gram_plain),
+                         2 * nnz * 12 + slots * (k + 1) ** 2 * 4,
+                         2 * nnz * 2 * (k + 1) ** 2)}
 
 
 def gathers(S, rows, device, seed) -> dict:

@@ -4,20 +4,24 @@ The port of ``cuda_recommender_tpu/solvers/als_ell.py``, the counterpart of
 the reference's ALS paths (reference src/ALS.cpp:81-233,
 cuda_src/ALS_CUDA.cu:65-180). The reference gives each user/item one CUDA
 thread that builds a k×k gram from CSR-gathered factor rows and inverts it.
-Here each degree bucket of the ELL layout (data/ell.py) gathers the other
-side's factor rows for all its slots at once, forms every slot's gram AND
-right-hand side with one batched product of Faug = [F | val] with itself,
-and solves all k×k systems with K5, the hand-written batched Gauss-Jordan
-kernel (ops/gj_kernels.py, csrc/gj_kernels.cu): a solve, not the
-reference's explicit inverse (src/ALS.cpp:41-64) — same math, better
-numerics.
+Here each degree bucket of the ELL layout (data/ell.py) forms every
+slot's gram AND right-hand side at once, as the augmented gram
+Faugᵀ Faug of Faug = [F | val], and solves all k×k systems with K5, the
+hand-written batched Gauss-Jordan kernel (ops/gj_kernels.py,
+csrc/gj_kernels.cu): a solve, not the reference's explicit inverse
+(src/ALS.cpp:41-64) — same math, better numerics.
 
 ``als_precision`` sets the gram product as the JAX package's
 ``jax.lax.Precision`` sets its einsum on the TPU (``als_ell.py:366-370``),
 the precision coming from the operands' dtypes alone (no process-wide
 matmul flag changes; core/device.py):
 
-* "highest": true f32, one f32 ``torch.bmm`` (TF32 stays off).
+* "highest": true f32. On the card, ``ops/als_kernels.py::als_gram``, a
+  hand-written kernel that reads each slot's real lanes only, copies the
+  other side's factor rows straight into shared memory and accumulates
+  the augmented gram there in f32 FFMA; no gathered operand exists. On
+  the CPU, its plain version: the gather of Faug and one f32
+  ``torch.bmm``.
 * "high": bf16x3. Faug splits into bf16 ``hi = bf16(x)`` and
   ``lo = bf16(x - hi)``; G = hi·hi + hi·lo + lo·hi, three bf16 tensor-core
   products with f32 results, summed in f32 (the lo·lo term dropped, as
@@ -25,7 +29,8 @@ matmul flag changes; core/device.py):
 * "default": one bf16 pass: Faug, the ratings included, rounded to bf16,
   one bf16 product with an f32 result.
 
-The bf16 operands come from bf16 gather tables, split or rounded once per
+The bf16 operands ("high", "default") are gathered as Faug, from bf16
+gather tables, split or rounded once per
 side (the same values as rounding after the gather, half the gather's
 bytes), padded with zero columns to a multiple of 8 so that a gathered row
 is 16-byte aligned (cuBLAS keeps the Hopper tensor-core kernels; at 41
@@ -63,6 +68,8 @@ from ..data.ell import EllBucket, EllPair, EllSide, _resolve_min_width
 from ..data.ell import build_ell_pair
 from ..data.sparse import RatingMatrix, TestCOO
 from ..eval.metrics import calrmse_device, default_eval_chunk
+from ..ops.als_kernels import als_gram, augmented_table, launches_per_call
+from ..ops.als_kernels import SEGMENT_LANES, segments
 from ..ops.gj_kernels import gj_solve, gj_solve_plain
 from ..utils.timing import span
 from .als_state import als_state_from_numpy, als_state_to_numpy, slot_payload
@@ -77,18 +84,6 @@ GROUP_TEMP_BYTES = 2 << 30
 
 #: the gram product's precisions (Config.als_precision)
 PRECISIONS = ("highest", "high", "default")
-
-
-def augmented_table(other: torch.Tensor, width: Optional[int] = None
-                    ) -> torch.Tensor:
-    """The other side's factors (n, k) as the gather table of the augmented
-    assembly: (n + 1, width) f32, width k + 1 by default; zero row n (the
-    ELL pad lanes' zero slot, ``extend_zero``), column k where each lane's
-    rating goes, and zero columns after it."""
-    n, k = other.shape
-    table = other.new_zeros((n + 1, width or k + 1))
-    table[:n, :k] = other
-    return table
 
 
 def _padded_width(k: int) -> int:
@@ -110,11 +105,12 @@ def operands(x: torch.Tensor, precision: str) -> tuple:
 
 
 def gram_tables(other: torch.Tensor, precision: str) -> tuple:
-    """The gather tables of one side's solve: ``operands`` of its
-    augmented table; for bf16, (n + 1, c) views, c = ``_padded_width``,
-    of tables 4 columns wider (``_gather``)."""
+    """The tables of one side's solve: "highest" reads the factors (n, k)
+    themselves (``als_gram``); bf16 gathers ``operands`` of the augmented
+    table, (n + 1, c) views, c = ``_padded_width``, of tables 4 columns
+    wider (``_gather``)."""
     if precision == "highest":
-        return (augmented_table(other),)
+        return (other,)
     c = _padded_width(other.shape[1])
     return tuple(t[:, :c] for t in operands(augmented_table(other, c + 4),
                                            precision))
@@ -150,11 +146,12 @@ def gram_product(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 def gather_operands(idx: torch.Tensor, val: torch.Tensor, tables: tuple,
                     b: EllBucket, k: int, precision: str) -> list:
-    """One bucket's Faug per operand of ``operands``: idx (rows, L) int64
-    and val (rows, L) f32 -> (S, E, c) tensors, S = rows·p, Faug[s, e] =
-    [F[idx[s, e]] | val[s, e] | 0...] gathered from ``gram_tables(·,
-    precision)`` (lane-packed rows, p > 1, reshape (rows, L) -> (rows·p,
-    E) per-slot lanes; padded lanes gather the zero row with value 0)."""
+    """One bucket's bf16 Faug per operand of ``operands`` ("high",
+    "default"): idx (rows, L) int64 and val (rows, L) f32 -> (S, E, c)
+    tensors, S = rows·p, Faug[s, e] = [F[idx[s, e]] | val[s, e] | 0...]
+    gathered from ``gram_tables(·, precision)`` (lane-packed rows, p > 1,
+    reshape (rows, L) -> (rows·p, E) per-slot lanes; padded lanes gather
+    the zero row with value 0)."""
     S = idx.shape[0] * b.p
     lanes = idx.reshape(S, b.E)
     F = []
@@ -165,13 +162,20 @@ def gather_operands(idx: torch.Tensor, val: torch.Tensor, tables: tuple,
     return F
 
 
-def _gram_and_rhs(idx: torch.Tensor, val: torch.Tensor, tables: tuple,
-                  b: EllBucket, k: int, precision: str = "highest"):
+def _gram_and_rhs(idx: torch.Tensor, val: torch.Tensor,
+                  counts: torch.Tensor, tables: tuple, b: EllBucket, k: int,
+                  precision: str = "highest"):
     """Per-slot gram and rhs of one bucket's rows -> G (S, k, k), r (S, k),
-    both views of one augmented (S, c, c) product Gaug[s] = Faug[s]^T
-    Faug[s] (``gather_operands``; "high": hi·hi + hi·lo + lo·hi, summed
-    in that order): the gram in [:k, :k], the rhs in [:k, k]. Padded lanes
-    and the tables' zero columns contribute exactly 0 to both."""
+    both views of one augmented (S, c, c) gram Gaug[s] = Faug[s]^T
+    Faug[s]: the gram in [:k, :k], the rhs in [:k, k]. "highest":
+    ``als_gram`` over each slot's ``counts`` (S,) real lanes; bf16: the
+    products of ``gather_operands`` over every lane ("high": hi·hi +
+    hi·lo + lo·hi, summed in that order), where padded lanes and the
+    tables' zero columns contribute exactly 0."""
+    if precision == "highest":
+        with span("crtpu.als.gram"):
+            Gaug = als_gram(idx, val, counts, tables[0], b.E, b.p)
+        return Gaug[:, :k, :k], Gaug[:, :k, k]
     with span("crtpu.als.gather"):
         F = gather_operands(idx, val, tables, b, k, precision)
     with span("crtpu.als.gram"):
@@ -220,7 +224,8 @@ def _solve_side(idx_tiles, val_tiles, side: EllSide, other: torch.Tensor,
     """One ALS half-iteration over a side: x_j = (F_Ω^T F_Ω + λI)^{-1}
     F_Ω^T r for every slot, in row groups per bucket (one K5 launch each);
     returns the (n_slots, k) new factors. Profiler spans: the tables and
-    each group's gathers are ``crtpu.als.gather``, its gram products
+    each group's gathers are ``crtpu.als.gather`` (at "highest" on the card
+    they put nothing on it), its gram kernel or products
     ``crtpu.als.gram``, its solve and store ``crtpu.als.solve``."""
     k = other.shape[1]
     with span("crtpu.als.gather"):
@@ -230,8 +235,9 @@ def _solve_side(idx_tiles, val_tiles, side: EllSide, other: torch.Tensor,
                                 idx_tiles, val_tiles):
         for r0, r1 in _row_groups(b.rows, b.L, b.p, k, group_bytes,
                                   precision):
-            G, r = _gram_and_rhs(idx[r0:r1], val[r0:r1], tables, b, k,
-                                 precision)
+            G, r = _gram_and_rhs(idx[r0:r1], val[r0:r1],
+                                 slot_nnz[off + r0 * b.p:off + r1 * b.p],
+                                 tables, b, k, precision)
             with span("crtpu.als.solve"):
                 # λ unscaled, ALS.cpp:121
                 G.diagonal(dim1=1, dim2=2).add_(lam)
@@ -288,15 +294,40 @@ def k5_launches_per_iter(ell: EllPair, k: int, solver: str,
                for b in side.buckets)
 
 
+def als_gram_launches_per_iter(ell: EllPair, k: int, group_bytes: int,
+                               precision: str = "highest") -> int:
+    """``als_gram`` kernel launches of one outer iteration on the card: one
+    per (bucket, row group) at "highest", two where the bucket's slots are
+    cut into segments (``ops/als_kernels.py::launches_per_call``)."""
+    if precision != "highest":
+        return 0
+    return sum(len(_row_groups(b.rows, b.L, b.p, k, group_bytes, precision))
+               * launches_per_call(b.E)
+               for side in (ell.rows_side, ell.cols_side)
+               for b in side.buckets)
+
+
 def _side_plan(side: EllSide, floor: int, k: int, group_bytes: int,
                precision: str) -> dict:
+    """A side's layout, and what ``als_gram`` does with it: the real lanes
+    it reads (``assembled_lanes``), the padded ones it never touches
+    (``skipped_pad_lanes``), the slots of buckets wider than
+    ``SEGMENT_LANES`` that it cuts across blocks (``split_slots``) and
+    their segments."""
+    real = int(side.slot_nnz.sum(dtype=np.float64))
+    split = [(b.rows * b.p, segments(b.E)) for b in side.buckets
+             if b.E > SEGMENT_LANES]
     return dict(min_width=floor, widths=[b.E for b in side.buckets],
                 rows=[b.rows for b in side.buckets],
                 slots=[b.rows * b.p for b in side.buckets],
                 n_slots=side.n_slots, padded_lanes=side.nnz_padded,
                 groups=[len(_row_groups(b.rows, b.L, b.p, k, group_bytes,
                                         precision))
-                        for b in side.buckets])
+                        for b in side.buckets],
+                assembled_lanes=real,
+                skipped_pad_lanes=side.nnz_padded - real,
+                split_slots=sum(s for s, _ in split),
+                segments=sum(s * m for s, m in split))
 
 
 def _untiled_note(ell: EllPair, k: int, tile_mb: float) -> Optional[str]:
@@ -356,19 +387,24 @@ def als_ell_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
                     precision)
                 for name, side, ptr in (("rows", rows, R.csr_ptr),
                                         ("cols", cols, R.csc_ptr))}
-        launches = k5_launches_per_iter(ell, k, cfg.als_solver, group_bytes,
-                                        precision)
+        k5 = k5_launches_per_iter(ell, k, cfg.als_solver, group_bytes,
+                                  precision)
+        grams = als_gram_launches_per_iter(ell, k, group_bytes, precision)
         log.info("[info] als plan: " + "; ".join(
             f"{name} side {len(p['widths'])} buckets (widths "
             f"{p['widths']}), {p['padded_lanes']} padded lanes, "
-            f"{sum(p['groups'])} groups, floor {p['min_width']}"
+            f"{sum(p['groups'])} groups, floor {p['min_width']}; "
+            f"assembled lanes {p['assembled_lanes']}, skipped pad lanes "
+            f"{p['skipped_pad_lanes']}, split slots {p['split_slots']} "
+            f"in {p['segments']} segments"
             for name, p in plan.items())
             + f"; gram precision {precision}; K5 launches per iteration "
-            f"{launches}; plan "
+            f"{k5}; als_gram launches per iteration {grams}; plan "
             f"{t1 - t0:.3f} s, device set-up {t2 - t1:.3f} s")
         log.event("als_plan", k=k, solver=cfg.als_solver,
                   precision=precision, nnz=R.nnz,
-                  sides=plan, k5_launches_per_iter=launches,
+                  sides=plan, k5_launches_per_iter=k5,
+                  als_gram_launches_per_iter=grams,
                   plan_s=t1 - t0, setup_s=t2 - t1)
         note = _untiled_note(ell, k, cfg.als_gather_tile_mb)
         if note:

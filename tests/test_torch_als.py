@@ -163,14 +163,16 @@ def test_gram_and_rhs_matches_jax(name, min_width):
     ell = tell.build_ell_pair(R, min_width=min_width)
     rng = np.random.default_rng(1)
     other = rng.uniform(-1, 1, (ell.cols_side.n_slots, K)).astype(np.float32)
-    table = ta.augmented_table(torch.from_numpy(other))
+    table = torch.from_numpy(other)
     other_ext = jnp.asarray(np.concatenate([other, np.zeros((1, K),
                                                             np.float32)]))
     ps = set()
-    for b in ell.rows_side.buckets:
+    nnz = torch.from_numpy(ell.rows_side.slot_nnz)
+    for b, off in zip(ell.rows_side.buckets, ell.rows_side.bucket_offsets):
         ps.add(b.p)
         G, r = ta._gram_and_rhs(torch.from_numpy(b.idx.astype(np.int64)),
-                                torch.from_numpy(b.val), (table,), b, K)
+                                torch.from_numpy(b.val),
+                                nnz[off:off + b.rows * b.p], (table,), b, K)
         Gj, rj = ja._gram_and_rhs(jnp.asarray(b.idx), jnp.asarray(b.val),
                                   other_ext, b, 512, batch_last=True,
                                   augmented=True)

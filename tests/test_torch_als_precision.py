@@ -90,16 +90,18 @@ def test_gram_and_rhs_matches_jax(precision, k):
     rng = np.random.default_rng(k)
     other = rng.uniform(-1, 1, (ell.cols_side.n_slots, k)).astype(np.float32)
     tables = ta.gram_tables(torch.from_numpy(other), precision)
-    assert all(t.shape[1] == (k + 1 if precision == "highest"
+    assert all(t.shape[1] == (k if precision == "highest"
                               else -(-(k + 1) // 8) * 8) for t in tables)
     rtol, atol = TOL[precision]
     abs_tables = ta.gram_tables(torch.from_numpy(np.abs(other)), "highest")
-    for b in ell.rows_side.buckets:
+    nnz = torch.from_numpy(ell.rows_side.slot_nnz)
+    for b, off in zip(ell.rows_side.buckets, ell.rows_side.bucket_offsets):
         idx = torch.from_numpy(b.idx.astype(np.int64))
-        G, r = ta._gram_and_rhs(idx, torch.from_numpy(b.val), tables, b, k,
-                                precision)
+        counts = nnz[off:off + b.rows * b.p]
+        G, r = ta._gram_and_rhs(idx, torch.from_numpy(b.val), counts, tables,
+                                b, k, precision)
         Gt, rt = ta._gram_and_rhs(idx, torch.from_numpy(np.abs(b.val)),
-                                  abs_tables, b, k)    # Σ|terms|
+                                  counts, abs_tables, b, k)    # Σ|terms|
         assert G.dtype == r.dtype == torch.float32
         if precision == "highest":
             Gj, rj = _jax_gram(b, other, b.val)
